@@ -6,9 +6,10 @@ module's counterpart sits at the same path.  Devices and dtypes are explicit:
 ``MultiPointConstraint(V, dtype, device=...)`` and
 ``assemble_matrix_lattice(..., device=...)`` place the tables and operators,
 and everything downstream follows them; nothing probes for a device.  The
-main path's two kernels (the fused lean-fold assembler K1 and the DIA SpMV
-K2) are CUDA C++ for sm_90a in ``csrc/``, built with nvcc on first use; on
-CPU tensors their plain PyTorch versions run instead.
+lattice path's kernels (the fused lean-fold assemblers K1, K3 and K4, the
+DIA SpMV K2 and the blocked SpMV K6) are CUDA C++ for sm_90a in ``csrc/``,
+built with nvcc on first use; on CPU tensors their plain PyTorch versions
+run instead.
 """
 
 import torch as _torch

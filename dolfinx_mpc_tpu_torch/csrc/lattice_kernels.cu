@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels of the lattice fast path: the fused lean-fold
-// assembler (K1) and the scalar DIA SpMV (K2).
+// assemblers (K1, its blocked use K4, and the masked K3), the scalar DIA
+// SpMV (K2) and the parity-blocked SpMV (K6).
 //
 // Built by dolfinx_mpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -7,8 +8,8 @@
 // extern "C" launcher enqueues one kernel on the caller's stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() so that a
 // refused launch reaches the Python wrapper (ops/lattice_kernels.py), which
-// raises on any non-zero code.  Both kernels are templated on float (the
-// main path) and double (the f64 oracle on the card).
+// raises on any non-zero code.  All kernels are templated on float (the
+// main path) and double (the f64 oracles on the card).
 
 #include <cuda_runtime.h>
 
@@ -21,28 +22,72 @@ inline unsigned int n_blocks(long long total) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: fused lean-fold assembler, factored-mask form.
+// K1 / K4 / K3: fused lean-fold assemblers.
 //
-// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_lean_fold_pallas_group
-// (kernel_factored).  The host reduction (ops/lattice_kernels.py:
-// build_fold_table) has already collapsed every element tensor entry of the
-// uniform lattice into a short table per output DIA plane mi:
+// The host reduction (ops/lattice_kernels.py:build_fold_table) has already
+// collapsed every element tensor entry of the uniform lattice into a short
+// table per output plane mi:
 //   planes[8*mi .. 8*mi+7] = (ri, ci, di, dj, dk, is_diag, e_begin, e_end)
 //   ent[3*e .. 3*e+2]      = (dax, day, daz)   for e in [e_begin, e_end)
 //   coef[3*e .. 3*e+2]     = (c0, c1, c2)      value c0 s^3 + c1 s^2 + c2 s
 // Entry e covers the box window p in [dax, dax+nx), j in [day, day+ny),
-// k in [daz, daz+nz).  The result is masked by the separable keep factors
-// of the row (ri at p, j, k) and of the column (ci at p+di, j+dj, k+dk), and
-// the diagonal planes get diagval * (pad - keep) on the bc rows.
+// k in [daz, daz+nz).  The result is masked by the keep mask of the row
+// (stack row ri at p, j, k) and of the column (stack row ci at p+di, j+dj,
+// k+dk), and the diagonal planes get diagval on the bc rows.  On the grid
+// layout (degree 1) a plane is a DIA offset and the stack rows are dof
+// components; on the parity-blocked layout (degree 2) a plane is a triple
+// (row class, column class, coarse offset) over the padded class grids and
+// the stack rows are the 8 parity classes — the same arithmetic, which is
+// why the JAX package runs K1's Pallas code over a _BlockedView for K4.
 //
 // One thread per output element (mi, p, j, k), k fastest, so the single
-// store per thread is coalesced.  The kernel is bound by that write
-// (n_planes * n0 * n1 * n2 values, 16.5 MB at n=64 in f32); the table and
-// the factor rows (a few KB) stay in L1/L2, and the per-entry window test
-// is a handful of integer compares, so there is no tiling to do.  The
-// TPU kernel's VMEM offset splitting, transposed j-factor layout and SMEM
+// store per thread is coalesced.  The kernels are bound by that write
+// (16.5 MB per P1 assembly at n=64 in f32, 253 MB for the 230 P2 triples
+// at n=64); the table (a few KB) stays in L1/L2, and the per-entry window
+// test is a handful of integer compares, so there is no tiling to do.  The
+// TPU kernels' VMEM offset splitting, transposed j-factor layout and SMEM
 // x-factor tables answered TPU memory limits and have no counterpart here.
 // ---------------------------------------------------------------------------
+struct PlanePoint {
+  int mi, p, j, k;
+};
+
+__device__ __forceinline__ PlanePoint split_index(long long idx, int n0, int n1, int n2) {
+  PlanePoint q;
+  q.k = static_cast<int>(idx % n2);
+  long long r = idx / n2;
+  q.j = static_cast<int>(r % n1);
+  r /= n1;
+  q.p = static_cast<int>(r % n0);
+  q.mi = static_cast<int>(r / n0);
+  return q;
+}
+
+// Unmasked value of the output element: the sum of the table entries whose
+// window holds (p, j, k).
+template <typename T>
+__device__ __forceinline__ T window_sum(const PlanePoint& q, int e0, int e1, int nx, int ny, int nz,
+                                        const int* __restrict__ ent, const T* __restrict__ coef,
+                                        T s) {
+  const T s2 = s * s, s3 = s2 * s;
+  T acc = T(0);
+  for (int e = e0; e < e1; ++e) {
+    const int dax = __ldg(ent + 3 * e), day = __ldg(ent + 3 * e + 1), daz = __ldg(ent + 3 * e + 2);
+    if (q.p >= dax && q.p < dax + nx && q.j >= day && q.j < day + ny && q.k >= daz &&
+        q.k < daz + nz) {
+      acc += __ldg(coef + 3 * e) * s3 + __ldg(coef + 3 * e + 1) * s2 + __ldg(coef + 3 * e + 2) * s;
+    }
+  }
+  return acc;
+}
+
+// K1 (and K4): separable masks.  Replaces dolfinx_mpc_tpu/ops/
+// pallas_lattice.py:_make_lean_fold_pallas_group (kernel_factored) and,
+// launched on the blocked table, make_lean_blocked_pallas.  The masks are
+// halo-padded per-axis factors of each stack row; the diagonal term is
+// diagval * (pad - keep), with pad the real-slot indicator.  On the blocked
+// layout pad is 0 on the padded slots, where keep is 0 too, so every padded
+// slot comes out an exact 0 (the blocked SpMV and the fold rely on that).
 template <typename T>
 __global__ void fold_assemble_kernel(T* __restrict__ out, int n_pl, int n0, int n1, int n2,
                                      int nx, int ny, int nz,
@@ -53,14 +98,9 @@ __global__ void fold_assemble_kernel(T* __restrict__ out, int n_pl, int n0, int 
   const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int k = static_cast<int>(idx % n2);
-  long long r = idx / n2;
-  const int j = static_cast<int>(r % n1);
-  r /= n1;
-  const int p = static_cast<int>(r % n0);
-  const int mi = static_cast<int>(r / n0);
-
-  const int* pl = planes + 8 * mi;
+  const PlanePoint q = split_index(idx, n0, n1, n2);
+  const int p = q.p, j = q.j, k = q.k;
+  const int* pl = planes + 8 * q.mi;
   const int ri = __ldg(pl + 0), ci = __ldg(pl + 1);
   const int di = __ldg(pl + 2), dj = __ldg(pl + 3), dk = __ldg(pl + 4);
   const int is_diag = __ldg(pl + 5);
@@ -69,14 +109,7 @@ __global__ void fold_assemble_kernel(T* __restrict__ out, int n_pl, int n0, int 
     out[idx] = T(0);
     return;
   }
-  const T s2 = s * s, s3 = s2 * s;
-  T acc = T(0);
-  for (int e = e0; e < e1; ++e) {
-    const int dax = __ldg(ent + 3 * e), day = __ldg(ent + 3 * e + 1), daz = __ldg(ent + 3 * e + 2);
-    if (p >= dax && p < dax + nx && j >= day && j < day + ny && k >= daz && k < daz + nz) {
-      acc += __ldg(coef + 3 * e) * s3 + __ldg(coef + 3 * e + 1) * s2 + __ldg(coef + 3 * e + 2) * s;
-    }
-  }
+  const T acc = window_sum(q, e0, e1, nx, ny, nz, ent, coef, s);
   // halo-padded factor rows: [ki | pi] (n_stack, n0+2), [kj | pj] (n_stack,
   // n1+2), [kk | pk] (n_stack, n2+2); index +1 skips the halo
   const int L0 = n0 + 2, L1 = n1 + 2, L2 = n2 + 2;
@@ -93,6 +126,46 @@ __global__ void fold_assemble_kernel(T* __restrict__ out, int n_pl, int n0, int 
   if (is_diag) {
     const T pad = __ldg(pi + ri * L0 + p + 1) * __ldg(pj + ri * L1 + j + 1) * __ldg(pk + ri * L2 + k + 1);
     res += dv * (pad - row);
+  }
+  out[idx] = res;
+}
+
+// K3: masks read from memory.  Replaces dolfinx_mpc_tpu/ops/
+// pallas_lattice.py:kernel_masked (fuse mode "2d"), on either layout.  keep
+// is the halo-padded keep stack (n_stack, n0+2, n1+2, n2+2), so the shifted
+// column read (|d| <= 1) never leaves it; ind is the bc multiplicity stack
+// (n_stack, n0, n1, n2), added times diagval on the diagonal planes.  Two
+// or three extra reads per output value, served mostly by L1/L2 (the keep
+// stack is 4 % of the output's size on the blocked layout); no VMEM budget
+// means no size limit, unlike the TPU kernel.
+template <typename T>
+__global__ void fold_assemble_masked_kernel(T* __restrict__ out, int n_pl, int n0, int n1, int n2,
+                                            int nx, int ny, int nz,
+                                            const int* __restrict__ planes,
+                                            const int* __restrict__ ent,
+                                            const T* __restrict__ coef,
+                                            const T* __restrict__ keep,
+                                            const T* __restrict__ ind, T s, T dv) {
+  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const PlanePoint q = split_index(idx, n0, n1, n2);
+  const int* pl = planes + 8 * q.mi;
+  const int ri = __ldg(pl + 0), ci = __ldg(pl + 1);
+  const int di = __ldg(pl + 2), dj = __ldg(pl + 3), dk = __ldg(pl + 4);
+  const int is_diag = __ldg(pl + 5);
+  const int e0 = __ldg(pl + 6), e1 = __ldg(pl + 7);
+  if (e0 == e1) {
+    out[idx] = T(0);
+    return;
+  }
+  const T acc = window_sum(q, e0, e1, nx, ny, nz, ent, coef, s);
+  const long long L0 = n0 + 2, L1 = n1 + 2, L2 = n2 + 2;
+  const T row = __ldg(keep + ((ri * L0 + q.p + 1) * L1 + q.j + 1) * L2 + q.k + 1);
+  const T col = __ldg(keep + ((ci * L0 + q.p + 1 + di) * L1 + q.j + 1 + dj) * L2 + q.k + 1 + dk);
+  T res = acc * row * col;
+  if (is_diag) {
+    res += dv * __ldg(ind + ((static_cast<long long>(ri) * n0 + q.p) * n1 + q.j) * n2 + q.k);
   }
   out[idx] = res;
 }
@@ -140,6 +213,53 @@ __global__ void dia_matvec_kernel(const T* __restrict__ data, const T* __restric
   y[idx] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// K6: parity-blocked SpMV on the padded class stack,
+//   y_b[ci, q] = sum over the triples (m, cj, off) of row class ci of
+//                data[m, q] * x_b[cj, q + off],  zero outside [0, s)^3.
+//
+// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:make_blocked_matvec_pallas,
+// whose per-plane roll + iota masks become bounds-checked loads (equal to
+// the JAX package's halo pad, ops/lattice.py:337-345).  tab is the host-built
+// CSR of the triples by row class, uploaded once per operator:
+//   tab[0 .. n_cls]                 row pointers,
+//   tab[n_cls+1 + 5*t .. +4]        (m, cj, di, dj, dk) of triple t,
+// 230 triples for P2 tets, 4.6 KB: beyond the classic 4 KB kernel-parameter
+// budget, so it is a device table and not passed by value as K2's offsets.
+// One thread per (row class, coarse point), k fastest.  Bound by device
+// memory: (n_trip + 2 n_cls) values per coarse point, 270 MB per matvec at
+// n=64 in f32; the x neighbours come again through L1/L2.  The classes
+// carry 19 to 65 triples, so whole blocks of the body class do ~3x the
+// vertex class's work; that imbalance is left to later tuning.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void blocked_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                                      T* __restrict__ y, const int* __restrict__ tab, int n_cls,
+                                      int s0, int s1, int s2) {
+  const long long S = static_cast<long long>(s0) * s1 * s2;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n_cls * S) return;
+  const int ci = static_cast<int>(idx / S);
+  const long long qf = idx - ci * S;
+  const int k = static_cast<int>(qf % s2);
+  const long long r = qf / s2;
+  const int j = static_cast<int>(r % s1);
+  const int p = static_cast<int>(r / s1);
+  const int* trip = tab + n_cls + 1;
+  T acc = T(0);
+  const int t1 = __ldg(tab + ci + 1);
+  for (int t = __ldg(tab + ci); t < t1; ++t) {
+    const int* e = trip + 5 * t;
+    const int m = __ldg(e), cj = __ldg(e + 1);
+    const int di = __ldg(e + 2), dj = __ldg(e + 3), dk = __ldg(e + 4);
+    const int pp = p + di, jj = j + dj, kk = k + dk;
+    if (pp >= 0 && pp < s0 && jj >= 0 && jj < s1 && kk >= 0 && kk < s2) {
+      acc += __ldg(data + m * S + qf) * __ldg(x + cj * S + (static_cast<long long>(pp) * s1 + jj) * s2 + kk);
+    }
+  }
+  y[idx] = acc;
+}
+
 template <typename T>
 int launch_dia_matvec(const T* data, const T* x, T* y, const int* offs_host, int n_off, int n0,
                       int n1, int n2, void* stream) {
@@ -162,6 +282,27 @@ int launch_fold_assemble(T* out, int n_pl, int n0, int n1, int n2, int nx, int n
   if (total == 0) return 0;
   fold_assemble_kernel<T><<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, fac, n_stack, s, dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fold_assemble_masked(T* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
+                                const int* planes, const int* ent, const T* coef, const T* keep,
+                                const T* ind, T s, T dv, void* stream) {
+  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
+  if (total == 0) return 0;
+  fold_assemble_masked_kernel<T><<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, keep, ind, s, dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_blocked_matvec(const T* data, const T* x, T* y, const int* tab, int n_cls, int s0,
+                          int s1, int s2, void* stream) {
+  const long long total = static_cast<long long>(n_cls) * s0 * s1 * s2;
+  if (total == 0) return 0;
+  blocked_matvec_kernel<T><<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      data, x, y, tab, n_cls, s0, s1, s2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,6 +332,32 @@ int dmt_fold_assemble_f64(double* out, int n_pl, int n0, int n1, int n2, int nx,
                           const double* fac, int n_stack, double s, double dv, void* stream) {
   return launch_fold_assemble<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, fac,
                                       n_stack, s, dv, stream);
+}
+
+int dmt_fold_assemble_masked_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny,
+                                 int nz, const int* planes, const int* ent, const float* coef,
+                                 const float* keep, const float* ind, float s, float dv,
+                                 void* stream) {
+  return launch_fold_assemble_masked<float>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef,
+                                            keep, ind, s, dv, stream);
+}
+
+int dmt_fold_assemble_masked_f64(double* out, int n_pl, int n0, int n1, int n2, int nx, int ny,
+                                 int nz, const int* planes, const int* ent, const double* coef,
+                                 const double* keep, const double* ind, double s, double dv,
+                                 void* stream) {
+  return launch_fold_assemble_masked<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef,
+                                             keep, ind, s, dv, stream);
+}
+
+int dmt_blocked_matvec_f32(const float* data, const float* x, float* y, const int* tab, int n_cls,
+                           int s0, int s1, int s2, void* stream) {
+  return launch_blocked_matvec<float>(data, x, y, tab, n_cls, s0, s1, s2, stream);
+}
+
+int dmt_blocked_matvec_f64(const double* data, const double* x, double* y, const int* tab,
+                           int n_cls, int s0, int s1, int s2, void* stream) {
+  return launch_blocked_matvec<double>(data, x, y, tab, n_cls, s0, s1, s2, stream);
 }
 
 }  // extern "C"

@@ -1,17 +1,19 @@
 """Geometric multigrid preconditioner for lattice operators (torch).
 
-Counterpart of ``dolfinx_mpc_tpu/la/gmg.py`` (non-blocked layout).  Every
-level is a LatticeOperator re-discretized on the coarsened box mesh,
+Counterpart of ``dolfinx_mpc_tpu/la/gmg.py``.  Every level is a
+LatticeOperator re-discretized on the coarsened box mesh (or, for degree 2,
+p-coarsened first: level 1 is the P1 operator on the same refined grid),
 smoothing is weighted Jacobi or Chebyshev-Jacobi, the transfers are linear
 interpolation / full weighting as strided slicing on the vertex grid with
 R = P^T, and the coarsest level is solved with a dense inverse.  The whole
 cycle is a fixed linear symmetric operator, as plain CG requires.  All
 level matvecs, the smoothers' and the Gershgorin bounds', go through the
-level operators' DIA SpMV (kernel K2 on the card).
+level operators' SpMV: kernel K2 on the card for DIA levels, K6 for a
+blocked fine level.  With ``blocked_io`` the fine level works on the padded
+class stack of its BlockDIAMatrix, converting at the level-0/1 transfer.
 
-Not ported: the blocked (degree-2) layout ``blocked_io`` (ROADMAP slice 2)
-and the legacy inner-CG coarse solve, whose nonlinearity the JAX package
-itself warns against.
+Not ported: the legacy inner-CG coarse solve, whose nonlinearity the JAX
+package itself warns against.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.lattice import DIAMatrix, LatticeOperator
+from ..ops.lattice import BlockDIAMatrix, DIAMatrix, LatticeOperator
 
 __all__ = ["LatticeGMG", "build_gmg_hierarchy", "dense_coarse_inverse"]
 
@@ -48,12 +50,16 @@ def _prolong1(c, axis):
     return out
 
 
+def _abs_dia(dia):
+    if isinstance(dia, BlockDIAMatrix):
+        return BlockDIAMatrix(torch.abs(dia.data), dia.trips, dia.vshape, dia.r3)
+    return DIAMatrix(torch.abs(dia.data), dia.offsets, dia.vshape, dia.bs)
+
+
 def _abs_rowsum(A: LatticeOperator):
     """Upper bound on |A| . 1 per row (the Gershgorin numerator): the
-    operator's own matvec on all-ones with |data| and |diagval|."""
-    B = LatticeOperator(
-        DIAMatrix(torch.abs(A.dia.data), A.dia.offsets, A.dia.vshape, A.dia.bs),
-        abs(A.diagval), A.fold_axis, A.fold_mask, A.fold_pairs)
+    operator's own flat matvec on all-ones with |data| and |diagval|."""
+    B = LatticeOperator(_abs_dia(A.dia), abs(A.diagval), A.fold_axis, A.fold_mask, A.fold_pairs)
     return B.matvec(torch.ones(A.shape[0], dtype=A.dtype, device=A.device))
 
 
@@ -96,12 +102,23 @@ class LatticeGMG:
     polynomial, with equal pre/post sweeps; transfers satisfy R = P^T.  The
     JAX package's options that only its callers' caches or probes set
     (omega, coarse mode, precomputed bounds and coarse inverse) are not
-    carried: damping and coarse mode follow from the operators."""
+    carried: damping and coarse mode follow from the operators.
+
+    blocked_io: the fine level works on the padded class stack (n_cls, s0,
+    s1, s2) of its BlockDIAMatrix — __call__ takes and returns that layout,
+    the smoother runs matvec_blocked, and the stack converts to and from the
+    flat vector only at the level-0/1 transfer.  Left False over a blocked
+    fine level, the cycle takes flat vectors and every fine matvec converts
+    (CG on ``A.matvec``, as tests/test_gmg.py compares with blocked I/O)."""
 
     def __init__(self, ops, n_pre=2, n_post=2, free_masks=None, smoother="jacobi",
-                 dense_max=8192):
+                 dense_max=8192, blocked_io=False):
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
+        if blocked_io and not ops[0].supports_blocked():
+            raise ValueError("blocked_io: the fine operator has no blocked layout")
+        if blocked_io and len(ops) < 2:
+            raise ValueError("blocked_io needs a coarse level")
         for Af, Ac in zip(ops[:-1], ops[1:]):
             for nf, ncs in zip(Af.dia.vshape, Ac.dia.vshape):
                 if not (nf == ncs or nf == 2 * ncs - 1):
@@ -109,18 +126,23 @@ class LatticeGMG:
         self.ops = ops
         self.n_pre, self.n_post = n_pre, n_post
         self.smoother = smoother
+        self.blocked_io = blocked_io
         # free_masks[l]: 1 on unconstrained dofs, 0 on bc/slave rows —
         # residuals/corrections are projected onto the free subspace around
         # each transfer so constrained rows don't pollute coarse levels
+        if blocked_io and free_masks is not None:
+            free_masks = [ops[0].dia._to_blocked(free_masks[0])] + list(free_masks[1:])
         self.free_masks = free_masks
-        self._inv_diag = []
-        for A in ops:
-            d = A.diagonal()
-            self._inv_diag.append(torch.where(d != 0, 1.0 / d, torch.zeros_like(d)))
-        # per-level Gershgorin bound lmax(D^-1 A) <= max_i sum_j |a_ij| / d_i:
+        inv = lambda d: torch.where(d != 0, 1.0 / d, torch.zeros_like(d))  # noqa: E731
+        flat_inv = [inv(A.diagonal()) for A in ops]
+        self._inv_diag = list(flat_inv)
+        if blocked_io:
+            self._inv_diag[0] = inv(ops[0].diagonal_blocked())
+        # per-level Gershgorin bound lmax(D^-1 A) <= max_i sum_j |a_ij| / d_i
+        # (from the flat matvec and inverse diagonal on every level):
         # weighted-Jacobi damping keeps omega * lmax < 2 (Poisson lmax = 2 ->
         # the classic 0.8), the Chebyshev polynomials work on [lmax/4, lmax]
-        self._bounds = _gershgorin_bounds(ops, self._inv_diag)
+        self._bounds = _gershgorin_bounds(ops, flat_inv)
         self.omegas = tuple(1.6 / max(l, 2.0) for l in self._bounds)
         self._cheb_sm = tuple(_cheb_interval(b, 4.0) for b in self._bounds)
         # coarse solve: a dense inverse up to dense_max dofs, else a
@@ -137,10 +159,13 @@ class LatticeGMG:
         n0, n1, n2 = A.dia.vshape
         return x.reshape(n0, n1, n2, A.dia.bs)
 
-    def _smooth(self, lvl, x, b, n_sweeps):
+    def _mv(self, lvl):
         A = self.ops[lvl]
+        return A.matvec_blocked if lvl == 0 and self.blocked_io else A.matvec
+
+    def _smooth(self, lvl, x, b, n_sweeps):
         inv = self._inv_diag[lvl]
-        mv = A.matvec
+        mv = self._mv(lvl)
         if self.smoother == "chebyshev":
             # degree-(n_sweeps+1) Chebyshev on [lmax/4, lmax] of D^-1 A,
             # applied to the residual (supports a nonzero incoming x)
@@ -167,6 +192,8 @@ class LatticeGMG:
     def _restrict(self, lvl, r):
         # R = P^T exactly (x2 per coarsened axis on top of full weighting)
         Af, Ac = self.ops[lvl], self.ops[lvl + 1]
+        if lvl == 0 and self.blocked_io:
+            r = Af.dia._from_blocked(r)  # class stack -> fine nodal flat
         g = self._to_grid(Af, r)
         for ax in range(3):
             if Af.dia.vshape[ax] != Ac.dia.vshape[ax]:
@@ -179,7 +206,10 @@ class LatticeGMG:
         for ax in range(3):
             if Af.dia.vshape[ax] != Ac.dia.vshape[ax]:
                 g = _prolong1(g, ax)
-        return g.reshape(-1)
+        g = g.reshape(-1)
+        if lvl == 0 and self.blocked_io:
+            g = Af.dia._to_blocked(g)  # fine nodal flat -> class stack
+        return g
 
     def _coarse_solve(self, b):
         if self.coarse_mode == "dense":
@@ -215,7 +245,7 @@ class LatticeGMG:
             return self._coarse_solve(b)
         x = torch.zeros_like(b)
         x = self._smooth(lvl, x, b, self.n_pre)
-        r = self._mask(lvl, b - self.ops[lvl].matvec(x))
+        r = self._mask(lvl, b - self._mv(lvl)(x))
         rc = self._mask(lvl + 1, self._restrict(lvl, r))
         xc = self._vcycle(lvl + 1, rc)
         x = x + self._mask(lvl, self._prolong(lvl, self._mask(lvl + 1, xc)))

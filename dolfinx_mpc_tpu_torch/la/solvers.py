@@ -40,26 +40,33 @@ class SolverOptions:
         )
 
 
+def _vdot(a, b):
+    """conj(a) . b over all entries, whatever the shape (jnp.vdot flattens;
+    torch.vdot takes only 1-D tensors)."""
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
 def cg(A: Callable, b, M: Callable = None, x0=None, rtol=1e-8, atol=1e-12, max_it=10000):
     """Preconditioned conjugate gradient.  A and M are linear operators
-    (callables on tensors).  Returns (x, iterations, residual_norm) with the
-    last two as Python numbers."""
+    (callables on tensors of b's shape: a flat vector or, on the degree-2
+    path, the padded class stack).  Returns (x, iterations, residual_norm)
+    with the last two as Python numbers."""
     if M is None:
         M = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - A(x)
     z = M(r)
     p = z
-    rz = torch.vdot(r, z)
+    rz = _vdot(r, z)
     tol2 = max(rtol * float(torch.linalg.vector_norm(b)), atol) ** 2
     k = 0
-    while k < max_it and float(torch.vdot(r, r).real) > tol2:
+    while k < max_it and float(_vdot(r, r).real) > tol2:
         Ap = A(p)
-        alpha = rz / torch.vdot(p, Ap)
+        alpha = rz / _vdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.vdot(r, z)
+        rz_new = _vdot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
@@ -67,7 +74,8 @@ def cg(A: Callable, b, M: Callable = None, x0=None, rtol=1e-8, atol=1e-12, max_i
 
 
 class JacobiPC:
-    """Jacobi preconditioner: r -> r / diag (1 where diag == 0)."""
+    """Jacobi preconditioner: r -> r / diag (1 where diag == 0), entrywise,
+    so diag and r may have any one shape."""
 
     def __init__(self, inv):
         self.inv = inv

@@ -1,26 +1,31 @@
 """Lattice fast path (torch): scatter-free assembly and stencil SpMV for
 structured box meshes, lean "fold" format.
 
-Counterpart of ``dolfinx_mpc_tpu/ops/lattice.py`` for the main path.  On a
+Counterpart of ``dolfinx_mpc_tpu/ops/lattice.py`` for the fold path.  On a
 structured box mesh the sparsity is a stencil: the (cell, a, b) -> entry map
 collapses to a fixed set of lattice diagonal offsets, so the matrix is a DIA
-array and SpMV is a sum of shifted products.  A periodic constraint that
+array and SpMV is a sum of shifted products.  Degree 2 keeps the same idea
+on the parity-blocked layout (``BlockDIAMatrix``): the refined grid splits
+into 8 parity classes, and each (row class, column class, coarse offset)
+triple holds one value per coarse box.  A periodic constraint that
 identifies the last lattice plane of one axis with the first ("fold") is
 applied inside the operator: u = K x copies the master plane onto the slave
 plane, y = A u, the slave-plane rows fold back onto the masters (K^T), and
 slave rows get diagval — K^T A K without any irregular operation.
 
 The lean fold branch assembles from a per-plane table reduced on the host
-(ops/lattice_kernels.py: build_fold_table) through kernel K1, and every
-scalar DIA matvec on the card runs kernel K2.  Not ported yet, each raising
-NotImplementedError with its ROADMAP item: degree 2 (parity-blocked layout,
-slice 2), bs > 1 (slice 3), the "csr"/"cells" side formats, x-dependent or
+(ops/lattice_kernels.py: build_fold_table) through kernel K1 (degree 1) or
+K4 (degree 2) when the Dirichlet set is separable, and through K3 when it is
+not; every scalar DIA matvec on the card runs kernel K2 and every blocked
+one K6.  Not ported yet, each raising NotImplementedError with its ROADMAP
+item: bs > 1 (slice 3), the "csr"/"cells" side formats, x-dependent or
 coefficient forms (the element-kernel lean path) and non-uniform geometry
-(slice 4), and non-separable Dirichlet sets (kernel K3, queue 2).
+(slice 4).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -33,14 +38,19 @@ from ..multipointconstraint import MultiPointConstraint
 from .assemble import _bc_masks, _mpc_pair, _real_dtype
 from .lattice_kernels import (
     _detect_factored_masks,
+    assemble_fold_lean_blocked,
     assemble_fold_lean_factored,
+    assemble_fold_lean_masked,
+    blocked_matvec,
+    blocked_trip_table,
     build_fold_table,
     dia_matvec,
     dia_matvec_plain,
     fold_kernel_supported,
 )
 
-__all__ = ["DIAMatrix", "LatticeOperator", "CompiledLatticeForm", "assemble_matrix_lattice"]
+__all__ = ["DIAMatrix", "BlockDIAMatrix", "LatticeOperator", "CompiledLatticeForm",
+           "assemble_matrix_lattice"]
 
 
 # ---------------------------------------------------------------------------
@@ -107,20 +117,130 @@ class DIAMatrix:
         )
 
 
+class BlockDIAMatrix:
+    """Parity-blocked stencil matrix of an r-refined lattice (the degree-2
+    fast path), scalar only.  Dofs split by their parity inside a coarse box
+    into classes (vertex / edge / face / body families); each (row class,
+    column class, coarse offset) triple stores one value per coarse box.
+
+    data: (n_trip, s0, s1, s2) over the PADDED class grids,
+    s = ceil(vshape / r3); trips[m] = (cls_row, cls_col, off), off in coarse
+    boxes.  Padded rows and columns hold exact zeros (assembly writes zeros
+    there, the x split pads with zeros), so a matvec is shifted products on
+    the uniform padded grids."""
+
+    def __init__(self, data, trips, vshape, r3, bs=1):
+        if bs != 1:
+            raise ValueError("the blocked stencil path is scalar-only")
+        self.data = data
+        self.trips = tuple((tuple(cr), tuple(cc), tuple(off)) for cr, cc, off in trips)
+        self.vshape = tuple(int(v) for v in vshape)
+        self.r3 = tuple(int(v) for v in r3)
+        self.bs = 1
+        self._tables = {}  # K6's triple table, per device
+
+    @property
+    def cdims(self):
+        return tuple(-(-n // r) for n, r in zip(self.vshape, self.r3))
+
+    @property
+    def classes(self):
+        return tuple(itertools.product(*(range(r) for r in self.r3)))
+
+    @property
+    def shape(self):
+        n = int(np.prod(self.vshape))
+        return (n, n)
+
+    def _to_blocked(self, x):
+        """fine (n0, n1, n2) flat vector -> (n_classes, s0, s1, s2) padded
+        class stack (class-major split by refined parity)."""
+        n0, n1, n2 = self.vshape
+        r0, r1, r2 = self.r3
+        s0, s1, s2 = self.cdims
+        xp = torch.nn.functional.pad(x.reshape(n0, n1, n2),
+                                     (0, r2 * s2 - n2, 0, r1 * s1 - n1, 0, r0 * s0 - n0))
+        return (xp.reshape(s0, r0, s1, r1, s2, r2).permute(1, 3, 5, 0, 2, 4)
+                .reshape(-1, s0, s1, s2))
+
+    def _from_blocked(self, yb):
+        n0, n1, n2 = self.vshape
+        r0, r1, r2 = self.r3
+        s0, s1, s2 = self.cdims
+        yf = (yb.reshape(r0, r1, r2, s0, s1, s2).permute(3, 0, 4, 1, 5, 2)
+              .reshape(r0 * s0, r1 * s1, r2 * s2))
+        return yf[:n0, :n1, :n2].reshape(-1)
+
+    def matvec(self, x):
+        return self._from_blocked(self.matvec_blocked(self._to_blocked(x)))
+
+    def matvec_blocked(self, xb):
+        """SpMV on the padded blocked class stack (n_cls, s0, s1, s2), the
+        solve path's layout: kernel K6 on a CUDA tensor, the plain halo-pad
+        slice-FMA on a CPU one.  Padded slots stay exact zeros."""
+        table = None
+        if xb.device.type == "cuda":
+            table = self._tables.get(xb.device)
+            if table is None:
+                table = torch.as_tensor(blocked_trip_table(self.trips, self.classes), device=xb.device)
+                self._tables[xb.device] = table
+            xb = xb.contiguous()
+        return blocked_matvec(self.data, self.trips, self.classes, xb, table)
+
+    def diagonal_blocked(self):
+        """Diagonal as the padded blocked class stack (n_cls, s0, s1, s2)."""
+        cls_id = {c: i for i, c in enumerate(self.classes)}
+        out = torch.zeros((len(cls_id),) + self.cdims, dtype=self.data.dtype, device=self.data.device)
+        for m, (cr, cc, off) in enumerate(self.trips):
+            if cr == cc and off == (0, 0, 0):
+                out[cls_id[cr]] = self.data[m]
+        return out
+
+    def diagonal(self):
+        return self._from_blocked(self.diagonal_blocked())
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        n0, n1, n2 = self.vshape
+        r0, r1, r2 = self.r3
+        s0, s1, s2 = self.cdims
+        N = n0 * n1 * n2
+        data = self.data.detach().cpu().numpy()
+        Q0, Q1, Q2 = np.meshgrid(np.arange(s0), np.arange(s1), np.arange(s2), indexing="ij")
+        rows, cols, vals = [], [], []
+        for m, (cr, cc, off) in enumerate(self.trips):
+            fi, fj, fk = r0 * Q0 + cr[0], r1 * Q1 + cr[1], r2 * Q2 + cr[2]
+            gi = r0 * (Q0 + off[0]) + cc[0]
+            gj = r1 * (Q1 + off[1]) + cc[1]
+            gk = r2 * (Q2 + off[2]) + cc[2]
+            ok = ((fi < n0) & (fj < n1) & (fk < n2) & (gi >= 0) & (gi < n0)
+                  & (gj >= 0) & (gj < n1) & (gk >= 0) & (gk < n2))
+            rows.append(((fi * n1 + fj) * n2 + fk)[ok])
+            cols.append(((gi * n1 + gj) * n2 + gk)[ok])
+            vals.append(data[m][ok])
+        return sp.csr_matrix(
+            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(N, N))
+
+
 class LatticeOperator:
-    """DIA stencil with the periodic fold: K^T A K with the slave plane's
-    rows and columns replaced by diagval on the diagonal.
+    """DIA (or parity-blocked) stencil with the periodic fold: K^T A K with
+    the slave plane's rows and columns replaced by diagval on the diagonal.
 
     fold_axis: lattice axis whose last plane holds the slaves; fold_mask:
     bool (plane shape + (bs,)) marking the slaves of that plane; fold_pairs:
-    host (slaves, masters) arrays, needed only by to_scipy()."""
+    host (slaves, masters) arrays, needed only by to_scipy(); fold_mask_b:
+    on a BlockDIAMatrix, the blocked fold mask (n_cls, sA, sB) over the
+    class grids of the two other axes, which the blocked-native
+    matvec_blocked needs."""
 
-    def __init__(self, dia: DIAMatrix, diagval, fold_axis, fold_mask, fold_pairs=None):
+    def __init__(self, dia, diagval, fold_axis, fold_mask, fold_pairs=None, fold_mask_b=None):
         self.dia = dia
         self.diagval = float(diagval)
         self.fold_axis = int(fold_axis)
         self.fold_mask = fold_mask
         self.fold_pairs = fold_pairs
+        self.fold_mask_b = fold_mask_b
 
     @property
     def shape(self):
@@ -157,6 +277,37 @@ class LatticeOperator:
         dg = self._plane_view(d)
         dg[0] += torch.where(m, dg[-1], 0)
         dg[-1] = torch.where(m, self.diagval, dg[-1])
+        return d
+
+    def supports_blocked(self):
+        """True when the blocked-native solve layout applies: a blocked
+        operator whose fold carries its blocked mask."""
+        return isinstance(self.dia, BlockDIAMatrix) and self.fold_mask_b is not None
+
+    def matvec_blocked(self, xb):
+        """K^T A K matvec on the padded blocked class stack (n_cls, s0, s1,
+        s2).  The fold runs per class on the class grids: only classes of
+        parity 0 along the fold axis carry the end planes (the refined dims
+        are odd), so fold_mask_b is False everywhere else."""
+        ax = self.fold_axis
+        mb = self.fold_mask_b
+        xg = torch.movedim(xb, 1 + ax, 1)  # (n_cls, s_ax, sA, sB)
+        u = xg.clone()
+        u[:, -1] = torch.where(mb, xg[:, 0], xg[:, -1])
+        y = self.dia.matvec_blocked(torch.movedim(u, 1, 1 + ax))
+        yg = torch.movedim(y, 1 + ax, 1)  # a view: writes land in y
+        yg[:, 0] += torch.where(mb, yg[:, -1], 0)
+        yg[:, -1] = torch.where(mb, self.diagval * xg[:, -1], yg[:, -1])
+        return y
+
+    def diagonal_blocked(self):
+        """diagonal() in the blocked class-stack layout."""
+        ax = self.fold_axis
+        mb = self.fold_mask_b
+        d = self.dia.diagonal_blocked()
+        dg = torch.movedim(d, 1 + ax, 1)
+        dg[:, 0] += torch.where(mb, dg[:, -1], 0)
+        dg[:, -1] = torch.where(mb, self.diagval, dg[:, -1])
         return d
 
     def to_scipy(self):
@@ -328,9 +479,12 @@ class CompiledLatticeForm:
         if getattr(V, "is_mixed", False):
             raise ValueError("lattice path: uniform spaces only")
         r = V.element.degree
-        if r != 1:
-            raise NotImplementedError(
-                "degree-2 lattice assembly (parity-blocked layout, kernel K4) is ROADMAP slice 2")
+        if r not in (1, 2):
+            raise ValueError("lattice fast path supports degree 1 and 2")
+        if r > 1 and getattr(V, "grid_meta", None) is None:
+            # degree 2 needs the grid-lex dof numbering, so that dofs are the
+            # points of the r-refined lattice (fem/functionspace.py)
+            raise ValueError("degree-2 lattice path needs a grid-numbered space (pristine box mesh)")
         if V.block_size != 1:
             raise NotImplementedError("bs > 1 lattice assembly is ROADMAP slice 3")
         self.dtype = np.dtype(dtype)
@@ -343,6 +497,7 @@ class CompiledLatticeForm:
         nx, ny, nz_ = lat.dims
         is2d = mesh.tdim == 2
         self.refine = r
+        self.r3 = (r, r, 1 if is2d else r)
         self.vshape = (r * nx + 1, r * ny + 1, 1 if is2d else r * nz_ + 1)
         bs = V.block_size
         self.bs = bs
@@ -360,6 +515,7 @@ class CompiledLatticeForm:
                     oid = offs.setdefault(off, len(offs))
                     self.moves.append((t, a, b, oid, tuple(int(v) for v in deltas[t, a])))
         self.offsets = tuple(offs.keys())
+        self._deltas = deltas
         self._geo_deltas = _vertex_delta_table(mesh, lat)
 
         bc_mask_np = _bc_masks(V, bcs, self.dtype)
@@ -381,21 +537,97 @@ class CompiledLatticeForm:
         n0, n1, n2 = self.vshape
         keep = (1.0 - bc_mask_np).reshape(n0, n1, n2, bs)
         self._keep_grid = np.moveaxis(keep, -1, 0).astype(_real_dtype(self.dtype))
-        # bc-dof indicator grid, the diagval weight K1 checks against pad - keep
+        # bc-dof multiplicity grid: the diagval weight of the masked assembler,
+        # and what the factored ones check against pad - keep
         indg = np.zeros(V.num_dofs, np.float64)
         np.add.at(indg, bc_dofs, 1.0)
         self._bc_ind_grid = np.moveaxis(indg.reshape(n0, n1, n2, bs), -1, 0).copy()
-        factors = _detect_factored_masks(self._keep_grid, self._bc_ind_grid)
-        if factors is None:
-            raise NotImplementedError(
-                "non-separable Dirichlet sets need the masked fold kernel K3 (ROADMAP queue 2)")
-        self.table = build_fold_table(self, factors)
+        # degree 2 takes the parity-blocked layout (bs == 1 here)
+        self._blocked = r > 1
+        self._fold_mask_blocked = None
+        if self._blocked:
+            self._build_blocked_structure(keep.reshape(n0, n1, n2).astype(_real_dtype(self.dtype)),
+                                          fold_mask)
+            keep_s, ind_s, pads = self._keep_blocked, self._bc_ind_blocked, self._blocked_pads()
+        else:
+            keep_s, ind_s, pads = self._keep_grid, self._bc_ind_grid, None
+        # separable masks go to K1 / K4, any other Dirichlet set to K3
+        factors = _detect_factored_masks(keep_s, ind_s, pads)
+        self.table = build_fold_table(self, factors, keep_s, ind_s)
+
+    # ------------------------------------------------------------------
+    # parity-blocked (degree-2) structure: see BlockDIAMatrix
+    # ------------------------------------------------------------------
+    def _build_blocked_structure(self, keep_fine, fold_mask):
+        """Classify every move by (row parity class, column parity class,
+        coarse offset) and build the padded per-class keep, bc and fold
+        masks (dolfinx_mpc_tpu/ops/lattice.py:1325-1387, triple order
+        included).  keep_fine: host (n0, n1, n2), 1.0 on non-bc dofs."""
+        deltas = self._deltas
+        r3 = self.r3
+        self._cdims = tuple(-(-n // r) for n, r in zip(self.vshape, r3))
+        self._classes = tuple(itertools.product(*(range(r) for r in r3)))
+        tripmap = {}
+        self._bmoves = []  # (t, a, b, trip_id, (sx, sy, sz) corner shift)
+        for t, a, b, oid, da in self.moves:
+            db_ = tuple(int(v) for v in deltas[t, b])
+            cr = tuple(int(da[i]) % r3[i] for i in range(3))
+            cc = tuple(db_[i] % r3[i] for i in range(3))
+            off = tuple(db_[i] // r3[i] - int(da[i]) // r3[i] for i in range(3))
+            m = tripmap.setdefault((cr, cc, off), len(tripmap))
+            self._bmoves.append((t, a, b, m, tuple(int(da[i]) // r3[i] for i in range(3))))
+        trips = tuple(tripmap.keys())
+        # triples ordered by row x-parity, as the JAX package orders them (its
+        # Pallas SpMV slices one row x-parity at a time), so data planes
+        # compare index for index
+        order = sorted(range(len(trips)), key=lambda m: trips[m][0][0])
+        remap = {old: new for new, old in enumerate(order)}
+        self.trips = tuple(trips[o] for o in order)
+        self._bmoves = [(t, a, b, remap[m], sh) for t, a, b, m, sh in self._bmoves]
+        self._keep_blocked = self._split_classes(np.asarray(keep_fine))
+        ind = np.zeros(int(np.prod(self.vshape)), np.float64)
+        np.add.at(ind, np.asarray(self._bc_dofs_grid, np.int64), 1.0)
+        self._bc_ind_blocked = self._split_classes(ind.reshape(self.vshape))
+        # blocked fold mask: per class, the perpendicular-plane identification
+        # mask on the class grid; only classes with parity 0 along the fold
+        # axis take part (both end planes are even: refined dims are odd).
+        # Shape (n_cls, sA, sB), (A, B) the other axes in order; padded slots
+        # are False.
+        ax = self._fold_axis
+        mf = np.asarray(fold_mask).reshape(fold_mask.shape[0], fold_mask.shape[1])  # bs == 1
+        perp = [a for a in range(3) if a != ax]
+        mb = np.zeros((len(self._classes), self._cdims[perp[0]], self._cdims[perp[1]]), bool)
+        for i, pc in enumerate(self._classes):
+            if pc[ax] != 0:
+                continue
+            g = mf[pc[perp[0]]::r3[perp[0]], pc[perp[1]]::r3[perp[1]]]
+            mb[i, : g.shape[0], : g.shape[1]] = g
+        self._fold_mask_blocked = torch.as_tensor(mb, device=self.device)
+
+    def _split_classes(self, fine):
+        """(n0, n1, n2) host grid -> (n_cls, s0, s1, s2) padded class stack."""
+        r3 = self.r3
+        out = np.zeros((len(self._classes),) + self._cdims, fine.dtype)
+        for i, (p0, p1, p2) in enumerate(self._classes):
+            g = fine[p0::r3[0], p1::r3[1], p2::r3[2]]
+            out[i, : g.shape[0], : g.shape[1], : g.shape[2]] = g
+        return out
+
+    def _blocked_pads(self):
+        """Per-class real-slot factors (pi, pj, pk), each (n_cls, s_axis):
+        1 where the class grid holds a dof, 0 on its padding
+        (dolfinx_mpc_tpu/ops/pallas_lattice.py:228-238)."""
+        pads = [np.zeros((len(self._classes), s)) for s in self._cdims]
+        for c, pc in enumerate(self._classes):
+            for d in range(3):
+                pads[d][c, : -(-(self.vshape[d] - pc[d]) // self.r3[d])] = 1.0
+        return tuple(pads)
 
     # ------------------------------------------------------------------
     def _zero_bc_on_grid(self, data, keep_grid):
         """Zero bc rows/cols directly on the DIA data: entry (r, r+off) dies
-        iff r or r+off is a bc dof — what K1's factored masks do inside the
-        kernel."""
+        iff r or r+off is a bc dof — what K1's factored masks and K3's
+        stacks do inside the kernel."""
         if len(self._bc_dofs_grid) == 0:
             return data
         kb = keep_grid.to(data.dtype)  # (bs, n0, n1, n2)
@@ -428,15 +660,57 @@ class CompiledLatticeForm:
                 out[zid, ci, ci] += dg[..., ci]
         return out
 
+    def _zero_bc_blocked(self, data, keep_blocked):
+        """Blocked analogue of _zero_bc_on_grid: entry (r, r+off) dies iff
+        either end is a bc dof, per class pair on the padded grids — what
+        K4's factored masks and K3's stacks do inside the kernel."""
+        if len(self._bc_dofs_grid) == 0:
+            return data
+        s0, s1, s2 = self._cdims
+        cls_id = {c: i for i, c in enumerate(self._classes)}
+        kb = keep_blocked.to(data.dtype)
+        out = data.clone()
+        for m, (cr, cc, (di, dj, dk)) in enumerate(self.trips):
+            src = (cls_id[cc],
+                   slice(max(di, 0), s0 + min(di, 0)),
+                   slice(max(dj, 0), s1 + min(dj, 0)),
+                   slice(max(dk, 0), s2 + min(dk, 0)))
+            pad = (max(-dk, 0), max(dk, 0), max(-dj, 0), max(dj, 0), max(-di, 0), max(di, 0))
+            out[m] *= kb[cls_id[cr]] * torch.nn.functional.pad(kb[src], pad)
+        return out
+
+    def _diag_adds_blocked(self, data, diagval):
+        """Add diagval times the bc multiplicity on the blocked diagonal
+        triples."""
+        if len(self._bc_dofs_grid) == 0:
+            return data
+        db = torch.as_tensor(self._bc_ind_blocked, dtype=data.dtype, device=data.device)
+        cls_id = {c: i for i, c in enumerate(self._classes)}
+        out = data.clone()
+        for m, (cr, cc, off) in enumerate(self.trips):
+            if cr == cc and off == (0, 0, 0):
+                out[m] += diagval * db[cls_id[cr]]
+        return out
+
     def _assemble_fold_lean_kernel(self, jitter, diagval):
-        """The lean fold operator through K1: BC masks and diagval fused
-        into the one pass that writes the DIA data."""
+        """The lean fold operator through one assembler launch, BC masks and
+        diagval fused into the pass that writes the data: K1 (degree 1) or
+        K4 (degree 2, blocked) for a separable Dirichlet set, K3 otherwise."""
         n0, n1, n2 = self.vshape
         tab = self.table.on(self.device, torch_dtype(_real_dtype(self.dtype)))
-        data = assemble_fold_lean_factored(tab, jitter, diagval)
-        dia = DIAMatrix(data.reshape(len(self.offsets), self.bs, self.bs, n0, n1, n2),
-                        self.offsets, self.vshape, self.bs)
-        return LatticeOperator(dia, diagval, self._fold_axis, self._fold_mask, self._fold_pairs)
+        if self.table.factors is None:
+            data = assemble_fold_lean_masked(tab, jitter, diagval)
+        elif self._blocked:
+            data = assemble_fold_lean_blocked(tab, jitter, diagval)
+        else:
+            data = assemble_fold_lean_factored(tab, jitter, diagval)
+        if self._blocked:
+            dia = BlockDIAMatrix(data, self.trips, self.vshape, self.r3)
+        else:
+            dia = DIAMatrix(data.reshape(len(self.offsets), self.bs, self.bs, n0, n1, n2),
+                            self.offsets, self.vshape, self.bs)
+        return LatticeOperator(dia, diagval, self._fold_axis, self._fold_mask, self._fold_pairs,
+                               fold_mask_b=self._fold_mask_blocked)
 
     def assemble(self) -> LatticeOperator:
         return self._assemble_fold_lean_kernel(0.0, self.diagval)

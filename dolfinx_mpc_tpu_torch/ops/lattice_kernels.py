@@ -1,25 +1,32 @@
-"""The lattice fast path's two hand-written Hopper kernels, their plain
-PyTorch versions and the host reduction that feeds the assembler.
+"""The lattice fast path's hand-written Hopper kernels, their plain PyTorch
+versions and the host reduction that feeds the assemblers.
 
-Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py`` for the main path:
+Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
 
 - **K1** ``assemble_fold_lean_factored`` replaces the factored-mask fused
   lean-fold assembler (``_make_lean_fold_pallas_group`` -> ``kernel_factored``,
-  entry ``make_lean_fold_pallas(fuse_mask=True)``).
+  entry ``make_lean_fold_pallas(fuse_mask=True)``) on the vertex grid.
 - **K2** ``dia_matvec`` replaces the scalar DIA SpMV
   (``_make_dia_matvec_group``, entry ``make_dia_matvec_pallas``).
+- **K3** ``assemble_fold_lean_masked`` replaces the non-separable-mask
+  variant (``kernel_masked``, fuse mode "2d"), on both layouts.
+- **K4** ``assemble_fold_lean_blocked`` replaces the degree-2 blocked
+  assembler (``make_lean_blocked_pallas``: K1's code over ``_BlockedView``);
+  it launches K1's device code on the blocked table.
+- **K6** ``blocked_matvec`` replaces the parity-blocked SpMV
+  (``make_blocked_matvec_pallas``).
 
 The CUDA sources are ``csrc/lattice_kernels.cu``; ``_build.py`` compiles them
 with nvcc on first use.  Each wrapper runs its plain version only for
 tensors that lie on the CPU; for a CUDA tensor it launches the kernel or
 raises.  Each counts its kernel launches in a plain int attribute
-(``assemble_fold_lean_factored.launches``, ``dia_matvec.launches``), so a run
-can show that the main path went through the kernels.
+(``<wrapper>.launches``), so a run can show that a path went through the
+kernels.
 
-The host side of K1 is the JAX package's trace-time reduction, copied: the
-constant feature matrix probe (``_probe_constant_M``), the separable-mask
-detection (``_detect_factored_masks``) and the scalar-group reduction that
-turns every element-tensor entry of a uniform lattice into
+The host side of the assemblers is the JAX package's trace-time reduction,
+copied: the constant feature matrix probe (``_probe_constant_M``), the
+separable-mask detection (``_detect_factored_masks``) and the scalar-group
+reduction that turns every element-tensor entry of a uniform lattice into
 ``c0 s^3 + c1 s^2 + c2 s`` with s = 1 + jitter.
 """
 
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,12 +43,18 @@ from .._dtypes import numpy_dtype
 
 __all__ = [
     "FoldTable",
+    "assemble_fold_lean_blocked",
     "assemble_fold_lean_factored",
+    "assemble_fold_lean_factored_plain",
+    "assemble_fold_lean_masked",
+    "assemble_fold_lean_masked_plain",
+    "blocked_matvec",
+    "blocked_matvec_plain",
+    "blocked_trip_table",
     "build_fold_table",
     "dia_matvec",
     "dia_matvec_plain",
     "fold_kernel_supported",
-    "assemble_fold_lean_factored_plain",
 ]
 
 _FLOATS = (torch.float32, torch.float64)
@@ -56,6 +70,12 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
         fa = getattr(lib, f"dmt_fold_assemble_{suf}")
         fa.argtypes = [P, I, I, I, I, I, I, I, P, P, P, P, I, F, F, P]
         fa.restype = I
+        fm = getattr(lib, f"dmt_fold_assemble_masked_{suf}")
+        fm.argtypes = [P, I, I, I, I, I, I, I, P, P, P, P, P, F, F, P]
+        fm.restype = I
+        bm = getattr(lib, f"dmt_blocked_matvec_{suf}")
+        bm.argtypes = [P, P, P, P, I, I, I, I, P]
+        bm.restype = I
 
 
 def _suffix(dtype):
@@ -129,30 +149,34 @@ def _probe_constant_M(term, gdim, bs=1):
 
 
 def fold_kernel_supported(clf) -> bool:
-    """The lean fold forms K1 covers: 3D, degree 1, scalar, constant
-    feature matrix (``pallas_supported`` without its backend and f32
-    conditions; degree 2 and bs > 1 are ROADMAP slices 2 and 3)."""
-    if not (clf.refine == 1 and clf.bs == 1 and clf.mesh.tdim == 3):
+    """The lean fold forms the assemblers cover: 3D, scalar at degree 1 or
+    2, constant feature matrix (``pallas_supported`` without its backend
+    and f32 conditions; bs > 1 is ROADMAP slice 3)."""
+    if not (clf.refine in (1, 2) and clf.bs == 1 and clf.mesh.tdim == 3):
         return False
     return _probe_constant_M(clf.term, clf.mesh.gdim, clf.bs) is not None
 
 
-def _detect_factored_masks(keep_grid, bc_ind_grid):
+def _detect_factored_masks(keep, bc_ind, pads=None):
     """Halo-padded per-axis factors (ki, kj, kk, pi, pj, pk), each
     (n_stack, n_axis + 2), when the keep stack separates into per-axis
     factors (keep[c] == ki[c] ⊗ kj[c] ⊗ kk[c] exactly — axis-aligned
     Dirichlet planes) AND the bc indicator equals pad - keep (multiplicity
-    1); else None.  The grid layout has no padding, so pad == 1."""
-    kb = np.asarray(keep_grid, np.float64)
-    ind = np.asarray(bc_ind_grid, np.float64)
+    1); else None.  `pads` are the per-class real-slot factors (pi, pj, pk)
+    of the blocked layout; the grid layout has no padding, so pad == 1."""
+    kb = np.asarray(keep, np.float64)
+    ind = np.asarray(bc_ind, np.float64)
     ki = kb.max(axis=(2, 3))
     kj = kb.max(axis=(1, 3))
     kk = kb.max(axis=(1, 2))
     if not np.array_equal(kb, ki[:, :, None, None] * kj[:, None, :, None] * kk[:, None, None, :]):
         return None
-    pi, pj, pk = np.ones_like(ki), np.ones_like(kj), np.ones_like(kk)
+    if pads is None:
+        pi, pj, pk = np.ones_like(ki), np.ones_like(kj), np.ones_like(kk)
+    else:
+        pi, pj, pk = (np.asarray(p, np.float64) for p in pads)
     if not np.array_equal(ind, pi[:, :, None, None] * pj[:, None, :, None] * pk[:, None, None, :] - kb):
-        return None  # multiplicity > 1 or keep zeros beyond bc
+        return None  # multiplicity > 1 or keep zeros beyond bc + pad
     return tuple(np.pad(f, ((0, 0), (1, 1))) for f in (ki, kj, kk, pi, pj, pk))
 
 
@@ -161,17 +185,26 @@ class FoldTable:
     """Host table of one lean fold form (float64 numpy / int32).
 
     planes: (n_planes, 8) rows (ri, ci, di, dj, dk, is_diag, e_begin, e_end)
-      per output DIA plane (offset, test component, trial component);
+      per output plane — a DIA plane (offset, test component, trial
+      component) on the grid layout, a triple (row class, column class,
+      coarse offset) on the blocked one, whose ri/ci are class ids;
     ent: (n_entries, 3) window corners (dax, day, daz); coef: (n_entries, 3)
       closed-form coefficients (c0, c1, c2);
-    factors: halo-padded keep/pad factors (ki, kj, kk, pi, pj, pk)."""
+    masks: either `factors`, the halo-padded keep/pad factors (ki, kj, kk,
+      pi, pj, pk) of a separable mask (K1, K4), or `keep`, the halo-padded
+      keep stack (n_stack, n0+2, n1+2, n2+2), with `bc_ind`, the bc-dof
+      multiplicity stack (n_stack, n0, n1, n2) (K3);
+    blocked: the planes live on the parity-blocked class grids."""
 
     vshape: tuple
     dims: tuple
     planes: np.ndarray
     ent: np.ndarray
     coef: np.ndarray
-    factors: tuple
+    factors: Optional[tuple]
+    keep: Optional[np.ndarray] = None
+    bc_ind: Optional[np.ndarray] = None
+    blocked: bool = False
     _on: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -188,33 +221,45 @@ class FoldTable:
 
 class FoldTableDevice:
     """FoldTable tensors on one device: int32 planes/entries, coefficients
-    and the packed factor buffer [ki | pi | kj | pj | kk | pk] in the
-    working dtype."""
+    and the masks in the working dtype — the packed factor buffer
+    [ki | pi | kj | pj | kk | pk] (factored), or the keep and bc stacks."""
 
     def __init__(self, table: FoldTable, device, dtype):
         self.vshape, self.dims = table.vshape, table.dims
         self.n_planes = table.n_planes
-        self.n_stack = table.factors[0].shape[0]
+        self.blocked = table.blocked
         self.dtype = dtype
         self.planes = torch.as_tensor(table.planes, dtype=torch.int32, device=device).contiguous()
         self.ent = torch.as_tensor(table.ent, dtype=torch.int32, device=device).contiguous()
         self.coef = torch.as_tensor(table.coef, dtype=dtype, device=device).contiguous()
-        ki, kj, kk, pi, pj, pk = table.factors
-        self.factors = tuple(torch.as_tensor(f, dtype=dtype, device=device)
-                             for f in (ki, kj, kk, pi, pj, pk))
-        self.fac = torch.as_tensor(
-            np.concatenate([f.ravel() for f in (ki, pi, kj, pj, kk, pk)]),
-            dtype=dtype, device=device).contiguous()
+        self.factors = self.fac = self.keep = self.bc_ind = None
+        if table.factors is not None:
+            ki, kj, kk, pi, pj, pk = table.factors
+            self.n_stack = ki.shape[0]
+            self.factors = tuple(torch.as_tensor(f, dtype=dtype, device=device)
+                                 for f in (ki, kj, kk, pi, pj, pk))
+            self.fac = torch.as_tensor(
+                np.concatenate([f.ravel() for f in (ki, pi, kj, pj, kk, pk)]),
+                dtype=dtype, device=device).contiguous()
+        else:
+            self.n_stack = table.keep.shape[0]
+            self.keep = torch.as_tensor(table.keep, dtype=dtype, device=device).contiguous()
+            self.bc_ind = torch.as_tensor(table.bc_ind, dtype=dtype, device=device).contiguous()
 
     @property
     def device(self):
         return self.coef.device
 
 
-def build_fold_table(clf, factors) -> FoldTable:
+def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
     """The scalar-group reduction of the JAX package's trace-time code
-    (dolfinx_mpc_tpu/ops/pallas_lattice.py:288-397) for every offset of a
-    lean fold form, regrouped per output plane.
+    (dolfinx_mpc_tpu/ops/pallas_lattice.py:288-397) for every output plane
+    of a lean fold form, regrouped per plane.  On the blocked layout
+    (``clf._blocked``) it runs over the ``_BlockedView`` quantities of
+    pallas_lattice.py:693-706: the class grids ``_cdims``, the triples and
+    the coarse moves ``_bmoves`` at refine 1, with one mask row per triple
+    (pallas_lattice.py:327-336).  `factors` from _detect_factored_masks, or
+    None with the unpadded `keep` and `bc_ind` stacks for the masked form.
 
     The lean contract is a UNIFORM lattice whose only runtime input is the
     scalar jitter s = 1 + jit: every vertex coordinate is s * (const), so
@@ -226,8 +271,15 @@ def build_fold_table(clf, factors) -> FoldTable:
 
     lat = clf.lat
     nx, ny, nz = lat.dims
-    r = clf.refine
-    offsets = clf.offsets
+    bs = clf.bs
+    if clf._blocked:
+        cid = {c: i for i, c in enumerate(clf._classes)}
+        vshape, moves, r = clf._cdims, clf._bmoves, 1
+        # bs == 1: the plane key of a triple is its id
+        mask_info = [(cid[cr], cid[cc], off) for cr, cc, off in clf.trips]
+    else:
+        vshape, moves, r = clf.vshape, clf.moves, clf.refine
+        mask_info = [(ci, cj, off) for off in clf.offsets for ci in range(bs) for cj in range(bs)]
     geo = clf._geo_deltas  # (T, 4, 3) vertex deltas
     T = geo.shape[0]
     spacing = tuple(float(v) for v in clf._spacing)
@@ -239,7 +291,6 @@ def build_fold_table(clf, factors) -> FoldTable:
     phi = el.tabulate(qpts)  # (nq, nd) scalar nodes
     dref = el.tabulate_grad(qpts)  # (nq, nd, 3)
     nq = len(qw)
-    bs = clf.bs
     nF = 1 + clf.mesh.gdim  # per-component features [value, dx, dy, dz]
     M = _probe_constant_M(clf.term, clf.mesh.gdim, bs)
     if M is None:
@@ -251,10 +302,8 @@ def build_fold_table(clf, factors) -> FoldTable:
         for ci in range(bs) for cj in range(bs)
     }
     by_dax = {d: [] for d in range(r + 1)}
-    for t, a, b, oid, (dax, day, daz) in clf.moves:
+    for t, a, b, oid, (dax, day, daz) in moves:
         by_dax[dax].append((t, a, b, oid, day, daz))
-    mask_info = [(ci, cj, offsets[oid]) for oid in range(len(offsets))
-                 for ci in range(bs) for cj in range(bs)]
     det1 = np.zeros(T)
     gX1 = np.zeros((T, 3, 3))  # [t, i, d]
     for t in range(T):
@@ -295,20 +344,28 @@ def build_fold_table(clf, factors) -> FoldTable:
             ent.append((dax, day, daz))
             coef.append(c)
         planes[mi] = (ri, ci, di, dj, dk, int(ri == ci and (di, dj, dk) == (0, 0, 0)), e0, len(ent))
-    return FoldTable(tuple(clf.vshape), (nx, ny, nz), planes,
+    if factors is None:
+        if max(abs(v) for _, _, off in mask_info for v in off) > 1:
+            raise ValueError("the masked assembler reads a one-point halo: offsets beyond ±1")
+        keep = np.pad(np.asarray(keep, np.float64), ((0, 0), (1, 1), (1, 1), (1, 1)))
+        bc_ind = np.asarray(bc_ind, np.float64)
+    else:
+        keep = bc_ind = None
+    return FoldTable(tuple(vshape), (nx, ny, nz), planes,
                      np.asarray(ent, np.int32).reshape(-1, 3),
-                     np.asarray(coef, np.float64).reshape(-1, 3), factors)
+                     np.asarray(coef, np.float64).reshape(-1, 3), factors,
+                     keep, bc_ind, bool(clf._blocked))
 
 
 # ---------------------------------------------------------------------------
-# K1: fused lean-fold assembler (factored masks)
+# K1 / K4 / K3: fused lean-fold assemblers
 # ---------------------------------------------------------------------------
 
 
-def assemble_fold_lean_factored_plain(tab: FoldTableDevice, jitter, diagval):
-    """Plain PyTorch version of K1 on tab's device: the same table applied
-    as window slice-adds, then the separable row/column masks and the
-    diagonal bc term.  Output (n_planes, n0, n1, n2) in tab's dtype."""
+def _window_sums(tab: FoldTableDevice, jitter):
+    """Unmasked planes (n_planes, n0, n1, n2): every table entry's value
+    c0 s^3 + c1 s^2 + c2 s, computed in tab's dtype as the kernels do,
+    added over its box window.  Returns (planes, table rows)."""
     n0, n1, n2 = tab.vshape
     nx, ny, nz = tab.dims
     np_dt = numpy_dtype(tab.dtype)
@@ -317,22 +374,34 @@ def assemble_fold_lean_factored_plain(tab: FoldTableDevice, jitter, diagval):
     s3 = s2 * s
     coef = tab.coef.cpu().numpy()
     ent = tab.ent.tolist()
-    ki, kj, kk, pi, pj, pk = tab.factors
-    dv = float(np_dt.type(diagval))
+    rows = tab.planes.tolist()
     out = torch.zeros((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=tab.device)
+    for mi, (*_, e0, e1) in enumerate(rows):
+        for e in range(e0, e1):
+            dax, day, daz = ent[e]
+            c0, c1, c2 = coef[e]
+            out[mi, dax:dax + nx, day:day + ny, daz:daz + nz] += float(c0 * s3 + c1 * s2 + c2 * s)
+    return out, rows
+
+
+def assemble_fold_lean_factored_plain(tab: FoldTableDevice, jitter, diagval):
+    """Plain PyTorch version of K1 and K4 on tab's device: the same table
+    applied as window slice-adds, then the separable row/column masks and
+    the diagonal bc term dv * (pad - keep).  Output (n_planes, n0, n1, n2)
+    in tab's dtype."""
+    n0, n1, n2 = tab.vshape
+    ki, kj, kk, pi, pj, pk = tab.factors
+    dv = float(numpy_dtype(tab.dtype).type(diagval))
+    out, rows = _window_sums(tab, jitter)
 
     def outer3(fi, fj, fk, c, di=0, dj=0, dk=0):  # separable mask on the (shifted) grid
         return (fi[c, 1 + di:1 + di + n0][:, None, None] * fj[c, 1 + dj:1 + dj + n1][None, :, None]
                 * fk[c, 1 + dk:1 + dk + n2][None, None, :])
 
-    for mi, (ri, ci, di, dj, dk, is_diag, e0, e1) in enumerate(tab.planes.tolist()):
+    for mi, (ri, ci, di, dj, dk, is_diag, e0, e1) in enumerate(rows):
         if e0 == e1:
             continue
         o = out[mi]
-        for e in range(e0, e1):
-            dax, day, daz = ent[e]
-            c0, c1, c2 = coef[e]
-            o[dax:dax + nx, day:day + ny, daz:daz + nz] += float(c0 * s3 + c1 * s2 + c2 * s)
         row = outer3(ki, kj, kk, ri)
         o.mul_(row * outer3(ki, kj, kk, ci, di, dj, dk))
         if is_diag:
@@ -340,26 +409,49 @@ def assemble_fold_lean_factored_plain(tab: FoldTableDevice, jitter, diagval):
     return out
 
 
-def assemble_fold_lean_factored(tab: FoldTableDevice, jitter, diagval):
-    """K1: BC-masked constrained stiffness of a lean fold form as DIA planes
-    (n_planes, n0, n1, n2), plane order (offset, ci, cj).
+def assemble_fold_lean_masked_plain(tab: FoldTableDevice, jitter, diagval):
+    """Plain PyTorch version of K3 on tab's device: the window slice-adds,
+    then the row mask keep[ri] at (p, j, k), the column mask keep[ci] at
+    (p+di, j+dj, k+dk) from the halo-padded stack, and dv * bc_ind[ri] on
+    the diagonal planes (pallas_lattice.py:564-573)."""
+    n0, n1, n2 = tab.vshape
+    kp, ind = tab.keep, tab.bc_ind
+    dv = float(numpy_dtype(tab.dtype).type(diagval))
+    out, rows = _window_sums(tab, jitter)
+    for mi, (ri, ci, di, dj, dk, is_diag, e0, e1) in enumerate(rows):
+        if e0 == e1:
+            continue
+        o = out[mi]
+        row = kp[ri, 1:1 + n0, 1:1 + n1, 1:1 + n2]
+        o.mul_(row * kp[ci, 1 + di:1 + di + n0, 1 + dj:1 + dj + n1, 1 + dk:1 + dk + n2])
+        if is_diag:
+            o.add_(dv * ind[ri])
+    return out
 
-    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
-    _make_lean_fold_pallas_group -> kernel_factored.  On the card it is
-    bound by its single write of the output (16.5 MB per fine-level assembly
-    at n=64 in f32): one thread per output value, k fastest for coalesced
-    stores, the ~10^2-entry table and the factor rows read through the
-    read-only cache.  CPU tables run the plain version."""
+
+def _check_table(tab, name, factored, blocked=None):
     dev = tab.device
-    if dev.type == "cpu":
-        return assemble_fold_lean_factored_plain(tab, jitter, diagval)
     if dev.type != "cuda":
-        raise RuntimeError(f"assemble_fold_lean_factored: unsupported device {dev}")
+        raise RuntimeError(f"{name}: unsupported device {dev}")
     if tab.dtype not in _FLOATS:
-        raise TypeError(f"assemble_fold_lean_factored: dtype {tab.dtype} is not float32/float64")
+        raise TypeError(f"{name}: dtype {tab.dtype} is not float32/float64")
+    if (tab.factors is not None) != factored:
+        raise ValueError(f"{name}: the table holds {'no ' if factored else ''}separable mask factors")
+    if blocked is not None and tab.blocked != blocked:
+        raise ValueError(f"{name}: the table is {'' if tab.blocked else 'not '}on the blocked layout")
+
+
+def _fold_factored(wrapper, blocked, tab: FoldTableDevice, jitter, diagval):
+    """The body of K1's and K4's wrappers: the plain version on a CPU table,
+    else one launch of fold_assemble_kernel, counted on `wrapper`."""
+    if tab.device.type == "cpu":
+        return assemble_fold_lean_factored_plain(tab, jitter, diagval)
+    name = wrapper.__name__
+    _check_table(tab, name, factored=True, blocked=blocked)
     from .._build import load_kernels
 
     lib = load_kernels()
+    dev = tab.device
     n0, n1, n2 = tab.vshape
     nx, ny, nz = tab.dims
     out = torch.empty((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=dev)
@@ -370,12 +462,78 @@ def assemble_fold_lean_factored(tab: FoldTableDevice, jitter, diagval):
             tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), tab.fac.data_ptr(),
             tab.n_stack, F(1.0 + float(jitter)), F(float(diagval)),
             torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check(rc, "assemble_fold_lean_factored")
-    assemble_fold_lean_factored.launches += 1
+    _launch_check(rc, name)
+    wrapper.launches += 1
     return out
 
 
+def assemble_fold_lean_factored(tab: FoldTableDevice, jitter, diagval):
+    """K1: BC-masked constrained stiffness of a degree-1 lean fold form as
+    DIA planes (n_planes, n0, n1, n2), plane order (offset, ci, cj).
+
+    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
+    _make_lean_fold_pallas_group -> kernel_factored.  On the card it is
+    bound by its single write of the output (16.5 MB per fine-level assembly
+    at n=64 in f32): one thread per output value, k fastest for coalesced
+    stores, the ~10^2-entry table and the factor rows read through the
+    read-only cache.  CPU tables run the plain version."""
+    return _fold_factored(assemble_fold_lean_factored, False, tab, jitter, diagval)
+
+
 assemble_fold_lean_factored.launches = 0
+
+
+def assemble_fold_lean_blocked(tab: FoldTableDevice, jitter, diagval):
+    """K4: the degree-2 lean fold operator on the parity-blocked layout,
+    (n_triples, s0, s1, s2) over the padded class grids, triple order of
+    ``CompiledLatticeForm.trips``.
+
+    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
+    make_lean_blocked_pallas, which is K1's Pallas code over _BlockedView;
+    here too it launches K1's device code, on the blocked table (8 classes,
+    230 triples for P2 tets, per-class pad factors so that every padded
+    slot comes out an exact 0).  Bound by the write: 230 x 65^3 values,
+    253 MB at n=64 in f32.  CPU tables run the plain version."""
+    return _fold_factored(assemble_fold_lean_blocked, True, tab, jitter, diagval)
+
+
+assemble_fold_lean_blocked.launches = 0
+
+
+def assemble_fold_lean_masked(tab: FoldTableDevice, jitter, diagval):
+    """K3: the lean fold operator with non-separable bc masks, on either
+    layout (DIA planes on the vertex grid, triples on the class grids).
+
+    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
+    kernel_masked (fuse mode "2d").  K1's thread layout; the masks are two
+    reads of the halo-padded keep stack (row and shifted column) and, on
+    the diagonal planes, one of the bc multiplicity stack, all from device
+    memory.  Bound by the write plus those reads; there is no VMEM budget,
+    so the JAX package's "2d" size limit is not carried.  CPU tables run
+    the plain version."""
+    if tab.device.type == "cpu":
+        return assemble_fold_lean_masked_plain(tab, jitter, diagval)
+    _check_table(tab, "assemble_fold_lean_masked", factored=False)
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    dev = tab.device
+    n0, n1, n2 = tab.vshape
+    nx, ny, nz = tab.dims
+    out = torch.empty((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=dev)
+    F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"dmt_fold_assemble_masked_{_suffix(tab.dtype)}")(
+            out.data_ptr(), tab.n_planes, n0, n1, n2, nx, ny, nz,
+            tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(),
+            tab.keep.data_ptr(), tab.bc_ind.data_ptr(), F(1.0 + float(jitter)), F(float(diagval)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launch_check(rc, "assemble_fold_lean_masked")
+    assemble_fold_lean_masked.launches += 1
+    return out
+
+
+assemble_fold_lean_masked.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -446,3 +604,86 @@ def dia_matvec(data, offsets, vshape, x):
 
 
 dia_matvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: parity-blocked SpMV
+# ---------------------------------------------------------------------------
+
+
+def blocked_trip_table(trips, classes) -> np.ndarray:
+    """K6's host table: the triples grouped by row class as a CSR,
+    [row_ptr (n_cls + 1) | (m, column class, di, dj, dk) per triple] int32,
+    each class's triples in triple order (the plain version's sum order)."""
+    cid = {c: i for i, c in enumerate(classes)}
+    rows = [[] for _ in classes]
+    for m, (cr, cc, off) in enumerate(trips):
+        if max(abs(v) for v in off) > 1:
+            raise ValueError("blocked SpMV: coarse offsets beyond ±1")
+        rows[cid[cr]].append((m, cid[cc], *off))
+    ptr = np.cumsum([0] + [len(r) for r in rows])
+    ent = np.asarray([e for r in rows for e in r], np.int64).reshape(-1)
+    return np.concatenate([ptr, ent]).astype(np.int32)
+
+
+def blocked_matvec_plain(data, trips, classes, xb):
+    """Plain PyTorch blocked SpMV, the halo-pad fused slice-FMA of
+    dolfinx_mpc_tpu/ops/lattice.py:330-351: y_b[ci] = sum over the triples
+    (cr, cc, off) of row class ci of data[m] * x_b[cc] shifted by off, zero
+    outside [0, s).  data (n_trip, s0, s1, s2), xb (n_cls, s0, s1, s2)."""
+    cid = {c: i for i, c in enumerate(classes)}
+    s0, s1, s2 = xb.shape[1:]
+    xh = torch.nn.functional.pad(xb, (1, 1, 1, 1, 1, 1))
+    acc = [None] * xb.shape[0]
+    for m, (cr, cc, (di, dj, dk)) in enumerate(trips):
+        t = data[m] * xh[cid[cc], 1 + di:1 + di + s0, 1 + dj:1 + dj + s1, 1 + dk:1 + dk + s2]
+        i = cid[cr]
+        acc[i] = t if acc[i] is None else acc[i] + t
+    zero = torch.zeros((s0, s1, s2), dtype=xb.dtype, device=xb.device)
+    return torch.stack([a if a is not None else zero for a in acc])
+
+
+def blocked_matvec(data, trips, classes, xb, table=None):
+    """K6: blocked SpMV on the padded class stack (n_cls, s0, s1, s2).
+
+    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
+    make_blocked_matvec_pallas.  One thread per (row class, coarse point),
+    k fastest; it walks its class's triples from `table` (blocked_trip_table
+    on xb's device, which the operator uploads once) and reads x_b[cj] at
+    the shifted point with bounds checks in place of the halo pad / roll +
+    mask.  Bound by device memory: (n_trip + 2 n_cls) values per coarse
+    point, 270 MB per matvec at n=64 in f32.  The classes carry 19 to 65
+    triples each, so the threads of the body class do ~3x the work of the
+    vertex class's; balancing that is later work.  CPU tensors run the
+    plain version."""
+    if data.device.type == "cpu" and xb.device.type == "cpu":
+        return blocked_matvec_plain(data, trips, classes, xb)
+    if data.device.type != "cuda" or xb.device != data.device:
+        raise RuntimeError(f"blocked_matvec: data on {data.device}, x on {xb.device}")
+    if data.dtype not in _FLOATS or xb.dtype != data.dtype:
+        raise TypeError(f"blocked_matvec: data {data.dtype}, x {xb.dtype} (need equal float32/float64)")
+    n_cls = len(classes)
+    if (xb.dim() != 4 or xb.shape[0] != n_cls or data.shape != (len(trips),) + xb.shape[1:]):
+        raise ValueError(f"blocked_matvec: data {tuple(data.shape)} / x {tuple(xb.shape)} "
+                         f"do not match {len(trips)} triples over {n_cls} classes")
+    if not (data.is_contiguous() and xb.is_contiguous()):
+        raise ValueError("blocked_matvec: data and x must be contiguous")
+    if table is None:
+        table = torch.as_tensor(blocked_trip_table(trips, classes), device=xb.device)
+    if table.device != xb.device or table.dtype != torch.int32:
+        raise ValueError("blocked_matvec: the triple table must be int32 on x's device")
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    s0, s1, s2 = xb.shape[1:]
+    y = torch.empty_like(xb)
+    with torch.cuda.device(xb.device):
+        rc = getattr(lib, f"dmt_blocked_matvec_{_suffix(xb.dtype)}")(
+            data.data_ptr(), xb.data_ptr(), y.data_ptr(), table.data_ptr(), n_cls, s0, s1, s2,
+            torch.cuda.current_stream(xb.device).cuda_stream)
+    _launch_check(rc, "blocked_matvec")
+    blocked_matvec.launches += 1
+    return y
+
+
+blocked_matvec.launches = 0

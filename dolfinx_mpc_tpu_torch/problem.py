@@ -1,7 +1,8 @@
 """LinearProblem (torch): assemble, solve, backsubstitute.
 
 Counterpart of ``LinearProblem`` in ``dolfinx_mpc_tpu/problem.py``: the
-matrix comes from the lattice fast path (lean fold operator), the right-hand
+matrix comes from the lattice fast path (lean fold operator; at degree 2
+the parity-blocked one, whose flat ``matvec`` the solve uses), the right-hand
 side from ``assemble_vector`` + ``apply_lifting`` + ``set_bc``, the solve
 from la/solvers.py, and the slave values from the constraint's
 backsubstitution.  The general slot-CSR assembler that the JAX package

@@ -11,9 +11,10 @@ import numpy as np
 import torch
 
 from ..multipointconstraint import FinalizedMPC
-from ..ops.lattice import DIAMatrix, LatticeOperator
+from ..ops.lattice import BlockDIAMatrix, DIAMatrix, LatticeOperator
 
-__all__ = ["dia_from_numpy", "fold_operator_from_numpy", "finalized_mpc_from_numpy"]
+__all__ = ["dia_from_numpy", "block_dia_from_numpy", "fold_operator_from_numpy",
+           "finalized_mpc_from_numpy"]
 
 
 def dia_from_numpy(data, offsets, vshape, bs, device="cpu") -> DIAMatrix:
@@ -22,11 +23,21 @@ def dia_from_numpy(data, offsets, vshape, bs, device="cpu") -> DIAMatrix:
     return DIAMatrix(t, offsets, vshape, bs)
 
 
-def fold_operator_from_numpy(dia: DIAMatrix, fold_axis, fold_mask, diagval,
-                             device="cpu", fold_pairs=None) -> LatticeOperator:
-    """Fold LatticeOperator over `dia` (already on `device`)."""
+def block_dia_from_numpy(data, trips, vshape, r3, device="cpu") -> BlockDIAMatrix:
+    """BlockDIAMatrix from data (n_trip, s0, s1, s2) and host triples."""
+    t = torch.as_tensor(np.array(data), device=device)
+    return BlockDIAMatrix(t, trips, vshape, r3)
+
+
+def fold_operator_from_numpy(dia, fold_axis, fold_mask, diagval, device="cpu", fold_pairs=None,
+                             fold_mask_b=None) -> LatticeOperator:
+    """Fold LatticeOperator over `dia` (a DIAMatrix or BlockDIAMatrix
+    already on `device`); fold_mask_b is the blocked fold mask of a
+    BlockDIAMatrix."""
     m = torch.as_tensor(np.array(fold_mask, bool), device=device)
-    return LatticeOperator(dia, float(np.real(np.asarray(diagval))), int(fold_axis), m, fold_pairs)
+    mb = None if fold_mask_b is None else torch.as_tensor(np.array(fold_mask_b, bool), device=device)
+    return LatticeOperator(dia, float(np.real(np.asarray(diagval))), int(fold_axis), m, fold_pairs,
+                           fold_mask_b=mb)
 
 
 def finalized_mpc_from_numpy(slaves, masters, coeffs, is_slave, num_dofs, device="cpu") -> FinalizedMPC:

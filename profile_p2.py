@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Profile the P2 path's fine SpMV, K4, K6, V-cycle and GMG-CG solve on one
+NVIDIA card with torch.profiler.
+
+    python3 profile_p2.py [--n 64]
+
+Run from the repository root.  It builds chip_smoke.py's P2 problem at n
+(bench.py's degree-2 problem, float32, six p-coarsened levels at n=64,
+blocked_io GMG), warms every region, then for each region prints one JSON
+line: the host-clock wall per call with and without the profiler, the
+device (kernel) time per call, kernels per call, the device busy share
+against both walls, and the eight largest kernels.  The unprofiled wall is
+taken in the same process just before the profiled one.  The first line is
+the card's nvidia-smi name and power limit, the last its SM clock and
+power draw.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def region(name, fn, reps):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_prof = (time.time() - t0) / reps
+    kern = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kern) / reps / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    print(json.dumps(dict(
+        region=name, reps=reps, wall_ms=wall * 1e3, wall_profiled_ms=wall_prof * 1e3, device_ms=dev_ms,
+        kernels=sum(e.count for e in kern) / reps, busy=dev_ms / (wall * 1e3),
+        busy_profiled=dev_ms / (wall_prof * 1e3),
+        top=[(e.key[:60], e.count / reps, e.self_device_time_total / reps / 1e3) for e in top])), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=cs.N_P2)
+    n = ap.parse_args().n
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is False: profiling needs a CUDA card")
+    dev = torch.device("cuda")
+    print(cs.card_line(), flush=True)
+    V, _, clf, A, b, _, _, M, _, _ = cs.build_p2(dev, n)
+    bb = A.dia._to_blocked(b)
+    xr = bb / torch.linalg.vector_norm(bb)
+
+    def solve():
+        return dmt.cg(A.matvec_blocked, bb, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+
+    for _ in range(3):
+        A.matvec_blocked(xr)
+        M(xr)
+        its = solve()[1]
+    print(json.dumps(dict(n=n, dofs=V.num_dofs, levels=cs.p2_levels(n), cg_its=its)), flush=True)
+    region("fine matvec_blocked", lambda: A.matvec_blocked(xr), 20)
+    region("K6 alone", lambda: A.dia.matvec_blocked(xr), 20)
+    region("K4 alone", lambda: clf.assemble(), 5)
+    region("V-cycle", lambda: M(xr), 5)
+    region("CG solve", solve, 2)
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(res.stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""K1 and K2 on the card against their plain PyTorch versions, and the f64
-oracle through the card's kernels.  Marked `cuda`: skipped where there is
+"""K1, K2, K3, K4 and K6 on the card against their plain PyTorch versions,
+and the f64 oracles through the card's kernels.  Marked `cuda`: skipped where there is
 no CUDA card (the CPU suite); run on one with
 ``python -m pytest tests/test_torch_cuda.py -q``."""
 
@@ -22,16 +22,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(dims, dtype, device):
+def _y_planes(x):
+    return np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)
+
+
+def _blob(x):
+    """Non-separable: the y-planes and a ball about (0.5, 0, 0.5), clear of
+    the periodic planes (see tests/test_torch_blocked.py)."""
+    return _y_planes(x) | ((x[0] - 0.5) ** 2 + x[1] ** 2 + (x[2] - 0.5) ** 2 < 0.35 ** 2)
+
+
+def _problem(dims, dtype, device, degree=1, marker=_y_planes):
     mesh = create_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims)
-    V = pt.functionspace(mesh, ("Lagrange", 1))
-    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
-        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)), V)
+    V = pt.functionspace(mesh, ("Lagrange", degree))
+    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, marker), V)
     mpc = pt.MultiPointConstraint(V, dtype, device=device)
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
     mpc.finalize()
-    a = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)), quad_degree=1)
+    a = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)), quad_degree=degree)
     L = pt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0]) * v.value)
     clf = pt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, device=device)
     return V, bc, mpc, a, L, clf
@@ -57,17 +66,51 @@ def test_k1_and_k2_match_plain_on_card(cuda, dtype, tol):
     assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= max(tol, 1e-13)
 
 
-def test_linear_problem_f64_on_card_meets_oracle(cuda):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_k3_k4_k6_match_plain_on_card(cuda, dtype, tol):
+    clf = _problem((3, 4, 5), np.float64, cuda, degree=2)[5]
+    tab = clf.table.on(cuda, dtype)
+    n4 = LK.assemble_fold_lean_blocked.launches
+    got = LK.assemble_fold_lean_blocked(tab, 0.02, 1.3)
+    ref = LK.assemble_fold_lean_factored_plain(tab, 0.02, 1.3)
+    torch.cuda.synchronize()
+    assert LK.assemble_fold_lean_blocked.launches == n4 + 1
+    assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+    dia = clf.assemble().dia
+    data = dia.data.to(dtype).contiguous()
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    xb = torch.randn((8,) + dia.cdims, generator=g, device=cuda, dtype=dtype)
+    n6 = LK.blocked_matvec.launches
+    y = LK.blocked_matvec(data, dia.trips, dia.classes, xb)
+    y_ref = LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb)
+    assert LK.blocked_matvec.launches == n6 + 1
+    assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= max(tol, 1e-13)
+    for degree, dims in ((1, (5, 6, 7)), (2, (3, 4, 5))):
+        clf = _problem(dims, np.float64, cuda, degree=degree, marker=_blob)[5]
+        tab = clf.table.on(cuda, dtype)
+        n3 = LK.assemble_fold_lean_masked.launches
+        got = LK.assemble_fold_lean_masked(tab, 0.02, 1.3)
+        ref = LK.assemble_fold_lean_masked_plain(tab, 0.02, 1.3)
+        torch.cuda.synchronize()
+        assert LK.assemble_fold_lean_masked.launches == n3 + 1
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("degree,dims,marker", [(1, (5, 6, 7), _y_planes), (2, (3, 3, 3), _y_planes),
+                                                 (1, (5, 6, 7), _blob)])
+def test_linear_problem_f64_on_card_meets_oracle(cuda, degree, dims, marker):
     import scipy.sparse.linalg as spla
 
     from dolfinx_mpc_tpu_torch.utils import assemble_matrix_scipy, gather_transformation_matrix
 
-    V, bc, mpc, a, L, _ = _problem((5, 6, 7), np.float64, cuda)
-    n2 = LK.dia_matvec.launches
+    V, bc, mpc, a, L, _ = _problem(dims, np.float64, cuda, degree, marker)
+    counter = LK.blocked_matvec if degree == 2 else LK.dia_matvec
+    n2 = counter.launches
     prob = pt.LinearProblem(a, L, mpc, bcs=[bc],
                             petsc_options={"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-12})
     u = prob.solve().x.array
-    assert u.device.type == "cuda" and LK.dia_matvec.launches > n2
+    assert u.device.type == "cuda" and counter.launches > n2
     A = assemble_matrix_scipy(a, [bc])
     b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None, device="cpu"), [a], [[bc]],
                                    device="cpu"), [bc]).numpy()

@@ -165,8 +165,10 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
 
 
 def test_unported_lattice_forms_raise():
-    """Forms K1 does not cover raise NotImplementedError naming their
-    ROADMAP item instead of silently taking another path."""
+    """Forms the assemblers do not cover raise NotImplementedError naming
+    their ROADMAP item instead of silently taking another path; a
+    non-separable Dirichlet set goes to K3's plain version on the CPU and
+    equals the grid masking, and a degree-2 form assembles (K4)."""
     mesh = pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 3, 3))
     V = pt.functionspace(mesh, ("Lagrange", 1))
     mpc = pt.MultiPointConstraint(V, np.float64)
@@ -181,5 +183,23 @@ def test_unported_lattice_forms_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_lattice(a, mpc, side_format="cells")
     blob = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: x.sum(axis=0) < 0.35), V)
-    with pytest.raises(NotImplementedError, match="K3"):
-        pt_lattice(a, mpc, bcs=[blob], side_format="fold")
+    clf = pt_lattice(a, mpc, bcs=[blob], side_format="fold")
+    assert clf.table.factors is None
+    n_k1, n_k3 = LK.assemble_fold_lean_factored.launches, LK.assemble_fold_lean_masked.launches
+    A = clf.assemble()
+    assert (LK.assemble_fold_lean_factored.launches, LK.assemble_fold_lean_masked.launches) == (n_k1, n_k3)
+    raw_tab = dataclasses.replace(clf.table, keep=np.ones_like(clf.table.keep),
+                                  bc_ind=np.zeros_like(clf.table.bc_ind), _on={})
+    raw = LK.assemble_fold_lean_masked_plain(raw_tab.on("cpu", torch.float64), 0.0, 1.0)
+    raw = raw.reshape(A.dia.data.shape)
+    ref = clf._diag_adds(clf._zero_bc_on_grid(raw, torch.as_tensor(clf._keep_grid)), 1.0)
+    assert torch.equal(A.dia.data, ref)
+    # degree 2 assembles on the parity-blocked layout
+    V2 = pt.functionspace(mesh, ("Lagrange", 2))
+    mpc2 = pt.MultiPointConstraint(V2, np.float64)
+    mpc2.create_periodic_constraint_geometrical(
+        V2, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
+    mpc2.finalize()
+    a2 = pt.BilinearForm(V2, lambda u, v, c: pinner(pgrad(u), pgrad(v)))
+    A2 = pt_lattice(a2, mpc2, side_format="fold").assemble()
+    assert A2.supports_blocked() and A2.dia.data.shape == (230, 4, 4, 4)
