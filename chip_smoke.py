@@ -14,7 +14,11 @@ each (or a few), any failure exits non-zero:
    P1 n=64 operator and on P1 n=128 (the P2 path's level 1; K2 also at
    n=32), K4 on the P2 n=64 blocked table, K6 on
    that operator, K3 on P1 65^3 and P2 n=64 with a non-separable Dirichlet
-   set (the y-planes and a ball on the y=0 face);
+   set (the y-planes and a ball on the y=0 face); K1 at bs=3 (135 x 65^3),
+   K7 on the bs=3 grids 65^3 and 33^3, and K5 on the raw bs=3 grid table
+   (135 x 65^3), the raw blocked P2 n=64 table (230 x 65^3) and the refined
+   r=2 P2 n=64 table (65 x 129^3), where K5 must also equal K1 / K4 with
+   unit mask factors bit for bit;
 4. the P1 main path: the default problem of bench.py (P1 tets, n=64,
    274,625 dofs, periodic in x, Dirichlet at y=0/1), float32 on the card,
    through the port's entry points: assemble_matrix_lattice (fold) ->
@@ -28,14 +32,22 @@ each (or a few), any failure exits non-zero:
    stack -> backsubstitution, counters reset before and read after; then
    the same at n=32, the size whose CG count the JAX package gives on the
    CPU;
+4c. the bs=3 path: bench.py's BENCH_BS=3 problem (P1 vector tets, n=64,
+   823,875 dofs, same constraints with the bc value np.zeros(3), linear
+   elasticity with mu=1, lambda=1.25, quad_degree=1), float32:
+   assemble_matrix_lattice (K1 at bs=3) -> manufactured b = A u0 -> 4-level
+   GMG (Chebyshev 3+3) -> cg -> backsubstitution, counters reset before and
+   read after (K1 and K7 launched, K2 not at all); then the same at n=32;
 5. the float64 oracles on the card: LinearProblem (Jacobi-CG) against
-   u = K (K^T A K)^-1 K^T b from scipy at P1 n=6, at P2 n=3, and at P1 n=6
-   with the non-separable set (the path of K3, counters reset before it).
+   u = K (K^T A K)^-1 K^T b from scipy at P1 n=6, at P2 n=3, at P1 n=6
+   with the non-separable set (the path of K3), at bs=3 P1 n=4 with a vector
+   source (K1, K7), and for the reaction-diffusion form without Dirichlet
+   dofs at P1 n=6 (K5, K2) and P2 n=3 (K5, K6), counters reset before each.
 
 The last two lines are the card's nvidia-smi line and
-{"ok": true, "device": {...}}; the line before them lists every kernel with
-its launches on its path, its error against the plain version and both
-times.  Nothing here imports JAX.
+{"ok": true, "device": {...}}; the line before them lists every kernel
+(K1-K7) with its launches on its path, its error against the plain version
+and both times.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -111,6 +123,23 @@ FORWARD_ERROR_GATE = 1e-4
 JAX_CPU_P2_CG_ITS = 8
 N_P2 = 64
 N_P2_JAX = 32
+# CG iterations of the JAX package on bench.py's BENCH_BS=3 float32 problem
+# on the CPU (XLA path; manufactured b = A u0 as bench.py:504-515; 4-level
+# GMG down to 9^3, Chebyshev 3+3, dense coarse inverse; rtol 1e-6, atol
+# 1e-12), with the recipe above and, per level,
+#   V = functionspace(create_unit_cube(m, m, m), ("Lagrange", 1, (3,)))
+#   bc = dirichletbc(np.zeros(3), <y-planes>, V)
+#   a = BilinearForm(V, lambda u, v, c: 2 * inner(sym(grad(u)), sym(grad(v)))
+#                    + 1.25 * div(u) * conj(div(v)), quad_degree=1)
+#   ops, masks = build_gmg_hierarchy(make, n, 4, min_n=8); ops[0] = A
+#   M = LatticeGMG(ops, free_masks=masks, smoother="chebyshev", n_pre=3, n_post=3)
+# n=32: 15 its, rnorm 2.10e-06 at |b| 2.85 (n=16: 10); the port gives the
+# same counts on the CPU.  n=64: 21 its, from the same recipe on a CPU host
+# (the full-size configuration, not rerun with this script's port).  The
+# TPU records (21 in r4, 32 in r5b, an XLA:TPU fusion precision defect,
+# benchmarks/RESULTS.md:113-123) are not the gate.
+JAX_CPU_BS3_CG_ITS = {64: 21, 32: 15}
+N_BS3 = 64
 
 
 def fail(msg):
@@ -133,9 +162,11 @@ def ptxas_summary(log):
 
     out, name, spill = [], None, "?"
     for ln in log.read_text().splitlines() if log.exists() else []:
-        m = re.search(r"(fold_assemble_masked|fold_assemble|dia_matvec|blocked_matvec)_kernelI([fd])E", ln)
+        m = re.search(r"(fold_assemble_masked|fold_assemble_raw|fold_assemble|dia_matvec_bs|dia_matvec|"
+                      r"blocked_matvec)_kernelI([fd])(?:Li(\d)E)?E", ln)
         if m and "Compiling entry function" in ln:
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
+                    f"{', ' + m.group(3) if m.group(3) else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m.group(1)}/{m.group(2)}"
@@ -196,6 +227,67 @@ def make_problem(m, dtype, device, degree=1, marker=y_planes):
     clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format="fold",
                                       device=device)
     return V, bc, mpc, a, clf
+
+
+def make_elasticity(m, dtype, device):
+    """bench.py's make_problem for BENCH_BS=3 (the reference's
+    bench_elasticity_edge), through the port: P1 vector tets, periodic in x,
+    Dirichlet np.zeros(3) on the y-planes, 2 mu sym(grad u):sym(grad v) +
+    lambda div u div v with mu = 1, lambda = 1.25."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+
+    V = dmt.functionspace(create_unit_cube(m, m, m), ("Lagrange", 1, (3,)))
+    bc = dmt.dirichletbc(np.zeros(3), dmt.locate_dofs_geometrical(V, y_planes), V)
+    mpc = dmt.MultiPointConstraint(V, dtype, device=device)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    mu, lam = 1.0, 1.25
+    a = dmt.BilinearForm(V, lambda u, v, c: 2 * mu * inner(sym(grad(u)), sym(grad(v)))
+                         + lam * div(u) * conj(div(v)), quad_degree=1)
+    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format="fold",
+                                      device=device)
+    return V, bc, mpc, a, clf
+
+
+def make_free(m, dtype, device, degree=1):
+    """The reaction-diffusion form inner(grad u, grad v) + 0.5 inner(u, v)
+    of tests/test_pallas_lattice.py:114-118 without Dirichlet dofs,
+    periodic in x: the forms that assemble through K5."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import grad, inner
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+
+    V = dmt.functionspace(create_unit_cube(m, m, m), ("Lagrange", degree))
+    mpc = dmt.MultiPointConstraint(V, dtype, device=device)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
+    mpc.finalize()
+    a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)) + 0.5 * inner(u, v),
+                         quad_degree=degree + 1)
+    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[], dtype=dtype, side_format="fold", device=device)
+    return V, None, mpc, a, clf
+
+
+def manufactured_u0(clf, device):
+    """bench.py:504-515's u0 for the manufactured right-hand side b = A u0:
+    sin(pi i/n0) sin(pi j/n1) sin(2 pi k/n2) times keep, components
+    interleaved (float32)."""
+    import numpy as np
+    import torch
+
+    n0, n1, n2 = clf.vshape
+    ax = [torch.arange(m, dtype=torch.float32, device=device) / m for m in (n0, n1, n2)]
+    pat = (torch.sin(np.pi * ax[0])[:, None, None] * torch.sin(np.pi * ax[1])[None, :, None]
+           * torch.sin(2 * np.pi * ax[2])[None, None, :])
+    keep = torch.as_tensor(clf._keep_grid, device=device)  # (bs, n0, n1, n2)
+    return torch.movedim(pat[None] * keep, 0, -1).reshape(-1)
 
 
 def cast_operator(A, dtype, absolute=False, dia_types=None):
@@ -263,7 +355,8 @@ def read_counts(names):
 
 # kernel id -> wrapper in ops/lattice_kernels.py
 KERNELS = {"K1": "assemble_fold_lean_factored", "K2": "dia_matvec", "K3": "assemble_fold_lean_masked",
-           "K4": "assemble_fold_lean_blocked", "K6": "blocked_matvec"}
+           "K4": "assemble_fold_lean_blocked", "K5": "assemble_fold_lean_raw", "K6": "blocked_matvec",
+           "K7": "dia_matvec_bs"}
 
 
 def compare_kernels(dev, gen):
@@ -393,6 +486,162 @@ def compare_blocked_kernels(dev, gen):
     return out
 
 
+def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
+    """Phase 3, slice 3: K1 at bs=3 on the bs=3 path's fine table, K7 on its
+    fine level and level 1, and K5 on three raw tables (the bs=3 grid table,
+    the blocked P2 n_p2 table and the refined r=2 P2 n_p2 table), each
+    against its plain version on the card; K5 must also equal K1 / K4 with
+    unit mask factors bit for bit."""
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+
+    out = {}
+    clf = make_elasticity(n, np.float32, dev)[4]
+    for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-12)):
+        tab = clf.table.on(dev, dt)
+        got = LK.assemble_fold_lean_factored(tab, 0.013, 1.0)
+        ref = LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0)
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        line = f"K1 bs=3 {str(dt)[6:]} {tuple(got.shape)}: max|d|/max|ref| {rel:.3e} (tol {tol:g})"
+        if dt == torch.float32:
+            ms = cuda_ms(lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0), 20)
+            plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 2, 1)
+            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        print(line, flush=True)
+        if not rel <= tol:
+            fail(f"K1 at bs=3 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
+        del got, ref
+    for m in (n, n // 2):
+        dia = (clf if m == n else make_elasticity(m, np.float32, dev)[4]).assemble().dia
+        for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-13)):
+            data = dia.data.to(dt).contiguous()
+            x = torch.randn(dia.shape[0], generator=gen, device=dev, dtype=torch.float64).to(dt)
+            got = LK.dia_matvec_bs(data, dia.offsets, dia.vshape, 3, x)
+            ref = LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 3, x)
+            rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+            line = f"K7 {str(dt)[6:]} {dia.vshape} bs=3: rel L2 {rel:.3e} (tol {tol:g})"
+            if dt == torch.float32:
+                ms = cuda_ms(lambda: LK.dia_matvec_bs(data, dia.offsets, dia.vshape, 3, x), 200)
+                plain_ms = cuda_ms(lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 3, x), 10)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                if m == n:
+                    out["K7"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
+            print(line, flush=True)
+            if not rel <= tol:
+                fail(f"K7 disagrees with its plain version in {dt} at {dia.vshape}: {rel:.3e} > {tol:g}")
+        del dia, data
+    # K5's tables: raw (no masks) builds of the bs=3 form and of the P2
+    # n_p2 form, beside unit-factor K1 / K4 tables of the same planes
+    p2 = make_problem(n_p2, np.float32, dev, degree=2)[4]
+    ones3 = np.ones((3,) + clf.vshape)
+    keep2 = p2._split_classes(np.ones(p2.vshape))
+    tables = (
+        ("bs=3 grid", LK.build_fold_table(clf), LK.assemble_fold_lean_factored,
+         LK.build_fold_table(clf, LK._detect_factored_masks(ones3, 0 * ones3), ones3, 0 * ones3)),
+        ("P2 blocked", LK.build_fold_table(p2), LK.assemble_fold_lean_blocked,
+         LK.build_fold_table(p2, LK._detect_factored_masks(keep2, 0 * keep2, p2._blocked_pads()),
+                             keep2, 0 * keep2)),
+        ("P2 refined r=2", LK.build_fold_table(p2, _refined=True), None, None),
+    )
+    for name, raw, unit_kernel, unit in tables:
+        for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-12)):
+            tab = raw.on(dev, dt)
+            got = LK.assemble_fold_lean_raw(tab, 0.013)
+            ref = LK.assemble_fold_lean_raw_plain(tab, 0.013)
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            line = f"K5 {name} {str(dt)[6:]} {tuple(got.shape)}: max|d|/max|ref| {rel:.3e} (tol {tol:g})"
+            same = True
+            if unit_kernel is not None:
+                same = torch.equal(got, unit_kernel(unit.on(dev, dt), 0.013, 1.0))
+                line += f", equal to {unit_kernel.__name__} with unit factors: {same}"
+            if dt == torch.float32:
+                ms = cuda_ms(lambda: LK.assemble_fold_lean_raw(tab, 0.013), 20)
+                plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_raw_plain(tab, 0.013), 2, 1)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                if name == "P2 blocked":
+                    out["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            print(line, flush=True)
+            if not rel <= tol or not same:
+                fail(f"K5 on the {name} table in {dt}: {rel:.3e} > {tol:g} or not equal to the unit-factor "
+                     f"assembler")
+            del got, ref
+        raw._on.clear()
+    return out
+
+
+def build_bs3(dev, n):
+    """bench.py's BENCH_BS=3 problem at n through the port's entry points
+    (float32): the fold operator (K1 at bs=3), the manufactured b
+    (bench.py:504-515, as for every bs > 1 run), the 4-level hierarchy down
+    to 9^3 and its Chebyshev 3+3 GMG (bench.py:576-581).  Returns (V, mpc,
+    clf, A, b, ops, masks, M, host seconds of the problem set-up, of the
+    rest)."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+
+    t0 = time.time()
+    V, bc, mpc, a, clf = make_elasticity(n, np.float32, dev)
+    t_setup = time.time() - t0
+    t0 = time.time()
+    A = clf.assemble()
+    b = A.matvec(manufactured_u0(clf, dev))
+    ops, masks = dmt.build_gmg_hierarchy(
+        lambda m: clf if m == n else make_elasticity(m, np.float32, dev)[4], n, 4, min_n=8)
+    ops[0] = A
+    M = dmt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev", n_pre=3, n_post=3)
+    torch.cuda.synchronize()
+    return V, mpc, clf, A, b, ops, masks, M, t_setup, time.time() - t0
+
+
+def elasticity_path(dev, n, measure=True):
+    """Phase 4c: bench.py's BENCH_BS=3 problem through the port's entry
+    points (float32).  Returns (counts, summary)."""
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+
+    reset_counts()
+    V, mpc, clf, A, b, ops, masks, M, t_setup, t_build = build_bs3(dev, n)
+    t0 = time.time()
+    x, its, rnorm = dmt.cg(A.matvec, b, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+    torch.cuda.synchronize()
+    t_cg = time.time() - t0
+    u = mpc.finalized.backsubstitution(x)
+    torch.cuda.synchronize()
+    counts = read_counts(("K1", "K2", "K7"))
+
+    if not bool(torch.isfinite(u).all()):
+        fail(f"bs=3 path n={n}: the solution is not finite")
+    # float64 solve of the same system: CG on the plain float64 operator,
+    # preconditioned by the hierarchy's operators cast to float64 (K7 f64)
+    A64 = plain_operator(A, torch.float64)
+    M64 = dmt.LatticeGMG([cast_operator(o, torch.float64) for o in ops], free_masks=[m.double() for m in masks],
+                         smoother="chebyshev", n_pre=3, n_post=3)
+    x_ref, its_ref, _ = dmt.cg(A64.matvec, b.double(), M=M64, rtol=1e-12, atol=0.0, max_it=500)
+    eta, rel_res, fwd = error_gates(A, b, x, x_ref)
+    summary = dict(n=n, dofs=V.num_dofs, setup_s=t_setup, build_s=t_build, its=its, rnorm=rnorm,
+                   bnorm=float(torch.linalg.vector_norm(b)), cg_s=t_cg, rel_res=rel_res, eta=eta, fwd=fwd,
+                   its_ref=its_ref, levels=[o.dia.vshape for o in ops], bounds=M._bounds)
+    if measure:
+        # phase breakdown on the built objects (launches here are not counted)
+        xr = b / torch.linalg.vector_norm(b)
+        summary["asm_ms"] = cuda_ms(lambda: clf.assemble(), 20)
+        summary["spmv_ms"] = cuda_ms(lambda: A.matvec(xr), 100)
+        summary["vcycle_ms"] = cuda_ms(lambda: M(xr), 10)
+        reset_counts()
+        t0 = time.time()  # a second, warm solve
+        _, its_w, _ = dmt.cg(A.matvec, b, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+        torch.cuda.synchronize()
+        summary["ms_per_it"] = 1e3 * (time.time() - t0) / max(its_w, 1)
+        summary["k7_per_it"] = read_counts(("K7",))["K7"] / max(its_w, 1)
+    return counts, summary
+
+
 def p2_levels(n):
     """bench.py's p-coarsened level list for degree 2 (bench.py:545-550):
     P2 at n, P1 on the same refined grid, then P1 halved down to n=8."""
@@ -420,13 +669,7 @@ def build_p2(dev, n):
     A = clf.assemble()
     # manufactured right-hand side b = A u0 (bench.py:504-515: the dofs
     # exceed 2^21)
-    n0, n1, n2 = clf.vshape
-    ax = [torch.arange(m, dtype=torch.float32, device=dev) / m for m in (n0, n1, n2)]
-    pat = (torch.sin(np.pi * ax[0])[:, None, None] * torch.sin(np.pi * ax[1])[None, :, None]
-           * torch.sin(2 * np.pi * ax[2])[None, None, :])
-    keep = torch.as_tensor(clf._keep_grid, device=dev)
-    u0 = torch.movedim(pat[None] * keep, 0, -1).reshape(-1)
-    b = A.matvec(u0)
+    b = A.matvec(manufactured_u0(clf, dev))
     ops, masks = dmt.build_gmg_hierarchy(
         lambda lv: clf if lv == (2, n) else make_problem(lv[1], np.float32, dev, degree=lv[0])[4],
         n, 0, levels=p2_levels(n))
@@ -534,25 +777,34 @@ def main_path(dev, n=N_MAIN):
     return counts, summary
 
 
-def oracle_f64(dev, n=6, degree=1, marker=y_planes):
-    """Phase 5: LinearProblem (Jacobi-CG) in float64 on the card vs scipy.
-    Returns (max error, CG iterations, kernel launches of the solve)."""
+def oracle_f64(dev, n=6, degree=1, marker=y_planes, kind="poisson"):
+    """Phase 5: LinearProblem (Jacobi-CG) in float64 on the card vs scipy,
+    for make_problem's Poisson form, make_elasticity's (with a vector
+    source) or make_free's.  Returns (max error, CG iterations, kernel
+    launches of the solve)."""
     import numpy as np
     import scipy.sparse.linalg as spla
 
     import dolfinx_mpc_tpu_torch as dmt
     from dolfinx_mpc_tpu_torch.utils import assemble_matrix_scipy, gather_transformation_matrix
 
-    V, bc, mpc, a, _ = make_problem(n, np.float64, dev, degree, marker)
+    if kind == "elasticity":
+        V, bc, mpc, a, _ = make_elasticity(n, np.float64, dev)
+        L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
+                           + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
+    else:
+        V, bc, mpc, a, _ = (make_free(n, np.float64, dev, degree) if kind == "free"
+                            else make_problem(n, np.float64, dev, degree, marker))
+        L = dmt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[2]) * v.value)
+    bcs = [] if bc is None else [bc]
     reset_counts()
-    L = dmt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[2]) * v.value)
-    prob = dmt.LinearProblem(a, L, mpc, bcs=[bc],
+    prob = dmt.LinearProblem(a, L, mpc, bcs=bcs,
                              petsc_options={"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-12})
     u = prob.solve().x.array.cpu().numpy()
     counts = read_counts(KERNELS)
-    A = assemble_matrix_scipy(a, [bc])
-    b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, None, device="cpu"), [a], [[bc]], None,
-                                     device="cpu"), [bc]).numpy()
+    A = assemble_matrix_scipy(a, bcs)
+    b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, None, device="cpu"), [a], [bcs], None,
+                                     device="cpu"), bcs).numpy()
     K = gather_transformation_matrix(mpc)
     u_ref = K @ spla.spsolve((K.T @ A @ K).tocsc(), K.T @ b)
     return float(np.abs(u - u_ref).max()), prob.its, counts
@@ -581,6 +833,7 @@ def main():
     gen.manual_seed(0)
     cmp = compare_kernels(dev, gen)
     cmp.update(compare_blocked_kernels(dev, gen))
+    cmp.update(compare_elasticity_kernels(dev, gen))
 
     counts, s = main_path(dev)
     print(f"main path n={s['n']} ({s['dofs']} dofs, f32, levels {s['levels']}): setup {s['setup_s']:.2f} s, "
@@ -624,19 +877,47 @@ def main():
             fail(f"P2 CG took {s2['its']} its at n={n}, JAX-CPU takes {JAX_CPU_P2_CG_ITS} at n={N_P2_JAX} "
                  f"(+-2 allowed)")
 
-    counts3 = None
-    for name, n, degree, marker, need in (("P1 n=6", 6, 1, y_planes, ("K1", "K2")),
-                                          ("P2 n=3", 3, 2, y_planes, ("K4", "K6")),
-                                          ("P1 n=6, blob set", 6, 1, blob, ("K3", "K2"))):
-        err, its64, c = oracle_f64(dev, n, degree, marker)
+    counts4 = None
+    for n in (N_BS3, 32):
+        c4, s4 = elasticity_path(dev, n, measure=n == N_BS3)
+        line = (f"bs=3 path n={n} ({s4['dofs']} dofs, f32, levels {s4['levels']}): setup {s4['setup_s']:.2f} s, "
+                f"assembly+rhs+GMG build {s4['build_s']:.2f} s, ")
+        if n == N_BS3:
+            counts4 = c4
+            line += (f"assembly {s4['asm_ms']:.4f} ms, fine SpMV {s4['spmv_ms']:.4f} ms, "
+                     f"V-cycle {s4['vcycle_ms']:.4f} ms, {s4['ms_per_it']:.4f} ms/it warm "
+                     f"({s4['k7_per_it']:.1f} K7 launches/it), ")
+        print(line + f"CG {s4['its']} its in {s4['cg_s']:.4f} s first solve, rnorm {s4['rnorm']:.3e} "
+              f"(|b| {s4['bnorm']:.3e}); recomputed in f64: |b-Ax|/|b| {s4['rel_res']:.3e}, backward "
+              f"error {s4['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s4['fwd']:.3e} "
+              f"(gate {FORWARD_ERROR_GATE:g}, f64 GMG-CG {s4['its_ref']} its); launches {c4}", flush=True)
+        if c4["K1"] <= 0 or c4["K7"] <= 0 or c4["K2"] != 0:
+            fail(f"bs=3 path n={n}: K1 and K7 must launch and K2 must not: {c4}")
+        if not s4["eta"] <= BACKWARD_ERROR_GATE:
+            fail(f"bs=3 path n={n} backward error {s4['eta']:.3e} > {BACKWARD_ERROR_GATE:g}")
+        if not s4["fwd"] <= FORWARD_ERROR_GATE:
+            fail(f"bs=3 path n={n} solution differs from the f64 solve by {s4['fwd']:.3e}")
+        if abs(s4["its"] - JAX_CPU_BS3_CG_ITS[n]) > 2:
+            fail(f"bs=3 CG took {s4['its']} its at n={n}, JAX-CPU takes {JAX_CPU_BS3_CG_ITS[n]} (+-2 allowed)")
+
+    oracle_counts = {}
+    for name, n, degree, marker, kind, need, forbid in (
+            ("P1 n=6", 6, 1, y_planes, "poisson", ("K1", "K2"), ()),
+            ("P2 n=3", 3, 2, y_planes, "poisson", ("K4", "K6"), ()),
+            ("P1 n=6, blob set", 6, 1, blob, "poisson", ("K3", "K2"), ()),
+            ("bs=3 P1 n=4", 4, 1, y_planes, "elasticity", ("K1", "K7"), ("K2",)),
+            ("Dirichlet-free P1 n=6", 6, 1, None, "free", ("K5", "K2"), ("K1", "K4")),
+            ("Dirichlet-free P2 n=3", 3, 2, None, "free", ("K5", "K6"), ("K1", "K4"))):
+        err, its64, c = oracle_f64(dev, n, degree, marker, kind)
         print(f"f64 oracle {name} on the card: Jacobi-CG {its64} its, max|u - K(K^T A K)^-1 K^T b| "
               f"{err:.3e} (tol 1e-8); launches {c}", flush=True)
         if not err <= 1e-8:
             fail(f"f64 oracle {name}: error {err:.3e} > 1e-8")
-        if min(c[k] for k in need) <= 0:
-            fail(f"f64 oracle {name} did not go through {need}: {c}")
-        if marker is blob:
-            counts3 = c
+        if min(c[k] for k in need) <= 0 or max((c[k] for k in forbid), default=0) != 0:
+            fail(f"f64 oracle {name} did not go through {need} or went through {forbid}: {c}")
+        oracle_counts[name] = c
+    counts3 = oracle_counts["P1 n=6, blob set"]
+    counts5 = oracle_counts["Dirichlet-free P2 n=3"]
 
     src = "dolfinx_mpc_tpu_torch/csrc/lattice_kernels.cu"
     pl = "dolfinx_mpc_tpu/ops/pallas_lattice.py"
@@ -650,8 +931,13 @@ def main():
              source=src, replaces=f"{pl}:526", launches=counts3["K3"], **cmp["K3"]),
         dict(name="K4 assemble_fold_lean_blocked (P2 main path; error and times at 230 x 65^3 f32)",
              route="cuda", source=src, replaces=f"{pl}:708", launches=counts2["K4"], **cmp["K4"]),
+        dict(name="K5 assemble_fold_lean_raw (launches: f64 oracle, Dirichlet-free P2 n=3, 230 x 4^3; error "
+                  "and times: the raw blocked P2 n=64 table, 230 x 65^3 f32)", route="cuda", source=src,
+             replaces=f"{pl}:611", launches=counts5["K5"], **cmp["K5"]),
         dict(name="K6 blocked_matvec (P2 main path; error and times at 8 x 65^3 f32)", route="cuda", source=src,
              replaces=f"{pl}:916", launches=counts2["K6"], **cmp["K6"]),
+        dict(name="K7 dia_matvec_bs (bs=3 path n=64; error and times at 65^3 x 3 f32)", route="cuda",
+             source=src, replaces=f"{pl}:835", launches=counts4["K7"], **cmp["K7"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

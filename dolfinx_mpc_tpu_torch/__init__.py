@@ -7,9 +7,9 @@ module's counterpart sits at the same path.  Devices and dtypes are explicit:
 ``assemble_matrix_lattice(..., device=...)`` place the tables and operators,
 and everything downstream follows them; nothing probes for a device.  The
 lattice path's kernels (the fused lean-fold assemblers K1, K3 and K4, the
-DIA SpMV K2 and the blocked SpMV K6) are CUDA C++ for sm_90a in ``csrc/``,
-built with nvcc on first use; on CPU tensors their plain PyTorch versions
-run instead.
+unmasked assembler K5, the scalar and vector DIA SpMVs K2 and K7 and the
+blocked SpMV K6) are CUDA C++ for sm_90a in ``csrc/``, built with nvcc on
+first use; on CPU tensors their plain PyTorch versions run instead.
 """
 
 import torch as _torch

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) kernels of the lattice fast path: the fused lean-fold
-// assemblers (K1, its blocked use K4, and the masked K3), the scalar DIA
-// SpMV (K2) and the parity-blocked SpMV (K6).
+// assemblers (K1, its blocked use K4, and the masked K3), the unmasked
+// assembler (K5), the scalar DIA SpMV (K2), the vector (bs > 1) DIA SpMV
+// (K7) and the parity-blocked SpMV (K6).
 //
 // Built by dolfinx_mpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -170,6 +171,56 @@ __global__ void fold_assemble_masked_kernel(T* __restrict__ out, int n_pl, int n
   out[idx] = res;
 }
 
+// Unmasked value on the r-refined grid (r = R > 1): entry e's box q lands
+// on the refined point (dax + R qx, day + R qy, daz + R qz), q inside the
+// box grid — the stride-R form of the TPU kernel's pltpu.repeat upsampling
+// times its even-parity mask and the x-plane weight (p - dax) % R == 0.
+template <typename T, int R>
+__device__ __forceinline__ T window_sum_strided(const PlanePoint& q, int e0, int e1, int nx, int ny,
+                                                int nz, const int* __restrict__ ent,
+                                                const T* __restrict__ coef, T s) {
+  const T s2 = s * s, s3 = s2 * s;
+  T acc = T(0);
+  for (int e = e0; e < e1; ++e) {
+    const int u = q.p - __ldg(ent + 3 * e), v = q.j - __ldg(ent + 3 * e + 1),
+              w = q.k - __ldg(ent + 3 * e + 2);
+    if (u >= 0 && u < R * nx && u % R == 0 && v >= 0 && v < R * ny && v % R == 0 && w >= 0 &&
+        w < R * nz && w % R == 0) {
+      acc += __ldg(coef + 3 * e) * s3 + __ldg(coef + 3 * e + 1) * s2 + __ldg(coef + 3 * e + 2) * s;
+    }
+  }
+  return acc;
+}
+
+// K5: the unmasked planes, no mask factors and no diagval term.  Replaces
+// dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_lean_fold_pallas_group ->
+// kernel (fuse_mode None), which the JAX package runs for a form without
+// Dirichlet dofs, where every mask is the identity: on the vertex grid (any
+// bs) and on the blocked class grids (degree 2) at R = 1, and on the
+// refined degree-2 grid at R = 2.  K1's thread layout and the same bound,
+// the single coalesced write; at R = 1 the value is window_sum itself, so
+// the result equals K1's with unit factors bit for bit.  At R = 2 a point
+// meets only the entries whose corner shares its parity, and the window
+// ends at the last box (R (n - 1) + d <= n1 - 1: the TPU kernel's clip at
+// n1 - day never cuts a written value).
+template <typename T, int R>
+__global__ void fold_assemble_raw_kernel(T* __restrict__ out, int n_pl, int n0, int n1, int n2,
+                                         int nx, int ny, int nz, const int* __restrict__ planes,
+                                         const int* __restrict__ ent, const T* __restrict__ coef,
+                                         T s) {
+  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const PlanePoint q = split_index(idx, n0, n1, n2);
+  const int* pl = planes + 8 * q.mi;
+  const int e0 = __ldg(pl + 6), e1 = __ldg(pl + 7);
+  if constexpr (R == 1) {
+    out[idx] = window_sum(q, e0, e1, nx, ny, nz, ent, coef, s);
+  } else {
+    out[idx] = window_sum_strided<T, R>(q, e0, e1, nx, ny, nz, ent, coef, s);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K2: scalar DIA SpMV, y[p] = sum_d data[d, p] * x[p + off_d], zero outside
 // the grid.
@@ -211,6 +262,58 @@ __global__ void dia_matvec_kernel(const T* __restrict__ data, const T* __restric
     }
   }
   y[idx] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// K7: vector DIA SpMV with BS dof components per lattice point,
+//   y[(v, ci)] = sum_{d, cj} data[d, ci, cj, v] * x[(v + off_d, cj)],
+// data (n_off, BS, BS, n0, n1, n2), x and y interleaved (point-major, BS
+// components each), zero outside the grid.
+//
+// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:make_dia_matvec_bs_pallas
+// (kernel).  The TPU version splits x into component-major planes with a
+// moveaxis + halo pad and splits the (offset, ci, cj) rows across calls to
+// fit VMEM; here one thread per grid point (k fastest) reads the BS source
+// components at v + off (contiguous in the interleaved layout) once per
+// offset, with bounds checks in place of the roll + iota masks, streams the
+// BS^2 data planes (coalesced along k) and keeps the BS sums in registers.
+// Bound by device memory: (BS^2 n_off + 2 BS) values per point, 155 MB per
+// fine-level SpMV of P1 elasticity at n=64 in f32.  The sum order per
+// output is the plain version's: offset-major, then cj.
+// ---------------------------------------------------------------------------
+template <typename T, int BS>
+__global__ void dia_matvec_bs_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                                     T* __restrict__ y, const Offsets offs, int n0, int n1, int n2) {
+  const long long N = static_cast<long long>(n0) * n1 * n2;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int k = static_cast<int>(idx % n2);
+  const long long r = idx / n2;
+  const int j = static_cast<int>(r % n1);
+  const int i = static_cast<int>(r / n1);
+  T acc[BS];
+#pragma unroll
+  for (int c = 0; c < BS; ++c) acc[c] = T(0);
+  for (int d = 0; d < offs.n; ++d) {
+    const int di = offs.d[3 * d], dj = offs.d[3 * d + 1], dk = offs.d[3 * d + 2];
+    const int ii = i + di, jj = j + dj, kk = k + dk;
+    if (ii >= 0 && ii < n0 && jj >= 0 && jj < n1 && kk >= 0 && kk < n2) {
+      const long long src = idx + (static_cast<long long>(di) * n1 + dj) * n2 + dk;
+      T xs[BS];
+#pragma unroll
+      for (int cj = 0; cj < BS; ++cj) xs[cj] = __ldg(x + src * BS + cj);
+      const T* dd = data + static_cast<long long>(d) * BS * BS * N + idx;
+#pragma unroll
+      for (int ci = 0; ci < BS; ++ci) {
+        T t = __ldg(dd + (ci * BS) * N) * xs[0];
+#pragma unroll
+        for (int cj = 1; cj < BS; ++cj) t += __ldg(dd + (ci * BS + cj) * N) * xs[cj];
+        acc[ci] += t;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < BS; ++c) y[idx * BS + c] = acc[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -275,6 +378,51 @@ int launch_dia_matvec(const T* data, const T* x, T* y, const int* offs_host, int
 }
 
 template <typename T>
+int launch_dia_matvec_bs(const T* data, const T* x, T* y, const int* offs_host, int n_off, int bs,
+                         int n0, int n1, int n2, void* stream) {
+  if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
+  const long long N = static_cast<long long>(n0) * n1 * n2;
+  if (N == 0) return 0;
+  Offsets offs;
+  offs.n = n_off;
+  for (int q = 0; q < 3 * n_off; ++q) offs.d[q] = offs_host[q];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bs) {
+    case 2:
+      dia_matvec_bs_kernel<T, 2><<<n_blocks(N), kThreads, 0, st>>>(data, x, y, offs, n0, n1, n2);
+      break;
+    case 3:
+      dia_matvec_bs_kernel<T, 3><<<n_blocks(N), kThreads, 0, st>>>(data, x, y, offs, n0, n1, n2);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fold_assemble_raw(T* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
+                             const int* planes, const int* ent, const T* coef, int r, T s,
+                             void* stream) {
+  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
+  if (total == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 1:
+      fold_assemble_raw_kernel<T, 1><<<n_blocks(total), kThreads, 0, st>>>(
+          out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, s);
+      break;
+    case 2:
+      fold_assemble_raw_kernel<T, 2><<<n_blocks(total), kThreads, 0, st>>>(
+          out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_fold_assemble(T* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
                          const int* planes, const int* ent, const T* coef, const T* fac,
                          int n_stack, T s, T dv, void* stream) {
@@ -318,6 +466,30 @@ int dmt_dia_matvec_f32(const float* data, const float* x, float* y, const int* o
 int dmt_dia_matvec_f64(const double* data, const double* x, double* y, const int* offs,
                        int n_off, int n0, int n1, int n2, void* stream) {
   return launch_dia_matvec<double>(data, x, y, offs, n_off, n0, n1, n2, stream);
+}
+
+int dmt_dia_matvec_bs_f32(const float* data, const float* x, float* y, const int* offs, int n_off,
+                          int bs, int n0, int n1, int n2, void* stream) {
+  return launch_dia_matvec_bs<float>(data, x, y, offs, n_off, bs, n0, n1, n2, stream);
+}
+
+int dmt_dia_matvec_bs_f64(const double* data, const double* x, double* y, const int* offs,
+                          int n_off, int bs, int n0, int n1, int n2, void* stream) {
+  return launch_dia_matvec_bs<double>(data, x, y, offs, n_off, bs, n0, n1, n2, stream);
+}
+
+int dmt_fold_assemble_raw_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
+                              const int* planes, const int* ent, const float* coef, int r, float s,
+                              void* stream) {
+  return launch_fold_assemble_raw<float>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, r, s,
+                                         stream);
+}
+
+int dmt_fold_assemble_raw_f64(double* out, int n_pl, int n0, int n1, int n2, int nx, int ny,
+                              int nz, const int* planes, const int* ent, const double* coef, int r,
+                              double s, void* stream) {
+  return launch_fold_assemble_raw<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, r,
+                                          s, stream);
 }
 
 int dmt_fold_assemble_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,

@@ -8,9 +8,11 @@ interpolation / full weighting as strided slicing on the vertex grid with
 R = P^T, and the coarsest level is solved with a dense inverse.  The whole
 cycle is a fixed linear symmetric operator, as plain CG requires.  All
 level matvecs, the smoothers' and the Gershgorin bounds', go through the
-level operators' SpMV: kernel K2 on the card for DIA levels, K6 for a
-blocked fine level.  With ``blocked_io`` the fine level works on the padded
-class stack of its BlockDIAMatrix, converting at the level-0/1 transfer.
+level operators' SpMV: kernel K2 on the card for scalar DIA levels, K7 for
+vector (bs > 1) ones, K6 for a blocked fine level.  Vector levels keep the
+components interleaved and transfer each component alike.  With
+``blocked_io`` the fine level works on the padded class stack of its
+BlockDIAMatrix, converting at the level-0/1 transfer.
 
 Not ported: the legacy inner-CG coarse solve, whose nonlinearity the JAX
 package itself warns against.

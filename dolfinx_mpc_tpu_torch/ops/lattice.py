@@ -14,13 +14,14 @@ plane, y = A u, the slave-plane rows fold back onto the masters (K^T), and
 slave rows get diagval — K^T A K without any irregular operation.
 
 The lean fold branch assembles from a per-plane table reduced on the host
-(ops/lattice_kernels.py: build_fold_table) through kernel K1 (degree 1) or
-K4 (degree 2) when the Dirichlet set is separable, and through K3 when it is
-not; every scalar DIA matvec on the card runs kernel K2 and every blocked
-one K6.  Not ported yet, each raising NotImplementedError with its ROADMAP
-item: bs > 1 (slice 3), the "csr"/"cells" side formats, x-dependent or
-coefficient forms (the element-kernel lean path) and non-uniform geometry
-(slice 4).
+(ops/lattice_kernels.py: build_fold_table) through kernel K1 (degree 1, any
+bs <= 3) or K4 (degree 2) when the Dirichlet set is separable, through K3
+when it is not, and through K5 when the form has no Dirichlet dof; every
+scalar DIA matvec on the card runs kernel K2, every vector (bs > 1) one K7
+and every blocked one K6.  Not ported yet, each raising NotImplementedError
+with its ROADMAP item: the "csr"/"cells" side formats, x-dependent or
+coefficient forms and vector spaces at degree 2 (the element-kernel lean
+path) and non-uniform geometry (slice 4).
 """
 
 from __future__ import annotations
@@ -41,11 +42,12 @@ from .lattice_kernels import (
     assemble_fold_lean_blocked,
     assemble_fold_lean_factored,
     assemble_fold_lean_masked,
+    assemble_fold_lean_raw,
     blocked_matvec,
     blocked_trip_table,
     build_fold_table,
     dia_matvec,
-    dia_matvec_plain,
+    dia_matvec_bs,
     fold_kernel_supported,
 )
 
@@ -78,12 +80,11 @@ class DIAMatrix:
         return (n, n)
 
     def matvec(self, x):
+        """K2 (bs = 1) or K7 (bs > 1) on the card, their plain version on
+        the CPU."""
         if self.bs == 1:
             return dia_matvec(self.data, self.offsets, self.vshape, x)
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "bs > 1 DIA SpMV on the card is kernel K7 (ROADMAP queue 2, slice 3)")
-        return dia_matvec_plain(self.data, self.offsets, self.vshape, self.bs, x)
+        return dia_matvec_bs(self.data, self.offsets, self.vshape, self.bs, x)
 
     def diagonal(self):
         zid = self.offsets.index((0, 0, 0)) if (0, 0, 0) in self.offsets else None
@@ -485,8 +486,6 @@ class CompiledLatticeForm:
             # degree 2 needs the grid-lex dof numbering, so that dofs are the
             # points of the r-refined lattice (fem/functionspace.py)
             raise ValueError("degree-2 lattice path needs a grid-numbered space (pristine box mesh)")
-        if V.block_size != 1:
-            raise NotImplementedError("bs > 1 lattice assembly is ROADMAP slice 3")
         self.dtype = np.dtype(dtype)
         if self.dtype.kind == "c":
             raise NotImplementedError("complex lattice assembly is ROADMAP queue 1, item 18")
@@ -531,8 +530,9 @@ class CompiledLatticeForm:
         geo = None if self.term.coefficients else _uniform_lattice_geometry(mesh, lat)
         if geo is None or not fold_kernel_supported(self):
             raise NotImplementedError(
-                "fold forms with coefficients, x-dependent integrands or non-uniform geometry "
-                "need the element-kernel lean path (ROADMAP queue 1, item 14)")
+                "fold forms with coefficients, x-dependent integrands, non-uniform geometry or "
+                "a vector space at degree 2 need the element-kernel lean path "
+                "(ROADMAP queue 1, item 14)")
         self._origin, self._spacing = geo
         n0, n1, n2 = self.vshape
         keep = (1.0 - bc_mask_np).reshape(n0, n1, n2, bs)
@@ -551,9 +551,13 @@ class CompiledLatticeForm:
             keep_s, ind_s, pads = self._keep_blocked, self._bc_ind_blocked, self._blocked_pads()
         else:
             keep_s, ind_s, pads = self._keep_grid, self._bc_ind_grid, None
-        # separable masks go to K1 / K4, any other Dirichlet set to K3
-        factors = _detect_factored_masks(keep_s, ind_s, pads)
-        self.table = build_fold_table(self, factors, keep_s, ind_s)
+        if len(bc_dofs) == 0:
+            # no Dirichlet dof: every mask is the identity, K5's raw table
+            self.table = build_fold_table(self)
+        else:
+            # separable masks go to K1 / K4, any other Dirichlet set to K3
+            factors = _detect_factored_masks(keep_s, ind_s, pads)
+            self.table = build_fold_table(self, factors, keep_s, ind_s)
 
     # ------------------------------------------------------------------
     # parity-blocked (degree-2) structure: see BlockDIAMatrix
@@ -694,11 +698,16 @@ class CompiledLatticeForm:
 
     def _assemble_fold_lean_kernel(self, jitter, diagval):
         """The lean fold operator through one assembler launch, BC masks and
-        diagval fused into the pass that writes the data: K1 (degree 1) or
-        K4 (degree 2, blocked) for a separable Dirichlet set, K3 otherwise."""
+        diagval fused into the pass that writes the data: K5 for a form
+        without Dirichlet dofs (dolfinx_mpc_tpu/ops/lattice.py:865-880,
+        where the JAX package takes its unmasked kernel), else K1 (degree 1)
+        or K4 (degree 2, blocked) for a separable Dirichlet set, K3
+        otherwise."""
         n0, n1, n2 = self.vshape
         tab = self.table.on(self.device, torch_dtype(_real_dtype(self.dtype)))
-        if self.table.factors is None:
+        if self.table.factors is None and self.table.keep is None:
+            data = assemble_fold_lean_raw(tab, jitter)
+        elif self.table.factors is None:
             data = assemble_fold_lean_masked(tab, jitter, diagval)
         elif self._blocked:
             data = assemble_fold_lean_blocked(tab, jitter, diagval)

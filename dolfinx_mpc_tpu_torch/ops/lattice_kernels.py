@@ -13,8 +13,13 @@ Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
 - **K4** ``assemble_fold_lean_blocked`` replaces the degree-2 blocked
   assembler (``make_lean_blocked_pallas``: K1's code over ``_BlockedView``);
   it launches K1's device code on the blocked table.
+- **K5** ``assemble_fold_lean_raw`` replaces the unmasked assembler
+  (``kernel``, fuse mode None) of forms without Dirichlet dofs, on the
+  vertex grid, the blocked class grids and the refined degree-2 grid.
 - **K6** ``blocked_matvec`` replaces the parity-blocked SpMV
   (``make_blocked_matvec_pallas``).
+- **K7** ``dia_matvec_bs`` replaces the vector (bs > 1) DIA SpMV
+  (``make_dia_matvec_bs_pallas``).
 
 The CUDA sources are ``csrc/lattice_kernels.cu``; ``_build.py`` compiles them
 with nvcc on first use.  Each wrapper runs its plain version only for
@@ -48,11 +53,14 @@ __all__ = [
     "assemble_fold_lean_factored_plain",
     "assemble_fold_lean_masked",
     "assemble_fold_lean_masked_plain",
+    "assemble_fold_lean_raw",
+    "assemble_fold_lean_raw_plain",
     "blocked_matvec",
     "blocked_matvec_plain",
     "blocked_trip_table",
     "build_fold_table",
     "dia_matvec",
+    "dia_matvec_bs",
     "dia_matvec_plain",
     "fold_kernel_supported",
 ]
@@ -76,6 +84,12 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
         bm = getattr(lib, f"dmt_blocked_matvec_{suf}")
         bm.argtypes = [P, P, P, P, I, I, I, I, P]
         bm.restype = I
+        mb = getattr(lib, f"dmt_dia_matvec_bs_{suf}")
+        mb.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        mb.restype = I
+        fr = getattr(lib, f"dmt_fold_assemble_raw_{suf}")
+        fr.argtypes = [P, I, I, I, I, I, I, I, P, P, P, I, F, P]
+        fr.restype = I
 
 
 def _suffix(dtype):
@@ -150,9 +164,10 @@ def _probe_constant_M(term, gdim, bs=1):
 
 def fold_kernel_supported(clf) -> bool:
     """The lean fold forms the assemblers cover: 3D, scalar at degree 1 or
-    2, constant feature matrix (``pallas_supported`` without its backend
-    and f32 conditions; bs > 1 is ROADMAP slice 3)."""
-    if not (clf.refine in (1, 2) and clf.bs == 1 and clf.mesh.tdim == 3):
+    2 and block size <= 3 at degree 1, constant feature matrix
+    (``pallas_supported`` without its backend and f32 conditions)."""
+    if not (clf.refine in (1, 2) and (clf.bs == 1 or (clf.bs <= 3 and clf.refine == 1))
+            and clf.mesh.tdim == 3):
         return False
     return _probe_constant_M(clf.term, clf.mesh.gdim, clf.bs) is not None
 
@@ -193,8 +208,11 @@ class FoldTable:
     masks: either `factors`, the halo-padded keep/pad factors (ki, kj, kk,
       pi, pj, pk) of a separable mask (K1, K4), or `keep`, the halo-padded
       keep stack (n_stack, n0+2, n1+2, n2+2), with `bc_ind`, the bc-dof
-      multiplicity stack (n_stack, n0, n1, n2) (K3);
-    blocked: the planes live on the parity-blocked class grids."""
+      multiplicity stack (n_stack, n0, n1, n2) (K3), or neither for a form
+      without Dirichlet dofs (K5);
+    blocked: the planes live on the parity-blocked class grids;
+    refine: r of the placement, 2 on the refined degree-2 grid (K5 only),
+      where entry e covers the points (dax, day, daz) + r q of the boxes q."""
 
     vshape: tuple
     dims: tuple
@@ -205,6 +223,7 @@ class FoldTable:
     keep: Optional[np.ndarray] = None
     bc_ind: Optional[np.ndarray] = None
     blocked: bool = False
+    refine: int = 1
     _on: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -222,17 +241,19 @@ class FoldTable:
 class FoldTableDevice:
     """FoldTable tensors on one device: int32 planes/entries, coefficients
     and the masks in the working dtype — the packed factor buffer
-    [ki | pi | kj | pj | kk | pk] (factored), or the keep and bc stacks."""
+    [ki | pi | kj | pj | kk | pk] (factored), the keep and bc stacks
+    (masked), or none (raw)."""
 
     def __init__(self, table: FoldTable, device, dtype):
         self.vshape, self.dims = table.vshape, table.dims
         self.n_planes = table.n_planes
-        self.blocked = table.blocked
+        self.blocked, self.refine = table.blocked, table.refine
         self.dtype = dtype
         self.planes = torch.as_tensor(table.planes, dtype=torch.int32, device=device).contiguous()
         self.ent = torch.as_tensor(table.ent, dtype=torch.int32, device=device).contiguous()
         self.coef = torch.as_tensor(table.coef, dtype=dtype, device=device).contiguous()
         self.factors = self.fac = self.keep = self.bc_ind = None
+        self.n_stack = 0
         if table.factors is not None:
             ki, kj, kk, pi, pj, pk = table.factors
             self.n_stack = ki.shape[0]
@@ -241,7 +262,7 @@ class FoldTableDevice:
             self.fac = torch.as_tensor(
                 np.concatenate([f.ravel() for f in (ki, pi, kj, pj, kk, pk)]),
                 dtype=dtype, device=device).contiguous()
-        else:
+        elif table.keep is not None:
             self.n_stack = table.keep.shape[0]
             self.keep = torch.as_tensor(table.keep, dtype=dtype, device=device).contiguous()
             self.bc_ind = torch.as_tensor(table.bc_ind, dtype=dtype, device=device).contiguous()
@@ -251,7 +272,7 @@ class FoldTableDevice:
         return self.coef.device
 
 
-def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
+def build_fold_table(clf, factors=None, keep=None, bc_ind=None, _refined=False) -> FoldTable:
     """The scalar-group reduction of the JAX package's trace-time code
     (dolfinx_mpc_tpu/ops/pallas_lattice.py:288-397) for every output plane
     of a lean fold form, regrouped per plane.  On the blocked layout
@@ -259,7 +280,12 @@ def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
     pallas_lattice.py:693-706: the class grids ``_cdims``, the triples and
     the coarse moves ``_bmoves`` at refine 1, with one mask row per triple
     (pallas_lattice.py:327-336).  `factors` from _detect_factored_masks, or
-    None with the unpadded `keep` and `bc_ind` stacks for the masked form.
+    the unpadded `keep` and `bc_ind` stacks for the masked form, or neither
+    for the raw (unmasked) table of K5.  `_refined` takes a degree-2 form's
+    refined vertex-grid layout instead of the blocked one: the 65 refined
+    DIA planes at refine r = 2, a raw table that only K5 reads (the JAX
+    package's unblocked degree-2 assembly; the port's degree-2 operator is
+    the blocked one).
 
     The lean contract is a UNIFORM lattice whose only runtime input is the
     scalar jitter s = 1 + jit: every vertex coordinate is s * (const), so
@@ -272,7 +298,10 @@ def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
     lat = clf.lat
     nx, ny, nz = lat.dims
     bs = clf.bs
-    if clf._blocked:
+    blocked = bool(clf._blocked) and not _refined
+    if _refined and (factors is not None or keep is not None):
+        raise ValueError("the refined degree-2 table is raw: K5 reads no masks")
+    if blocked:
         cid = {c: i for i, c in enumerate(clf._classes)}
         vshape, moves, r = clf._cdims, clf._bmoves, 1
         # bs == 1: the plane key of a triple is its id
@@ -344,7 +373,7 @@ def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
             ent.append((dax, day, daz))
             coef.append(c)
         planes[mi] = (ri, ci, di, dj, dk, int(ri == ci and (di, dj, dk) == (0, 0, 0)), e0, len(ent))
-    if factors is None:
+    if factors is None and keep is not None:
         if max(abs(v) for _, _, off in mask_info for v in off) > 1:
             raise ValueError("the masked assembler reads a one-point halo: offsets beyond ±1")
         keep = np.pad(np.asarray(keep, np.float64), ((0, 0), (1, 1), (1, 1), (1, 1)))
@@ -354,7 +383,7 @@ def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
     return FoldTable(tuple(vshape), (nx, ny, nz), planes,
                      np.asarray(ent, np.int32).reshape(-1, 3),
                      np.asarray(coef, np.float64).reshape(-1, 3), factors,
-                     keep, bc_ind, bool(clf._blocked))
+                     keep, bc_ind, blocked, r)
 
 
 # ---------------------------------------------------------------------------
@@ -365,9 +394,11 @@ def build_fold_table(clf, factors, keep=None, bc_ind=None) -> FoldTable:
 def _window_sums(tab: FoldTableDevice, jitter):
     """Unmasked planes (n_planes, n0, n1, n2): every table entry's value
     c0 s^3 + c1 s^2 + c2 s, computed in tab's dtype as the kernels do,
-    added over its box window.  Returns (planes, table rows)."""
+    added over its box window (with stride r on the refined grid).
+    Returns (planes, table rows)."""
     n0, n1, n2 = tab.vshape
     nx, ny, nz = tab.dims
+    r = tab.refine
     np_dt = numpy_dtype(tab.dtype)
     s = np_dt.type(1.0 + jitter)
     s2 = s * s
@@ -380,8 +411,16 @@ def _window_sums(tab: FoldTableDevice, jitter):
         for e in range(e0, e1):
             dax, day, daz = ent[e]
             c0, c1, c2 = coef[e]
-            out[mi, dax:dax + nx, day:day + ny, daz:daz + nz] += float(c0 * s3 + c1 * s2 + c2 * s)
+            out[mi, dax:dax + r * nx:r, day:day + r * ny:r, daz:daz + r * nz:r] += float(
+                c0 * s3 + c1 * s2 + c2 * s)
     return out, rows
+
+
+def assemble_fold_lean_raw_plain(tab: FoldTableDevice, jitter):
+    """Plain PyTorch version of K5 on tab's device: the window slice-adds of
+    every plane, no masks and no diagonal term.  Output (n_planes, n0, n1,
+    n2) in tab's dtype."""
+    return _window_sums(tab, jitter)[0]
 
 
 def assemble_fold_lean_factored_plain(tab: FoldTableDevice, jitter, diagval):
@@ -429,14 +468,21 @@ def assemble_fold_lean_masked_plain(tab: FoldTableDevice, jitter, diagval):
     return out
 
 
-def _check_table(tab, name, factored, blocked=None):
+def _check_table(tab, name, masks, blocked=None):
+    """Device, dtype and layout checks of an assembler launch; `masks` is
+    the table kind the kernel reads: "factored", "masked" or "raw" (any
+    table, masks ignored)."""
     dev = tab.device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {dev}")
     if tab.dtype not in _FLOATS:
         raise TypeError(f"{name}: dtype {tab.dtype} is not float32/float64")
-    if (tab.factors is not None) != factored:
-        raise ValueError(f"{name}: the table holds {'no ' if factored else ''}separable mask factors")
+    if masks == "factored" and tab.factors is None:
+        raise ValueError(f"{name}: the table holds no separable mask factors")
+    if masks == "masked" and tab.keep is None:
+        raise ValueError(f"{name}: the table holds no keep stack")
+    if masks != "raw" and tab.refine != 1:
+        raise ValueError(f"{name}: the refined degree-2 table is K5's alone")
     if blocked is not None and tab.blocked != blocked:
         raise ValueError(f"{name}: the table is {'' if tab.blocked else 'not '}on the blocked layout")
 
@@ -447,7 +493,7 @@ def _fold_factored(wrapper, blocked, tab: FoldTableDevice, jitter, diagval):
     if tab.device.type == "cpu":
         return assemble_fold_lean_factored_plain(tab, jitter, diagval)
     name = wrapper.__name__
-    _check_table(tab, name, factored=True, blocked=blocked)
+    _check_table(tab, name, "factored", blocked=blocked)
     from .._build import load_kernels
 
     lib = load_kernels()
@@ -513,7 +559,7 @@ def assemble_fold_lean_masked(tab: FoldTableDevice, jitter, diagval):
     the plain version."""
     if tab.device.type == "cpu":
         return assemble_fold_lean_masked_plain(tab, jitter, diagval)
-    _check_table(tab, "assemble_fold_lean_masked", factored=False)
+    _check_table(tab, "assemble_fold_lean_masked", "masked")
     from .._build import load_kernels
 
     lib = load_kernels()
@@ -534,6 +580,46 @@ def assemble_fold_lean_masked(tab: FoldTableDevice, jitter, diagval):
 
 
 assemble_fold_lean_masked.launches = 0
+
+
+def assemble_fold_lean_raw(tab: FoldTableDevice, jitter):
+    """K5: the unmasked planes of a lean fold form, (n_planes, n0, n1, n2)
+    in the table's plane order: DIA planes (offset, ci, cj) on the vertex
+    grid (any bs), triples on the blocked class grids, or the refined
+    degree-2 DIA planes (``build_fold_table(..., _refined=True)``).  The
+    operator of a form without Dirichlet dofs, whose masks are identities.
+
+    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
+    _make_lean_fold_pallas_group -> kernel (fuse mode None).  K1's thread
+    layout without the mask reads and the diagonal term: bound by the one
+    write (135 x 65^3 values, 148 MB, for P1 elasticity at n=64 in f32;
+    65 x 129^3, 558 MB, on the refined P2 n=64 grid).  On the refined grid
+    an entry adds only at the points of its corner's parity, the stride-r
+    form of the TPU kernel's pltpu.repeat upsampling times its parity
+    mask.  Any mask stack the table holds is not read.  CPU tables run the
+    plain version."""
+    if tab.device.type == "cpu":
+        return assemble_fold_lean_raw_plain(tab, jitter)
+    _check_table(tab, "assemble_fold_lean_raw", "raw")
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    dev = tab.device
+    n0, n1, n2 = tab.vshape
+    nx, ny, nz = tab.dims
+    out = torch.empty((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=dev)
+    F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"dmt_fold_assemble_raw_{_suffix(tab.dtype)}")(
+            out.data_ptr(), tab.n_planes, n0, n1, n2, nx, ny, nz,
+            tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), tab.refine,
+            F(1.0 + float(jitter)), torch.cuda.current_stream(dev).cuda_stream)
+    _launch_check(rc, "assemble_fold_lean_raw")
+    assemble_fold_lean_raw.launches += 1
+    return out
+
+
+assemble_fold_lean_raw.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +690,60 @@ def dia_matvec(data, offsets, vshape, x):
 
 
 dia_matvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: vector (bs > 1) DIA SpMV
+# ---------------------------------------------------------------------------
+
+
+def dia_matvec_bs(data, offsets, vshape, bs, x):
+    """K7: vector DIA SpMV y[(v, ci)] = sum_{d, cj} data[d, ci, cj, v]
+    x[(v + off_d, cj)] (zero outside the grid); data (n_off, bs, bs, n0,
+    n1, n2), x and y interleaved (n0*n1*n2*bs,), bs 2 or 3.
+
+    Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
+    make_dia_matvec_bs_pallas, which the JAX package keeps out of dispatch
+    for a Mosaic miscompile in composed programs; that defect has no CUDA
+    counterpart, so here every bs > 1 DIA matvec on the card runs it, at
+    any grid size.  One thread per point, k fastest: it reads the bs
+    source components at each in-grid neighbour (contiguous in the
+    interleaved layout), the bs^2 data planes coalesced along k, and sums
+    in registers in the plain version's order (offset, then cj).  Bound by
+    device memory: (bs^2 n_off + 2 bs) values per point, 155 MB per fine
+    matvec of P1 elasticity at n=64 in f32.  CPU tensors run the plain
+    version."""
+    n0, n1, n2 = vshape
+    n_off = len(offsets)
+    if data.device.type == "cpu" and x.device.type == "cpu":
+        return dia_matvec_plain(data, offsets, vshape, bs, x)
+    if data.device.type != "cuda" or x.device != data.device:
+        raise RuntimeError(f"dia_matvec_bs: data on {data.device}, x on {x.device}")
+    if data.dtype not in _FLOATS or x.dtype != data.dtype:
+        raise TypeError(f"dia_matvec_bs: data {data.dtype}, x {x.dtype} (need equal float32/float64)")
+    if bs not in (2, 3):
+        raise ValueError(f"dia_matvec_bs: bs={bs} (the kernel is built for 2 and 3)")
+    N = n0 * n1 * n2
+    if data.numel() != n_off * bs * bs * N or x.numel() != N * bs:
+        raise ValueError(f"dia_matvec_bs: data {tuple(data.shape)} / x {tuple(x.shape)} "
+                         f"do not match {n_off} offsets on {vshape} at bs={bs}")
+    if not (data.is_contiguous() and x.is_contiguous()):
+        raise ValueError("dia_matvec_bs: data and x must be contiguous")
+    from .._build import load_kernels
+
+    lib = load_kernels()
+    offs = np.ascontiguousarray(offsets, dtype=np.int32).reshape(-1)
+    y = torch.empty(N * bs, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"dmt_dia_matvec_bs_{_suffix(x.dtype)}")(
+            data.data_ptr(), x.data_ptr(), y.data_ptr(), offs.ctypes.data, n_off, bs, n0, n1, n2,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _launch_check(rc, "dia_matvec_bs")
+    dia_matvec_bs.launches += 1
+    return y
+
+
+dia_matvec_bs.launches = 0
 
 
 # ---------------------------------------------------------------------------

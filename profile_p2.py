@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Profile the P2 path's fine SpMV, K4, K6, V-cycle and GMG-CG solve on one
-NVIDIA card with torch.profiler.
+"""Profile the P2 path's (or the bs=3 path's) fine SpMV, assembler, SpMV
+kernel, V-cycle and GMG-CG solve on one NVIDIA card with torch.profiler.
 
-    python3 profile_p2.py [--n 64]
+    python3 profile_p2.py [--n 64] [--path p2|bs3]
 
 Run from the repository root.  It builds chip_smoke.py's P2 problem at n
 (bench.py's degree-2 problem, float32, six p-coarsened levels at n=64,
-blocked_io GMG), warms every region, then for each region prints one JSON
+blocked_io GMG: K4, K6) or, with --path bs3, its bs=3 problem (bench.py's
+BENCH_BS=3 elasticity, float32, four levels, Chebyshev 3+3: K1 at bs=3,
+K7), warms every region, then for each region prints one JSON
 line: the host-clock wall per call with and without the profiler, the
 device (kernel) time per call, kernels per call, the device busy share
 against both walls, and the eight largest kernels.  The unprofiled wall is
@@ -59,7 +61,9 @@ def region(name, fn, reps):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=cs.N_P2)
-    n = ap.parse_args().n
+    ap.add_argument("--path", choices=("p2", "bs3"), default="p2")
+    args = ap.parse_args()
+    n = args.n
     import torch
 
     import dolfinx_mpc_tpu_torch as dmt
@@ -68,21 +72,27 @@ def main():
         cs.fail("torch.cuda.is_available() is False: profiling needs a CUDA card")
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
-    V, _, clf, A, b, _, _, M, _, _ = cs.build_p2(dev, n)
-    bb = A.dia._to_blocked(b)
+    if args.path == "p2":
+        V, _, clf, A, b, ops, _, M, _, _ = cs.build_p2(dev, n)
+        bb = A.dia._to_blocked(b)
+        mv, mv_kernel, names = A.matvec_blocked, A.dia.matvec_blocked, ("K6", "K4")
+    else:
+        V, _, clf, A, bb, ops, _, M, _, _ = cs.build_bs3(dev, n)
+        mv, mv_kernel, names = A.matvec, A.dia.matvec, ("K7", "K1")
     xr = bb / torch.linalg.vector_norm(bb)
 
     def solve():
-        return dmt.cg(A.matvec_blocked, bb, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+        return dmt.cg(mv, bb, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
 
     for _ in range(3):
-        A.matvec_blocked(xr)
+        mv(xr)
         M(xr)
         its = solve()[1]
-    print(json.dumps(dict(n=n, dofs=V.num_dofs, levels=cs.p2_levels(n), cg_its=its)), flush=True)
-    region("fine matvec_blocked", lambda: A.matvec_blocked(xr), 20)
-    region("K6 alone", lambda: A.dia.matvec_blocked(xr), 20)
-    region("K4 alone", lambda: clf.assemble(), 5)
+    print(json.dumps(dict(path=args.path, n=n, dofs=V.num_dofs, levels=[o.dia.vshape for o in ops],
+                          cg_its=its)), flush=True)
+    region("fine fold matvec", lambda: mv(xr), 20)
+    region(f"{names[0]} alone", lambda: mv_kernel(xr), 20)
+    region(f"{names[1]} alone", lambda: clf.assemble(), 5)
     region("V-cycle", lambda: M(xr), 5)
     region("CG solve", solve, 2)
     res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],

@@ -165,10 +165,12 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
 
 
 def test_unported_lattice_forms_raise():
-    """Forms the assemblers do not cover raise NotImplementedError naming
-    their ROADMAP item instead of silently taking another path; a
-    non-separable Dirichlet set goes to K3's plain version on the CPU and
-    equals the grid masking, and a degree-2 form assembles (K4)."""
+    """Forms the assemblers do not cover (x-dependent integrands, the
+    "cells" side format, a vector space at degree 2) raise
+    NotImplementedError naming their ROADMAP item instead of silently
+    taking another path; a non-separable Dirichlet set goes to K3's plain
+    version on the CPU and equals the grid masking, and a degree-2 form
+    assembles (K4)."""
     mesh = pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 3, 3))
     V = pt.functionspace(mesh, ("Lagrange", 1))
     mpc = pt.MultiPointConstraint(V, np.float64)
@@ -182,6 +184,13 @@ def test_unported_lattice_forms_raise():
     a = pt.BilinearForm(V, lambda u, v, c: pinner(pgrad(u), pgrad(v)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt_lattice(a, mpc, side_format="cells")
+    V3 = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2)), ("Lagrange", 2, (3,)))
+    mpc3 = pt.MultiPointConstraint(V3, np.float64)
+    mpc3.create_periodic_constraint_geometrical(
+        V3, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
+    mpc3.finalize()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        pt_lattice(pt.BilinearForm(V3, lambda u, v, c: pinner(pgrad(u), pgrad(v))), mpc3, side_format="fold")
     blob = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: x.sum(axis=0) < 0.35), V)
     clf = pt_lattice(a, mpc, bcs=[blob], side_format="fold")
     assert clf.table.factors is None
