@@ -38,16 +38,32 @@ each (or a few), any failure exits non-zero:
    assemble_matrix_lattice (K1 at bs=3) -> manufactured b = A u0 -> 4-level
    GMG (Chebyshev 3+3) -> cg -> backsubstitution, counters reset before and
    read after (K1 and K7 launched, K2 not at all); then the same at n=32;
+4d. the contact path: benchmarks/bench_contact_3D.py --format bell --pc amg
+   at NB=24/NT=20 (two stacked P1 vector tet boxes tied by the inelastic
+   contact MPC, 74,658 dofs), through the port's entry points:
+   MultiPointConstraint + create_contact_inelastic_condition (float64) ->
+   assemble_matrix (float64 on the card) -> assemble_vector + apply_lifting
+   + set_bc -> to_scipy -> bell_from_scipy (float32) ->
+   smoothed_aggregation_amg (float32, rigid-body near-nullspace) -> cg in
+   float32 (every fine matvec K8) -> backsubstitution, counters reset before
+   and read after (K8 launched, no lattice kernel); then K8 against its
+   plain version on that operator in f32 and f64, with the cuSPARSE CSR
+   product A @ x timed beside it;
 5. the float64 oracles on the card: LinearProblem (Jacobi-CG) against
    u = K (K^T A K)^-1 K^T b from scipy at P1 n=6, at P2 n=3, at P1 n=6
    with the non-separable set (the path of K3), at bs=3 P1 n=4 with a vector
    source (K1, K7), and for the reaction-diffusion form without Dirichlet
-   dofs at P1 n=6 (K5, K2) and P2 n=3 (K5, K6), counters reset before each.
+   dofs at P1 n=6 (K5, K2) and P2 n=3 (K5, K6), counters reset before each;
+   the contact problem at NB=4/NT=3 through BELL + AMG + CG (K8) and through
+   LinearProblem with pc gamg (CSR, no K8).
 
 The last two lines are the card's nvidia-smi line and
 {"ok": true, "device": {...}}; the line before them lists every kernel
-(K1-K7) with its launches on its path, its error against the plain version
-and both times.  Nothing here imports JAX.
+(K1-K8) with its launches on its path, its error against the plain version,
+its time, the plain version's, the cuSPARSE product's for the SpMVs (K2,
+K6, K7, K8; null for the assemblers) and the bound: the larger of the bytes
+it must move over 3.35 TB/s and its operations over 67 TFLOP/s (f32), from
+this run's shapes.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -140,6 +156,33 @@ N_P2_JAX = 32
 # benchmarks/RESULTS.md:113-123) are not the gate.
 JAX_CPU_BS3_CG_ITS = {64: 21, 32: 15}
 N_BS3 = 64
+# CG iterations of the JAX package on the contact problem of
+# benchmarks/bench_contact_3D.py at NB=24/NT=20 on the CPU, the benchmark's
+# all-f32 solve recipe (constraint and assembly in float64; BELL, AMG, b and
+# CG in float32): 9, rnorm 7.68e-07 at |b| 1.062, measured with
+#   V, mpc, bcs, a, L = bench_contact_3D.py:31-64 at nb=24, nt=20
+#   A = dmt.assemble_matrix(a, mpc, bcs=bcs)
+#   b = jnp.asarray(np.asarray(dmt.set_bc(dmt.apply_lifting(
+#       dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)), jnp.float32)
+#   As = A.to_scipy(); B = bell_from_scipy(As, dtype=np.float32)
+#   M = smoothed_aggregation_amg(As, bs=3, dtype=np.float32,
+#                                nullspace=rigid_motions_nullspace(V))
+#   jax.jit(lambda B_, M_, b_: cg(B_.matvec, b_, M=M_, rtol=1e-6, atol=1e-12,
+#                                 max_it=3000))(B, M, b)
+# (cg in place of the benchmark's cg_segmented, which continues the same
+# Krylov iteration across dispatches).  AMG levels 74,658 -> 20,892 -> 9,246
+# -> 9,054 (dense coarse inverse), BELL tiles (9344, 18, 8, 128), 651
+# remainder entries.
+JAX_CPU_CONTACT_CG_ITS = 9
+NB_CONTACT, NT_CONTACT = 24, 20
+# forward error gate of the float32 contact solve against a float64 solve of
+# the same system: eps32 times a condition estimate of ~1e4 for P1
+# elasticity at h = 1/24
+CONTACT_FORWARD_ERROR_GATE = 1e-3
+# H100 SXM published peaks: HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def fail(msg):
@@ -163,7 +206,7 @@ def ptxas_summary(log):
     out, name, spill = [], None, "?"
     for ln in log.read_text().splitlines() if log.exists() else []:
         m = re.search(r"(fold_assemble_masked|fold_assemble_raw|fold_assemble|dia_matvec_bs|dia_matvec|"
-                      r"blocked_matvec)_kernelI([fd])(?:Li(\d)E)?E", ln)
+                      r"blocked_matvec|bell_matvec)_kernelI([fd])(?:Li(\d)E)?E", ln)
         if m and "Compiling entry function" in ln:
             name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
                     f"{', ' + m.group(3) if m.group(3) else ''}>")
@@ -175,6 +218,12 @@ def ptxas_summary(log):
             out.append(f"{name} {m.group(1)} regs, spill st/ld {spill} B")
             name, spill = None, "?"
     return "; ".join(out) or "no ptxas report"
+
+
+def _rel_l2(a, b):
+    import torch
+
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
 def cuda_ms(fn, reps, warmup=3):
@@ -340,23 +389,71 @@ def error_gates(A, b, x, x_ref):
     return eta, rel, fwd
 
 
-def reset_counts():
-    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+def wrapper(kid):
+    """The wrapper function of kernel `kid`, whose .launches counts its
+    launches."""
+    import importlib
 
-    for k in KERNELS.values():
-        getattr(LK, k).launches = 0
+    module, name = KERNELS[kid]
+    return getattr(importlib.import_module(module), name)
+
+
+def reset_counts():
+    for k in KERNELS:
+        wrapper(k).launches = 0
 
 
 def read_counts(names):
-    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
-
-    return {n: getattr(LK, KERNELS[n]).launches for n in names}
+    return {n: wrapper(n).launches for n in names}
 
 
-# kernel id -> wrapper in ops/lattice_kernels.py
-KERNELS = {"K1": "assemble_fold_lean_factored", "K2": "dia_matvec", "K3": "assemble_fold_lean_masked",
-           "K4": "assemble_fold_lean_blocked", "K5": "assemble_fold_lean_raw", "K6": "blocked_matvec",
-           "K7": "dia_matvec_bs"}
+# kernel id -> (module, wrapper)
+_LK = "dolfinx_mpc_tpu_torch.ops.lattice_kernels"
+KERNELS = {"K1": (_LK, "assemble_fold_lean_factored"), "K2": (_LK, "dia_matvec"),
+           "K3": (_LK, "assemble_fold_lean_masked"), "K4": (_LK, "assemble_fold_lean_blocked"),
+           "K5": (_LK, "assemble_fold_lean_raw"), "K6": (_LK, "blocked_matvec"), "K7": (_LK, "dia_matvec_bs"),
+           "K8": ("dolfinx_mpc_tpu_torch.la.bell", "bell_matvec")}
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time of the card for work that must
+    move `nbytes` through HBM and do `ops` f32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fold_bound(tab, out):
+    """Bound of an assembler launch on table `tab` with output `out`: the
+    output written once plus the table and masks read once; operations are
+    one addition per (table entry, window point) and the mask products
+    (three per output value)."""
+    nx, ny, nz = tab.dims
+    inputs = [tab.planes, tab.ent, tab.coef] + [t for t in (tab.fac, tab.keep, tab.bc_ind) if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in [out] + inputs)
+    ops = tab.ent.shape[0] * nx * ny * nz + 3 * out.numel()
+    return bound(nbytes, ops)
+
+
+def spmv_bound(stored, x, y, index_bytes=0):
+    """Bound of an SpMV: its stored values, x and y moved once (plus index
+    bytes), two operations per stored value."""
+    nbytes = (stored + x.numel() + y.numel()) * x.element_size() + index_bytes
+    return bound(nbytes, 2 * stored)
+
+
+def csr_library_ms(S, x, reps):
+    """(ms, y) of the PyTorch sparse CSR product A @ x (cuSPARSE) on the card,
+    A built from the scipy matrix S in x's dtype: the yardstick beside an
+    SpMV kernel, used nowhere in the port."""
+    import numpy as np
+    import torch
+
+    S = S.tocsr()
+    idx = np.int32 if S.nnz < 2 ** 31 else np.int64
+    vals = S.data.astype(np.float32 if x.dtype == torch.float32 else np.float64)
+    A = torch.sparse_csr_tensor(torch.as_tensor(S.indptr.astype(idx)), torch.as_tensor(S.indices.astype(idx)),
+                                torch.as_tensor(vals), size=S.shape, device=x.device)
+    return cuda_ms(lambda: A @ x, reps), A @ x
 
 
 def compare_kernels(dev, gen):
@@ -382,9 +479,11 @@ def compare_kernels(dev, gen):
             if dt == torch.float32:
                 ms = cuda_ms(lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0), 50)
                 plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 5, 1)
+                bms, by = fold_bound(tab, got)
                 if m == N_MAIN:
-                    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                     library_ms=None)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K1 disagrees with its plain version in {dt} at {tab.vshape}: {rel:.3e} > {tol:g}")
@@ -401,9 +500,13 @@ def compare_kernels(dev, gen):
             if dt == torch.float32:
                 ms = cuda_ms(lambda: LK.dia_matvec(data, dia.offsets, dia.vshape, x), 200)
                 plain_ms = cuda_ms(lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 1, x), 20)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                lib_ms, y_lib = csr_library_ms(dia.to_scipy(), x, 200)
+                bms, by = spmv_bound(data.numel(), x, got)
+                line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE CSR {lib_ms:.4f} ms "
+                         f"(rel L2 to the kernel {_rel_l2(y_lib, got):.1e}), bound {bms:.4f} ms ({by})")
                 if m == N_MAIN:
-                    out["K2"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
+                    out["K2"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K2 disagrees with its plain version in {dt} at {dia.vshape}: {rel:.3e} > {tol:g}")
@@ -437,8 +540,9 @@ def compare_blocked_kernels(dev, gen):
         if dt == torch.float32:
             ms = cuda_ms(lambda: LK.assemble_fold_lean_blocked(tab, 0.013, 1.0), 20)
             plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 2, 1)
-            out["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            bms, by = fold_bound(tab, got)
+            out["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
         print(line, flush=True)
         if not rel <= tol or pad_nz:
             fail(f"K4 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g} or {pad_nz} padded values")
@@ -456,8 +560,14 @@ def compare_blocked_kernels(dev, gen):
         if dt == torch.float32:
             ms = cuda_ms(lambda: LK.blocked_matvec(data, dia.trips, dia.classes, xb, table), 100)
             plain_ms = cuda_ms(lambda: LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb), 10)
-            out["K6"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            # the library call computes the same operator on the flat dof vector
+            lib_ms, y_lib = csr_library_ms(dia.to_scipy(), dia._from_blocked(xb).contiguous(), 100)
+            bms, by = spmv_bound(data.numel(), xb, got, table.numel() * table.element_size())
+            out["K6"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE CSR (flat) {lib_ms:.4f} ms "
+                     f"(rel L2 to the kernel {_rel_l2(y_lib, dia._from_blocked(got)):.1e}), "
+                     f"bound {bms:.4f} ms ({by})")
         print(line, flush=True)
         if not rel <= tol:
             fail(f"K6 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
@@ -476,9 +586,11 @@ def compare_blocked_kernels(dev, gen):
             if dt == torch.float32:
                 ms = cuda_ms(lambda: LK.assemble_fold_lean_masked(tab, 0.013, 1.0), 20)
                 plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_masked_plain(tab, 0.013, 1.0), 2, 1)
+                bms, by = fold_bound(tab, got)
                 if degree == 2:
-                    out["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    out["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                     library_ms=None)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K3 disagrees with its plain version in {dt} at degree {degree}: {rel:.3e} > {tol:g}")
@@ -508,7 +620,8 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
         if dt == torch.float32:
             ms = cuda_ms(lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0), 20)
             plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 2, 1)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            bms, by = fold_bound(tab, got)
+            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
         print(line, flush=True)
         if not rel <= tol:
             fail(f"K1 at bs=3 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
@@ -525,9 +638,13 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
             if dt == torch.float32:
                 ms = cuda_ms(lambda: LK.dia_matvec_bs(data, dia.offsets, dia.vshape, 3, x), 200)
                 plain_ms = cuda_ms(lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 3, x), 10)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                bms, by = spmv_bound(data.numel(), x, got)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
                 if m == n:
-                    out["K7"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
+                    lib_ms, y_lib = csr_library_ms(dia.to_scipy(), x, 100)
+                    line += f", cuSPARSE CSR {lib_ms:.4f} ms (rel L2 to the kernel {_rel_l2(y_lib, got):.1e})"
+                    out["K7"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K7 disagrees with its plain version in {dt} at {dia.vshape}: {rel:.3e} > {tol:g}")
@@ -560,9 +677,11 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
             if dt == torch.float32:
                 ms = cuda_ms(lambda: LK.assemble_fold_lean_raw(tab, 0.013), 20)
                 plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_raw_plain(tab, 0.013), 2, 1)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                bms, by = fold_bound(tab, got)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
                 if name == "P2 blocked":
-                    out["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                    out["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                     library_ms=None)
             print(line, flush=True)
             if not rel <= tol or not same:
                 fail(f"K5 on the {name} table in {dt}: {rel:.3e} > {tol:g} or not equal to the unit-factor "
@@ -777,6 +896,218 @@ def main_path(dev, n=N_MAIN):
     return counts, summary
 
 
+def make_contact(nb, nt, dtype, device, body_force=False):
+    """benchmarks/bench_contact_3D.py:31-64 through the port: P1 vector tets
+    of two stacked boxes, (0,0,0)-(1,1,1) with nb^3 and (0,0,1)-(1,1,2) with
+    nt^3 cells, the interface facets tagged 1 (top side) and 2 (bottom
+    side), create_contact_inelastic_condition(mt, 1, 2), Dirichlet 0 at z=0
+    and (0, 0, -0.05) at z=2, 2 mu sym(grad u):sym(grad v) + lambda div u
+    div v with mu=1, lambda=1.25 and the benchmark's zero source (or a body
+    force, for the oracles).  Returns (V, bcs, mpc, a, L)."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import Mesh, create_box, meshtags
+
+    bot = create_box((0, 0, 0), (1, 1, 1), (nb, nb, nb))
+    top = create_box((0, 0, 1), (1, 1, 2), (nt, nt, nt))
+    mesh = Mesh(np.vstack([bot.points, top.points]), np.vstack([bot.cells, top.cells + bot.num_points]),
+                bot.cell_type)
+    V = dmt.functionspace(mesh, ("Lagrange", 1, (3,)))
+    fverts, _, f2c = mesh.facets()
+    on_iface = np.isclose(mesh.points[fverts][:, :, 2], 1.0).all(axis=1)
+    ext = np.isin(np.arange(fverts.shape[0]), mesh.exterior_facets())
+    iface = np.flatnonzero(on_iface & ext)
+    cz = mesh.points[mesh.cells[f2c[iface, 0]]].mean(axis=1)[:, 2]
+    mt = meshtags(mesh, 2, iface, np.where(cz > 1.0, 1, 2))
+    mpc = dmt.MultiPointConstraint(V, dtype, device=device)
+    mpc.create_contact_inelastic_condition(mt, 1, 2)
+    mpc.finalize()
+    bcs = [dmt.dirichletbc(np.zeros(3), dmt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 0.0)), V),
+           dmt.dirichletbc(np.array([0.0, 0.0, -0.05]),
+                           dmt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 2.0)), V)]
+    mu, lam = 1.0, 1.25
+    a = dmt.BilinearForm(V, lambda u, v, c: 2 * mu * inner(sym(grad(u)), sym(grad(v)))
+                         + lam * div(u) * conj(div(v)))
+    if body_force:
+        L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
+                           + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
+    else:
+        L = dmt.LinearForm(V, lambda v, c: 0.0 * v.value[..., 2])
+    return V, bcs, mpc, a, L
+
+
+def build_contact(dev, nb=NB_CONTACT, nt=NT_CONTACT):
+    """bench_contact_3D.py --format bell --pc amg up to the solve, through
+    the port's entry points: the constraint and the assembly in float64 on
+    the card, b cast to float32, the BELL operator and the AMG hierarchy in
+    float32.  Returns (V, mpc, a, bcs, b32, As, B, M, host seconds of the
+    set-up, of assembly + rhs, of the BELL conversion, of the AMG set-up)."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+    from dolfinx_mpc_tpu_torch.la.bell import bell_from_scipy
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import rigid_motions_nullspace
+
+    t0 = time.time()
+    V, bcs, mpc, a, L = make_contact(nb, nt, np.float64, dev)
+    t_setup = time.time() - t0
+    t0 = time.time()
+    A = dmt.assemble_matrix(a, mpc, bcs)
+    b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+    torch.cuda.synchronize()
+    t_asm = time.time() - t0
+    t0 = time.time()
+    As = A.to_scipy()
+    B = bell_from_scipy(As, dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    t_bell = time.time() - t0
+    t0 = time.time()
+    M = smoothed_aggregation_amg(As, bs=3, dtype=np.float32, nullspace=rigid_motions_nullspace(V), device=dev)
+    torch.cuda.synchronize()
+    t_amg = time.time() - t0
+    return V, mpc, a, bcs, b.to(torch.float32), As, B, M, t_setup, t_asm, t_bell, t_amg
+
+
+def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
+    """Phase 4d: bench_contact_3D.py --format bell --pc amg through the
+    port's entry points, float32 solve.  Returns (counts, summary, the BELL
+    operator, the scipy matrix)."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.la.solvers import jacobi_preconditioner
+    from dolfinx_mpc_tpu_torch.la.sparse import csr_from_scipy
+
+    reset_counts()
+    V, mpc, a, bcs, b32, As, B, M, t_setup, t_asm, t_bell, t_amg = build_contact(dev, nb, nt)
+    t0 = time.time()
+    x, its, rnorm = dmt.cg(B.matvec, b32, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+    torch.cuda.synchronize()
+    t_cg = time.time() - t0
+    u = mpc.finalized.backsubstitution(x)
+    torch.cuda.synchronize()
+    counts = read_counts(KERNELS)
+
+    if not bool(torch.isfinite(u).all()):
+        fail("contact path: the solution is not finite")
+    # checks with the plain CSR SpMV in float64; the float64 reference is
+    # Jacobi-CG on that operator
+    A64 = csr_from_scipy(As, dtype=np.float64, device=dev)
+    b64, x64 = b32.double(), x.double()
+    r = b64 - A64.matvec(x64)
+    a_inf = float(abs(As).sum(axis=1).max())
+    eta = float(r.abs().max()) / (a_inf * float(x64.abs().max()) + float(b64.abs().max()))
+    rel_res = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+    x_ref, its_ref, _ = dmt.cg(A64.matvec, b64, M=jacobi_preconditioner(A64.diagonal()), rtol=1e-12, atol=0.0,
+                               max_it=50000)
+    if its_ref >= 50000:
+        fail("contact path: the float64 reference solve did not converge")
+    fwd = float(torch.linalg.vector_norm(x64 - x_ref) / torch.linalg.vector_norm(x_ref))
+    summary = dict(nb=nb, nt=nt, dofs=V.num_dofs, slaves=mpc.num_local_slaves, setup_s=t_setup, asm_s=t_asm,
+                   bell_s=t_bell, amg_s=t_amg, its=its, rnorm=rnorm, bnorm=float(torch.linalg.vector_norm(b32)),
+                   cg_s=t_cg, rel_res=rel_res, eta=eta, fwd=fwd, its_ref=its_ref, nnz=As.nnz,
+                   tiles=tuple(B.data.shape), rem=int(B.rem_data.shape[0]), levels=[o.shape for o in M.ops],
+                   level_formats=[type(o).__name__ for o in M.ops])
+    # phase breakdown on the built objects (launches here are not counted)
+    from dolfinx_mpc_tpu_torch.la.bell import bell_matvec
+
+    xr = b32 / torch.linalg.vector_norm(b32)
+    summary["asm_ms"] = cuda_ms(lambda: dmt.assemble_matrix(a, mpc, bcs), 3, 1)
+    summary["k8_ms"] = cuda_ms(lambda: bell_matvec(B.data, B.cols, xr, B.shape[0]), 100)
+    summary["spmv_ms"] = cuda_ms(lambda: B.matvec(xr), 100)
+    summary["vcycle_ms"] = cuda_ms(lambda: M(xr), 10)
+    reset_counts()
+    t0 = time.time()  # a second, warm solve
+    _, its_w, _ = dmt.cg(B.matvec, b32, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+    torch.cuda.synchronize()
+    summary["ms_per_it"] = 1e3 * (time.time() - t0) / max(its_w, 1)
+    summary["k8_per_it"] = read_counts(("K8",))["K8"] / max(its_w, 1)
+    return counts, summary, B, As
+
+
+def compare_bell_kernel(dev, gen, B, As):
+    """Phase 4d: K8 against its plain version on the contact operator's
+    tiles, in f32 (the path's B) and f64, with the cuSPARSE CSR product of
+    the same tiles (A without the COO remainder) timed beside it."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from dolfinx_mpc_tpu_torch.la import bell as BL
+
+    n_rows, n_cols = B.shape
+    rr, rc = B.rem_rows.cpu().numpy().copy(), B.rem_cols.cpu().numpy().copy()
+    rem = sp.coo_matrix((np.asarray(As[rr, rc]).ravel(), (rr, rc)), shape=B.shape)
+    S_tiles = (As - rem).tocsr()
+    S_tiles.eliminate_zeros()
+    out = {}
+    for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-12)):
+        Bd = B if dt == torch.float32 else BL.bell_from_scipy(As, dtype=np.float64, device=dev)
+        x = torch.randn(n_cols, generator=gen, device=dev, dtype=torch.float64).to(dt)
+        got = BL.bell_matvec(Bd.data, Bd.cols, x, n_rows)
+        ref = BL.bell_matvec_plain(Bd.data, Bd.cols, x, n_rows)
+        rel = _rel_l2(got, ref)
+        lib_ms, y_lib = csr_library_ms(S_tiles, x, 200)
+        ms = cuda_ms(lambda: BL.bell_matvec(Bd.data, Bd.cols, x, n_rows), 200)
+        plain_ms = cuda_ms(lambda: BL.bell_matvec_plain(Bd.data, Bd.cols, x, n_rows), 5, 1)
+        bms, by = spmv_bound(Bd.data.numel(), x, got, Bd.cols.numel() * Bd.cols.element_size())
+        print(f"K8 {str(dt)[6:]} {tuple(Bd.data.shape)} ({S_tiles.nnz} nonzeros in the tiles, "
+              f"{Bd.data.numel() * Bd.data.element_size() / 1e6:.1f} MB of tiles): rel L2 {rel:.3e} (tol {tol:g}), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE CSR {lib_ms:.4f} ms (rel L2 to the kernel "
+              f"{_rel_l2(y_lib, got):.1e}), bound {bms:.4f} ms ({by})", flush=True)
+        if not rel <= tol:
+            fail(f"K8 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
+        if dt == torch.float32:
+            out["K8"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        del Bd, got, ref
+    return out
+
+
+def oracle_contact_f64(dev, nb=4, nt=3, through="bell"):
+    """Phase 5, contact: the contact problem with a body force in float64 on
+    the card against K (K^T A K)^-1 K^T b, either through BELL + AMG (with
+    smoothed levels: coarse_size 100) + CG, as the contact path solves, or
+    through LinearProblem with pc gamg (the CSR operator).  Returns (max
+    error, CG iterations, kernel launches of the solve)."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+    from dolfinx_mpc_tpu_torch.la.bell import bell_from_scipy
+    from dolfinx_mpc_tpu_torch.utils import gather_transformation_matrix
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import rigid_motions_nullspace
+
+    V, bcs, mpc, a, L = make_contact(nb, nt, np.float64, dev, body_force=True)
+    reset_counts()
+    if through == "bell":
+        A = dmt.assemble_matrix(a, mpc, bcs)
+        b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+        As = A.to_scipy()
+        B = bell_from_scipy(As, dtype=np.float64, device=dev)
+        M = smoothed_aggregation_amg(As, bs=3, dtype=np.float64, nullspace=rigid_motions_nullspace(V),
+                                     coarse_size=100, device=dev)
+        x, its, _ = dmt.cg(B.matvec, b, M=M, rtol=1e-12, atol=0.0, max_it=500)
+        u = mpc.finalized.backsubstitution(x).cpu().numpy()
+    else:
+        prob = dmt.LinearProblem(a, L, mpc, bcs=bcs,
+                                 petsc_options={"ksp_type": "cg", "pc_type": "gamg", "ksp_rtol": 1e-12})
+        u = prob.solve().x.array.cpu().numpy()
+        its = prob.its
+    counts = read_counts(KERNELS)
+    A0 = dmt.assemble_matrix(a, None, bcs, device="cpu").to_scipy()
+    b0 = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, None, device="cpu"), [a], [bcs]), bcs).numpy()
+    K = gather_transformation_matrix(mpc)
+    u_ref = K @ spla.spsolve((K.T @ A0 @ K).tocsc(), K.T @ b0)
+    return float(np.abs(u - u_ref).max()), its, counts
+
+
 def oracle_f64(dev, n=6, degree=1, marker=y_planes, kind="poisson"):
     """Phase 5: LinearProblem (Jacobi-CG) in float64 on the card vs scipy,
     for make_problem's Poisson form, make_elasticity's (with a vector
@@ -900,6 +1231,30 @@ def main():
         if abs(s4["its"] - JAX_CPU_BS3_CG_ITS[n]) > 2:
             fail(f"bs=3 CG took {s4['its']} its at n={n}, JAX-CPU takes {JAX_CPU_BS3_CG_ITS[n]} (+-2 allowed)")
 
+    counts8, s8, B, As = contact_path(dev)
+    lattice = {k: v for k, v in counts8.items() if k != "K8"}
+    print(f"contact path NB={s8['nb']}/NT={s8['nt']} ({s8['dofs']} dofs, {s8['slaves']} slaves, {s8['nnz']} nonzeros; "
+          f"BELL tiles {s8['tiles']} + {s8['rem']} remainder entries; AMG levels {s8['levels']} as "
+          f"{s8['level_formats']}): host set-up {s8['setup_s']:.2f} s, assembly + rhs {s8['asm_s']:.2f} s first "
+          f"(tables included), assembly {s8['asm_ms']:.4f} ms warm, BELL conversion {s8['bell_s']:.2f} s, "
+          f"AMG set-up {s8['amg_s']:.2f} s, K8 alone {s8['k8_ms']:.4f} ms, BELL matvec (K8 + remainder) "
+          f"{s8['spmv_ms']:.4f} ms, V-cycle {s8['vcycle_ms']:.4f} ms, CG {s8['its']} its in {s8['cg_s']:.4f} s "
+          f"first solve, {s8['ms_per_it']:.4f} ms/it warm ({s8['k8_per_it']:.1f} K8 launches/it), rnorm "
+          f"{s8['rnorm']:.3e} (|b| {s8['bnorm']:.3e}); recomputed in f64: |b-Ax|/|b| {s8['rel_res']:.3e}, backward "
+          f"error {s8['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s8['fwd']:.3e} (gate "
+          f"{CONTACT_FORWARD_ERROR_GATE:g}, f64 Jacobi-CG {s8['its_ref']} its); launches {counts8}", flush=True)
+    if counts8["K8"] < s8["its"] + 1 or max(lattice.values()) != 0:
+        fail(f"contact path: K8 must launch at least its + 1 = {s8['its'] + 1} times and no lattice kernel: "
+             f"{counts8}")
+    if not s8["eta"] <= BACKWARD_ERROR_GATE:
+        fail(f"contact path backward error {s8['eta']:.3e} > {BACKWARD_ERROR_GATE:g}")
+    if not s8["fwd"] <= CONTACT_FORWARD_ERROR_GATE:
+        fail(f"contact path solution differs from the f64 solve by {s8['fwd']:.3e}")
+    if abs(s8["its"] - JAX_CPU_CONTACT_CG_ITS) > 2:
+        fail(f"contact CG took {s8['its']} its, JAX-CPU takes {JAX_CPU_CONTACT_CG_ITS} (+-2 allowed)")
+    cmp.update(compare_bell_kernel(dev, gen, B, As))
+    del B, As
+
     oracle_counts = {}
     for name, n, degree, marker, kind, need, forbid in (
             ("P1 n=6", 6, 1, y_planes, "poisson", ("K1", "K2"), ()),
@@ -918,6 +1273,15 @@ def main():
         oracle_counts[name] = c
     counts3 = oracle_counts["P1 n=6, blob set"]
     counts5 = oracle_counts["Dirichlet-free P2 n=3"]
+    for through, k8 in (("bell", True), ("gamg", False)):
+        err, its64, c = oracle_contact_f64(dev, through=through)
+        name = "BELL + AMG + CG" if k8 else "LinearProblem, pc gamg (CSR)"
+        print(f"f64 oracle contact NB=4/NT=3, {name}, on the card: CG {its64} its, max|u - K(K^T A K)^-1 K^T b| "
+              f"{err:.3e} (tol 1e-8); launches {c}", flush=True)
+        if not err <= 1e-8:
+            fail(f"f64 contact oracle through {through}: error {err:.3e} > 1e-8")
+        if (c["K8"] > 0) != k8:
+            fail(f"f64 contact oracle through {through}: K8 launches {c['K8']}")
 
     src = "dolfinx_mpc_tpu_torch/csrc/lattice_kernels.cu"
     pl = "dolfinx_mpc_tpu/ops/pallas_lattice.py"
@@ -938,6 +1302,9 @@ def main():
              replaces=f"{pl}:916", launches=counts2["K6"], **cmp["K6"]),
         dict(name="K7 dia_matvec_bs (bs=3 path n=64; error and times at 65^3 x 3 f32)", route="cuda",
              source=src, replaces=f"{pl}:835", launches=counts4["K7"], **cmp["K7"]),
+        dict(name=f"K8 bell_matvec (contact path NB={NB_CONTACT}/NT={NT_CONTACT}; error and times at "
+                  f"{s8['tiles']} f32)", route="cuda", source="dolfinx_mpc_tpu_torch/csrc/bell_kernels.cu",
+             replaces="dolfinx_mpc_tpu/la/bell.py:164", launches=counts8["K8"], **cmp["K8"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

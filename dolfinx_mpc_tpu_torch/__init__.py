@@ -3,13 +3,17 @@
 The PyTorch port of ``dolfinx_mpc_tpu`` (the JAX reference, which stays in
 the repository unchanged).  The public names mirror the JAX package's, and a
 module's counterpart sits at the same path.  Devices and dtypes are explicit:
-``MultiPointConstraint(V, dtype, device=...)`` and
-``assemble_matrix_lattice(..., device=...)`` place the tables and operators,
-and everything downstream follows them; nothing probes for a device.  The
-lattice path's kernels (the fused lean-fold assemblers K1, K3 and K4, the
-unmasked assembler K5, the scalar and vector DIA SpMVs K2 and K7 and the
-blocked SpMV K6) are CUDA C++ for sm_90a in ``csrc/``, built with nvcc on
-first use; on CPU tensors their plain PyTorch versions run instead.
+``MultiPointConstraint(V, dtype, device=...)``, ``assemble_matrix_lattice(...,
+device=...)``, ``assemble_matrix(..., device=...)``, ``bell_from_scipy(...,
+device=...)`` and ``smoothed_aggregation_amg(..., device=...)`` place the
+tables and operators, and everything downstream follows them.  Every such
+entry point defaults to ``device="cuda"`` and raises without a card; CPU
+callers pass ``device="cpu"``.  The lattice path's kernels (the fused
+lean-fold assemblers K1, K3 and K4, the unmasked assembler K5, the scalar
+and vector DIA SpMVs K2 and K7 and the blocked SpMV K6) and the
+unstructured path's blocked-ELL SpMV K8 are CUDA C++ for sm_90a in
+``csrc/``, built with nvcc on first use; on CPU tensors their plain PyTorch
+versions run instead.
 """
 
 import torch as _torch
@@ -34,13 +38,21 @@ from .fem.functionspace import (  # noqa: E402
 from .la.gmg import LatticeGMG, build_gmg_hierarchy  # noqa: E402
 from .la.solvers import cg  # noqa: E402
 from .multipointconstraint import FinalizedMPC, MPCData, MultiPointConstraint  # noqa: E402
-from .ops.assemble import apply_lifting, assemble_vector, set_bc  # noqa: E402
+from .ops.assemble import (  # noqa: E402
+    apply_lifting,
+    assemble_matrix,
+    assemble_vector,
+    create_sparsity_pattern,
+    set_bc,
+)
 from .ops.lattice import assemble_matrix_lattice  # noqa: E402
 from .problem import LinearProblem  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "assemble_matrix",
+    "create_sparsity_pattern",
     "assemble_matrix_lattice",
     "assemble_vector",
     "apply_lifting",

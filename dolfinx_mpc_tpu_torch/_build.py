@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``: the lattice kernels
+K1-K7 and the BELL SpMV K8) with nvcc + ctypes.
 
 The kernels are compiled on first use, on the machine with the card, into
 ``build/dolfinx_mpc_tpu_torch/`` at the repository root (git-ignored), as a
@@ -63,7 +64,9 @@ def load_kernels() -> ctypes.CDLL:
         so.with_suffix(".log").write_text(res.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    from .ops.lattice_kernels import declare_signatures
+    from .la import bell
+    from .ops import lattice_kernels
 
-    declare_signatures(lib)
+    lattice_kernels.declare_signatures(lib)
+    bell.declare_signatures(lib)
     return lib

@@ -1,8 +1,10 @@
-"""Constraint generators: the periodic pair (numpy host code).
+"""Constraint generators: the periodic pair and tied (inelastic) contact
+(numpy host code).
 
-Copied from ``dolfinx_mpc_tpu/constraints.py:39-146`` (the JAX reference), so
-that the PyTorch port never imports JAX.  Slip, contact, dictionary and
-point-to-point generators come with ROADMAP queue 1, item 17.
+Copied from ``dolfinx_mpc_tpu/constraints.py:39-146, 183-199, 247-289`` (the
+JAX reference), so that the PyTorch port never imports JAX.  Slip, contact
+slip, dictionary and point-to-point generators come with ROADMAP queue 1,
+item 17.
 
 Rebuild of the reference's generator layer (SURVEY.md L2):
 - periodic: reference cpp/PeriodicConstraint.h:30-490 — dof coords are
@@ -24,6 +26,7 @@ from .fem.mesh import MeshTags
 from .multipointconstraint import MPCData
 
 __all__ = [
+    "create_contact_inelastic_condition",
     "create_periodic_condition_geometrical",
     "create_periodic_condition_topological",
 ]
@@ -136,3 +139,67 @@ def create_periodic_condition_topological(V, meshtag: MeshTags, tag: int, relati
     slave_blocks = locate_dofs_topological(base, meshtag.dim, facets)
     components = [V.component] if V.component is not None else list(range(base.block_size))
     return _periodic_from_slave_blocks(base, slave_blocks, components, relation, bcs, scale, dtype)
+
+
+def _facet_cells(mesh, facets):
+    _, _, f2c = mesh.facets()
+    cells = np.unique(f2c[facets].ravel())
+    return cells[cells >= 0]
+
+
+def _locate_with_fallback(V, pts, master_cells, eps2):
+    """Collision search with growing tolerance, mirroring the reference's
+    bbox padding by eps (ContactConstraint.h:58-161)."""
+    locator = PointLocator(V.mesh, master_cells)
+    for tol in (1e-12, 1e-9, 1e-6, max(np.sqrt(eps2), 1e-6)):
+        try:
+            return _basis_masters(V, pts, locator, tol=tol)
+        except RuntimeError:
+            continue
+    return _basis_masters(V, pts, locator, tol=1e-3)
+
+
+def create_contact_inelastic_condition(V, meshtags: MeshTags, slave_marker, master_marker, eps2=1e-20,
+                                       allow_missing_masters=False, dtype=np.float64):
+    """Tied contact u_s = u_m componentwise (ContactConstraint.h:906-1780):
+    every component of every slave block is a slave with masters
+    phi_j(x_s) per matching component."""
+    base = V if V.parent is None else V.parent
+    off = getattr(base, "dof_offset", 0)
+    bs = base.block_size
+    mesh = base.mesh
+    s_facets = meshtags.find(slave_marker)
+    m_facets = meshtags.find(master_marker)
+    s_blocks = locate_dofs_topological(base, meshtags.dim, s_facets)
+    pts = base.dof_coords_blocks[s_blocks]
+    mcells = _facet_cells(mesh, m_facets)
+    try:
+        _, mblocks, phi = _locate_with_fallback(base, pts, mcells, eps2)
+    except RuntimeError:
+        if not allow_missing_masters:
+            raise
+        # locate point-by-point, skipping misses (ContactConstraint.h:903-912)
+        locator = PointLocator(mesh, mcells)
+        cells, X = locator.locate(pts, tol=max(np.sqrt(eps2), 1e-6))
+        ok = cells >= 0
+        s_blocks = s_blocks[ok]
+        phi = _tabulate_rows(base.element, X[ok])
+        mblocks = base.dofmap_blocks[cells[ok]]
+    slaves, masters, coeffs, offsets = [], [], [], [0]
+    drop_tol = 1e-13
+    for i, b in enumerate(s_blocks):
+        keep = np.abs(phi[i]) > drop_tol
+        mb = mblocks[i][keep]
+        ph = phi[i][keep]
+        for k in range(bs):
+            slaves.append(int(b) * bs + k)
+            masters.extend((mb * bs + k).tolist())
+            coeffs.extend(ph.tolist())
+            offsets.append(len(masters))
+    return _shift_mpc(MPCData(
+        np.asarray(slaves, np.int64),
+        np.asarray(masters, np.int64),
+        np.asarray(coeffs, dtype),
+        np.zeros(len(masters), np.int32),
+        np.asarray(offsets, np.int64),
+    ), off)

@@ -367,10 +367,13 @@ class Function:
     """A finite-element function: flat dof vector of length num_dofs, held as
     a torch tensor in ``x.array`` on an explicit device."""
 
-    def __init__(self, V: FunctionSpace, x=None, name: str = "f", dtype=None, device="cpu"):
+    def __init__(self, V: FunctionSpace, x=None, name: str = "f", dtype=None, device="cuda"):
         import torch
 
+        from .._device import resolve_device
         from .._dtypes import torch_dtype
+
+        device = resolve_device(device)
 
         self.function_space = V
         self.name = name

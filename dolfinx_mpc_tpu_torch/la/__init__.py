@@ -1,4 +1,6 @@
-"""Linear algebra: Krylov solvers and the lattice geometric multigrid."""
+"""Linear algebra: Krylov solvers, the lattice geometric multigrid, the
+unstructured sparse formats (slot CSR, node-block ELL, blocked ELL with
+kernel K8) and smoothed-aggregation AMG."""
 
 from .gmg import LatticeGMG, build_gmg_hierarchy
 from .solvers import SolverOptions, cg, jacobi_preconditioner

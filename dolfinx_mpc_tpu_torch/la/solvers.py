@@ -1,10 +1,11 @@
-"""Krylov solvers (torch): preconditioned CG and Jacobi.
+"""Krylov solvers (torch): preconditioned CG with Jacobi or smoothed-
+aggregation AMG.
 
-Counterpart of ``dolfinx_mpc_tpu/la/solvers.py`` for the main path.  The
-JAX package's ``lax.while_loop`` becomes a Python loop; the convergence test
-reads one scalar back from the device per iteration (capturing the loop in
-a CUDA graph is later work).  BiCGStab, GMRES and the Chebyshev / AMG
-preconditioners come with ROADMAP queue 1, item 18.
+Counterpart of ``dolfinx_mpc_tpu/la/solvers.py``.  The JAX package's
+``lax.while_loop`` becomes a Python loop; the convergence test reads one
+scalar back from the device per iteration (capturing the loop in a CUDA
+graph is later work).  BiCGStab, GMRES and the Chebyshev preconditioner
+come with ROADMAP queue 1, item 18.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ class SolverOptions:
     """Mirror of the PETSc options dict surface (ksp_type/pc_type/rtol...)."""
 
     ksp_type: str = "cg"
-    pc_type: str = "jacobi"  # "none" | "jacobi" in this port so far
+    # "none" | "jacobi" | "gamg" (aliases amg/hypre/boomeramg: smoothed
+    # aggregation, la/amg.py)
+    pc_type: str = "jacobi"
     rtol: float = 1e-8
     atol: float = 1e-12
     max_it: int = 10000
@@ -88,14 +91,34 @@ def jacobi_preconditioner(diag):
     return JacobiPC(torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)))
 
 
-def solve(A: Callable, b, options: SolverOptions, diag=None, x0=None):
-    """Dispatch on SolverOptions; returns (x, its, rnorm)."""
+AMG_PC_TYPES = ("gamg", "amg", "hypre", "boomeramg")
+
+
+def solve(A: Callable, b, options: SolverOptions, diag=None, x0=None, Aop=None, bs=1, Pop=None,
+          nullspace=None):
+    """Dispatch on SolverOptions; returns (x, its, rnorm).
+
+    Aop: the assembled operator (anything with .to_scipy()), required for
+    the AMG pc types; bs is its dof block size.  Pop: an optional separate
+    preconditioner operator: the jacobi and AMG preconditioners are built
+    from it, while CG still iterates on A.  nullspace: optional (n, k)
+    near-nullspace candidates for AMG (the rigid-body modes for
+    elasticity)."""
+    pc_src, pc_diag = (Pop, Pop.diagonal()) if Pop is not None else (Aop, diag)
     if options.pc_type == "jacobi":
-        if diag is None:
+        if pc_diag is None:
             raise ValueError("pc_type='jacobi' needs the operator diagonal")
-        M = jacobi_preconditioner(diag)
+        M = jacobi_preconditioner(pc_diag)
     elif options.pc_type == "none":
         M = None
+    elif options.pc_type in AMG_PC_TYPES:
+        if pc_src is None:
+            raise ValueError(f"pc_type={options.pc_type!r} requires the assembled operator (pass Aop=...)")
+        from .._dtypes import numpy_dtype
+        from .amg import smoothed_aggregation_amg
+
+        M = smoothed_aggregation_amg(pc_src, bs=bs, dtype=numpy_dtype(b.dtype), nullspace=nullspace,
+                                     device=b.device)
     else:
         raise NotImplementedError(
             f"pc_type={options.pc_type!r} is not ported yet (ROADMAP queue 1, item 18)")

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ._device import DEFAULT_DEVICE, resolve_device
 from ._dtypes import torch_dtype
 from .fem.functionspace import Function, FunctionSpace
 
@@ -87,10 +88,10 @@ class MultiPointConstraint:
     constraint; ``device`` is where the finalized tables (and those
     assemblies) live."""
 
-    def __init__(self, V: FunctionSpace, dtype=np.float64, device="cpu"):
+    def __init__(self, V: FunctionSpace, dtype=np.float64, device=DEFAULT_DEVICE):
         self.V = V
         self.dtype = np.dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._slaves = []
         self._masters = []
         self._coeffs = []
@@ -119,7 +120,7 @@ class MultiPointConstraint:
         self.add_constraint(V, mpc_data.slaves, mpc_data.masters, mpc_data.coeffs,
                             mpc_data.owners, mpc_data.offsets)
 
-    # -- constraint generators (the periodic pair of this slice) ---------
+    # -- constraint generators (the periodic pair, tied contact) ---------
     def create_periodic_constraint_topological(self, V, meshtag, tag, relation, bcs=None, scale=1.0):
         from .constraints import create_periodic_condition_topological
 
@@ -131,6 +132,14 @@ class MultiPointConstraint:
 
         data = create_periodic_condition_geometrical(V, indicator, relation, bcs or [], scale, self.dtype)
         self.add_constraint_from_mpc_data(V, data)
+
+    def create_contact_inelastic_condition(self, meshtags, slave_marker, master_marker, eps2=1e-20,
+                                           allow_missing_masters=False):
+        from .constraints import create_contact_inelastic_condition
+
+        data = create_contact_inelastic_condition(
+            self.V, meshtags, slave_marker, master_marker, eps2, allow_missing_masters, self.dtype)
+        self.add_constraint_from_mpc_data(self.V, data)
 
     # -- finalize -------------------------------------------------------
     def finalize(self) -> None:

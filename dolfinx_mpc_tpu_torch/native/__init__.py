@@ -32,6 +32,10 @@ CELL_TYPE_IDS = {
 }
 
 _SRC = REPO_ROOT / "csrc" / "native.cpp"
+# the JAX package's flags: with the same code generation (-march=native
+# contracts the point-location Newton steps into FMAs) both packages locate
+# points to the same bits, so their constraint coefficients are equal
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 
 @functools.cache
@@ -39,12 +43,12 @@ def _get():
     """The loaded library, or None (no source, no g++, or a failed build)."""
     if not _SRC.exists():
         return None
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"libmpcnative_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(tmp)]
+        cmd = ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         except (OSError, subprocess.SubprocessError) as e:

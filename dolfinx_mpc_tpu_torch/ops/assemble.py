@@ -1,17 +1,19 @@
-"""Constrained vector assembly, lifting and set_bc (torch).
+"""Constrained assembly (torch): the general slot-CSR matrix assembler,
+vector assembly, lifting and set_bc.
 
-Counterpart of the vector half of ``dolfinx_mpc_tpu/ops/assemble.py``: batched
-element vectors, the per-slave-cell ``conj(T)^T b_e`` redistribution and an
-``index_add_`` into the global vector (the JAX package's ``.at[].add``).  On
-the card ``index_add_`` uses atomics, so the summation order of the few
-(<= 24 for P1 tets) contributions per dof changes from run to run: entries
-agree with a CPU run to a few f32 ulps (relative ~1e-6 in float32, ~1e-15 in
-float64), which is the tolerance the tests and ``chip_smoke.py`` allow.
+Counterpart of ``dolfinx_mpc_tpu/ops/assemble.py``: batched element tensors,
+the per-slave-cell ``conj(T)^T A_e T`` (matrices) and ``conj(T)^T b_e``
+(vectors) elimination, and an ``index_add_`` into the global CSR data or
+vector (the JAX package's ``segment_sum`` / ``.at[].add``).  On the card
+``index_add_`` uses atomics, so the summation order of the few
+contributions per entry changes from run to run: entries agree with a CPU
+run to a few ulps (relative ~1e-6 in float32, ~1e-14 in float64), which is
+the tolerance the tests and ``chip_smoke.py`` allow.
 
-The host tables (``_build_cell_transforms`` and the slave-cell split) are
-the JAX package's numpy code.  The matrix assembler (slot CSR) comes with
-ROADMAP queue 1, item 15; the main path assembles its matrix with the lattice
-fast path (ops/lattice.py).
+The host tables (``_build_cell_transforms``, the slave-cell split and the
+slot pattern) are the JAX package's numpy code.  The lattice meshes of the
+periodic paths assemble through the fold fast path (ops/lattice.py); every
+other mesh and constraint through ``assemble_matrix`` here.
 """
 
 from __future__ import annotations
@@ -22,13 +24,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .._dtypes import numpy_dtype, torch_dtype
 from ..fem.forms import Form
 from ..fem.functionspace import FunctionSpace
+from ..la.sparse import CSRMatrix, SlotPattern, build_slot_pattern
 from ..multipointconstraint import MultiPointConstraint
 from .kernels import compile_term
 
-__all__ = ["assemble_vector", "apply_lifting", "set_bc"]
+__all__ = ["assemble_matrix", "assemble_vector", "apply_lifting", "set_bc",
+           "create_sparsity_pattern", "MPCMatrix"]
 
 
 # ---------------------------------------------------------------------------
@@ -180,13 +185,181 @@ def _coeff_vectors(term, device):
     return {n: f.x.array.to(device) for n, f in term.coefficients.items()}
 
 
-def _resolve(constraint, dtype, device):
+def _resolve(constraint, dtype, device, like=None):
+    """dtype and device of an assembly: the caller's, else the constraint's,
+    else those of the tensor `like`, else float64 on the card."""
     mpc_r, _ = _mpc_pair(constraint)
     if dtype is None:
-        dtype = mpc_r.dtype if mpc_r is not None else np.float64
+        if mpc_r is not None:
+            dtype = mpc_r.dtype
+        else:
+            dtype = numpy_dtype(like.dtype) if isinstance(like, torch.Tensor) else np.float64
     if device is None:
-        device = mpc_r.device if mpc_r is not None else torch.device("cpu")
-    return np.dtype(dtype), torch.device(device)
+        if mpc_r is not None:
+            device = mpc_r.device
+        elif isinstance(like, torch.Tensor):
+            device = like.device
+    return np.dtype(dtype), resolve_device(device)
+
+
+# ---------------------------------------------------------------------------
+# matrices: the general slot-CSR assembler
+# ---------------------------------------------------------------------------
+
+
+# cells per chunk of the matrix assembly: bounds the per-quadrature kernel
+# intermediates, O(chunk * nq * nd^2) (the JAX package's cell_chunk)
+CELL_CHUNK = 262144
+
+
+@dataclass
+class CompiledMatrixForm:
+    terms: list  # CompiledTerm
+    pattern: SlotPattern
+    tables: list  # per term: {"ns": ..., "sl": ...} dicts of device tensors
+    slots: list  # per scatter block: int64 device tensor of CSR slots
+    slaves_row: np.ndarray
+    n_diag: int  # number of bc-diagonal passthrough entries (0 if not square)
+
+
+def _side_tables(ct, Vt, Vs, cells, order, Tr, Tc, dtype, device):
+    """Device tables of one class (non-slave or slave cells) of one term."""
+    mesh = Vt.mesh
+    c = cells[order]
+    as_t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)  # noqa: E731
+    tb = dict(
+        coords=as_t(mesh.points[mesh.cells[c]], torch_dtype(_real_dtype(dtype))),
+        dmr=as_t(Vt.dofmap[c]),
+        dmc=as_t(Vs.dofmap[c]),
+        wdofmaps={n: as_t(W.dofmap[c]) for n, W in zip(ct.coeff_names, ct.coeff_spaces)},
+    )
+    if Tr is not None:
+        tb["Tr"] = as_t(Tr, torch_dtype(dtype))
+        tb["Tc"] = as_t(Tc, torch_dtype(dtype))
+    return tb
+
+
+def _compile_matrix(form: Form, constraint, dtype, device) -> CompiledMatrixForm:
+    """Compile the constrained matrix assembly: the host slot pattern (the
+    JAX package's batches, in its order) and the device tables.  Cells of
+    each term split into non-slave and slave classes, whose values
+    assemble_matrix computes CELL_CHUNK cells at a time."""
+    mpc_r, mpc_c = _mpc_pair(constraint)
+    Vt, Vs = form.test_space, form.trial_space
+    tr_row = _build_cell_transforms(Vt, mpc_r, dtype)
+    tr_col = _build_cell_transforms(Vs, mpc_c, dtype)
+    terms = [compile_term(t, Vt, Vs) for t in form.terms]
+    batches, masks, tables = [], [], []
+    for ct in terms:
+        cells = ct.cells
+        sl = tr_row.slave_cell_mask[cells] | tr_col.slave_cell_mask[cells]
+        idx_ns = np.flatnonzero(~sl)
+        idx_sl = np.flatnonzero(sl)
+        dmr = Vt.dofmap[cells]
+        dmc = Vs.dofmap[cells]
+        # non-slave batch
+        r_ns = np.broadcast_to(dmr[idx_ns][:, :, None], (len(idx_ns), dmr.shape[1], dmc.shape[1]))
+        c_ns = np.broadcast_to(dmc[idx_ns][:, None, :], r_ns.shape)
+        batches.append((r_ns, c_ns))
+        masks.append(None)
+        # slave batch: ext_row x ext_col (cells slave only on one side use
+        # their own dofs on the other)
+        pr = tr_row.cell_pos[cells[idx_sl]]
+        pc = tr_col.cell_pos[cells[idx_sl]]
+        er = _ext_or_identity(tr_row, pr, dmr[idx_sl])
+        ecol = _ext_or_identity(tr_col, pc, dmc[idx_sl])
+        r_sl = np.broadcast_to(er[:, :, None], (len(idx_sl), er.shape[1], ecol.shape[1]))
+        c_sl = np.broadcast_to(ecol[:, None, :], r_sl.shape)
+        batches.append((r_sl, c_sl))
+        masks.append((r_sl >= 0) & (c_sl >= 0))
+        Tr = _T_or_identity(tr_row, pr, dmr.shape[1], er.shape[1], dtype)
+        Tc = _T_or_identity(tr_col, pc, dmc.shape[1], ecol.shape[1], dtype)
+        tables.append(dict(ns=_side_tables(ct, Vt, Vs, cells, idx_ns, None, None, dtype, device),
+                           sl=_side_tables(ct, Vt, Vs, cells, idx_sl, Tr, Tc, dtype, device)))
+    # slave diagonal + bc diagonal slots (square forms only)
+    square = Vt.num_dofs == Vs.num_dofs
+    slaves_row = (mpc_r.slaves if (square and mpc_r is not None and mpc_r.num_local_slaves)
+                  else np.zeros(0, np.int64))
+    batches.append((slaves_row, slaves_row))
+    masks.append(None)
+    all_dofs = np.arange(Vt.num_dofs if square else 0, dtype=np.int64)
+    batches.append((all_dofs, all_dofs))  # bc diagonal: every diagonal entry available
+    masks.append(None)
+    pattern = build_slot_pattern((Vt.num_dofs, Vs.num_dofs), batches, masks)
+    slots = [torch.as_tensor(s.astype(np.int64), device=device) for s in pattern.slots]
+    return CompiledMatrixForm(terms, pattern, tables, slots, slaves_row, len(all_dofs))
+
+
+def _class_values(ct, tb, coeffs, bc_row, bc_col, lo, hi, tdt):
+    """Flat element values of cells [lo, hi) of one class: Ae masked by the
+    bc rows and columns, then conj(Tr)^T Ae Tc on the slave class."""
+    wl = {n: coeffs[n][tb["wdofmaps"][n][lo:hi]] for n in coeffs}
+    Ae = ct.kernel(tb["coords"][lo:hi], wl).to(tdt)  # (chunk, ndt, nds)
+    mr = 1.0 - bc_row[tb["dmr"][lo:hi]]
+    mc = 1.0 - bc_col[tb["dmc"][lo:hi]]
+    Ae = Ae * mr[:, :, None] * mc[:, None, :]
+    if "Tr" in tb:
+        Ae = torch.einsum("ciw,cij,cjv->cwv", torch.conj(tb["Tr"][lo:hi]), Ae, tb["Tc"][lo:hi])
+    return Ae.reshape(-1)
+
+
+class MPCMatrix(CSRMatrix):
+    """Assembled constrained matrix: CSR with the K^H A K structure plus
+    diagval on slave and bc diagonals."""
+
+
+def _get_compiled_matrix(form, constraint, dtype, device):
+    key = ("mat", constraint if not isinstance(constraint, list) else tuple(constraint),
+           dtype.str, str(device))
+    cache = _form_cache(form)
+    cm = cache.get(key)
+    if cm is None:
+        cm = cache[key] = _compile_matrix(form, constraint, dtype, device)
+    return cm
+
+
+def assemble_matrix(form: Form, constraint=None, bcs=None, diagval=1.0, dtype=None, device=None) -> MPCMatrix:
+    """Assemble a bilinear form with MPC elimination and Dirichlet handling
+    into slot CSR.  `constraint` may be one MPC or a pair (row, col) for
+    rectangular assembly.  dtype and device default to the constraint's
+    (float64 on the card without one)."""
+    bcs = bcs or []
+    dtype, device = _resolve(constraint, dtype, device)
+    tdt = torch_dtype(dtype)
+    cm = _get_compiled_matrix(form, constraint, dtype, device)
+    Vt, Vs = form.test_space, form.trial_space
+    bc_row = torch.as_tensor(_bc_masks(Vt, bcs, dtype), device=device)
+    bc_col = torch.as_tensor(_bc_masks(Vs, bcs, dtype), device=device) if Vs is not Vt else bc_row
+    nnz = cm.pattern.nnz
+    data = torch.zeros(nnz + 1, dtype=tdt, device=device)  # slot nnz: trash
+    blocks = iter(cm.slots)
+    for ct, tb in zip(cm.terms, cm.tables):
+        coeffs = _coeff_vectors(ct.term, device)
+        for side in ("ns", "sl"):
+            t = tb[side]
+            slots = next(blocks)
+            n_cells = t["coords"].shape[0]
+            width = slots.shape[0] // max(n_cells, 1)
+            for lo in range(0, n_cells, CELL_CHUNK):
+                hi = min(lo + CELL_CHUNK, n_cells)
+                vals = _class_values(ct, t, coeffs, bc_row, bc_col, lo, hi, tdt)
+                data.index_add_(0, slots[lo * width:hi * width], vals)
+    # diagval on the slave diagonals, then the bc-diagonal passthrough
+    dv = diagval.real if (isinstance(diagval, complex) and not tdt.is_complex) else diagval
+    data.index_add_(0, next(blocks), torch.full((len(cm.slaves_row),), dv, dtype=tdt, device=device))
+    bc_diag = np.zeros(cm.n_diag, dtype=dtype)
+    if cm.n_diag:
+        for bc in bcs:
+            bc_diag[bc.dofs] = diagval
+    data.index_add_(0, next(blocks), torch.as_tensor(bc_diag, device=device))
+    return MPCMatrix.from_pattern(cm.pattern, data[:nnz])
+
+
+def create_sparsity_pattern(form: Form, mpc, device=None) -> SlotPattern:
+    """The slot-CSR pattern of the constrained form (the JAX package's
+    create_sparsity_pattern)."""
+    dtype, device = _resolve(mpc, None, device)
+    return _get_compiled_matrix(form, mpc, dtype, device).pattern
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +419,7 @@ def _scatter(b, tb, be):
 
 def assemble_vector(form: Form, constraint=None, b=None, dtype=None, device=None):
     """Assemble a linear form with the K^H b MPC redistribution.  dtype and
-    device default to the constraint's (float64 on the CPU without one)."""
+    device default to the constraint's (float64 on the card without one)."""
     dtype, device = _resolve(constraint, dtype, device)
     key = ("vec", constraint, dtype.str, str(device))
     cache = _form_cache(form)
@@ -292,8 +465,9 @@ def _compile_lifting(form: Form, constraint, dtype, device, bcs):
 
 def apply_lifting(b, forms, bcs_list, constraint=None, x0=None, scale=1.0, dtype=None, device=None):
     """b <- b - scale * K^H A (g - x0).  `forms` is a list of bilinear forms,
-    `bcs_list` a list of bc-lists (one per form)."""
-    dtype, device = _resolve(constraint, dtype, device)
+    `bcs_list` a list of bc-lists (one per form).  dtype and device default
+    to the constraint's, else to b's."""
+    dtype, device = _resolve(constraint, dtype, device, like=b)
     tdt = torch_dtype(dtype)
     b = torch.as_tensor(b, dtype=tdt, device=device)
     for form, bcs in zip(forms, bcs_list):

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import DEFAULT_DEVICE, resolve_device
 from .._dtypes import torch_dtype
 from ..fem.forms import Form
 from ..fem.lattice_info import LatticeInfo, get_lattice_info
@@ -450,7 +451,7 @@ def assemble_matrix_lattice(
     diagval=1.0,
     dtype=np.float64,
     side_format="fold",
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ):
     """Compile a bilinear form on a lattice mesh into the lean fold operator
     on `device`; call `.assemble()` for the LatticeOperator.  Raises
@@ -460,7 +461,7 @@ def assemble_matrix_lattice(
 
 
 class CompiledLatticeForm:
-    def __init__(self, form, constraint, bcs, diagval, dtype, side_format="fold", device="cpu"):
+    def __init__(self, form, constraint, bcs, diagval, dtype, side_format="fold", device=DEFAULT_DEVICE):
         if side_format != "fold":
             raise NotImplementedError(
                 f"side_format={side_format!r} is not ported yet (ROADMAP queue 1, item 14)")
@@ -489,7 +490,7 @@ class CompiledLatticeForm:
         self.dtype = np.dtype(dtype)
         if self.dtype.kind == "c":
             raise NotImplementedError("complex lattice assembly is ROADMAP queue 1, item 18")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.V, self.mesh, self.lat = V, mesh, lat
         self.bcs = bcs
         self.diagval = diagval

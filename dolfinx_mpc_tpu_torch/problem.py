@@ -2,12 +2,14 @@
 
 Counterpart of ``LinearProblem`` in ``dolfinx_mpc_tpu/problem.py``: the
 matrix comes from the lattice fast path (lean fold operator; at degree 2
-the parity-blocked one, whose flat ``matvec`` the solve uses), the right-hand
-side from ``assemble_vector`` + ``apply_lifting`` + ``set_bc``, the solve
-from la/solvers.py, and the slave values from the constraint's
-backsubstitution.  The general slot-CSR assembler that the JAX package
-falls back to, the separate preconditioner form ``P`` and the nonlinear
-drivers come with ROADMAP queue 1, items 15-16.
+the parity-blocked one, whose flat ``matvec`` the solve uses) on lattice
+meshes with a plane-wrap constraint, and from the general slot-CSR
+assembler otherwise; the right-hand side from ``assemble_vector`` +
+``apply_lifting`` + ``set_bc``, the solve from la/solvers.py (with the
+rigid-body near-nullspace attached to AMG on vector spaces), and the slave
+values from the constraint's backsubstitution.  The separate
+preconditioner form ``P`` and the nonlinear drivers come with ROADMAP
+queue 1, item 16.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import numpy as np
 from .fem.forms import Form
 from .fem.functionspace import Function
 from .fem.lattice_info import get_lattice_info
-from .la.solvers import SolverOptions, solve as krylov_solve
+from .la.solvers import AMG_PC_TYPES, SolverOptions, solve as krylov_solve
 from .multipointconstraint import MultiPointConstraint
-from .ops.assemble import apply_lifting, assemble_vector, set_bc
+from .ops.assemble import apply_lifting, assemble_matrix, assemble_vector, set_bc
 from .ops.lattice import assemble_matrix_lattice
 
 __all__ = ["LinearProblem"]
@@ -76,12 +78,14 @@ class LinearProblem:
         return self._A, self._b
 
     def _assemble_A(self, dtype):
-        """The lattice fold operator (structured box meshes with a plane-wrap
-        constraint)."""
+        """The lattice fold operator on structured box meshes with a
+        plane-wrap constraint, else the general slot-CSR matrix.  The JAX
+        package tries its "cells" lattice format between the two; the port
+        has no "cells" format yet (ROADMAP queue 1, item 14) and goes straight
+        to the general assembler, which gives the same matrix."""
         a = self._a
         if get_lattice_info(a.test_space.mesh) is None:
-            raise NotImplementedError(
-                "the general slot-CSR assembler is ROADMAP queue 1, item 15")
+            return assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)
         key = _lattice_key(self.mpc, self.bcs, dtype)
         cache = a.__dict__.setdefault("_compiled_cache", {})
         clf = cache.get(key)
@@ -89,10 +93,8 @@ class LinearProblem:
             try:
                 clf = assemble_matrix_lattice(a, self.mpc, bcs=self.bcs, dtype=dtype,
                                               side_format="fold", device=self.mpc.device)
-            except ValueError as e:
-                raise NotImplementedError(
-                    f"constraint is not a lattice plane wrap ({e}); the general assembler "
-                    "is ROADMAP queue 1, item 15") from e
+            except ValueError:  # not a plane wrap: the general assembler
+                return assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)
             cache[key] = clf
         return clf.assemble()
 
@@ -106,7 +108,17 @@ class LinearProblem:
 
     def solve(self) -> Function:
         A, b = self.assemble()
-        x, its, rnorm = krylov_solve(A.matvec, b, self.options, diag=A.diagonal())
+        # AMG on a vector space: attach the rigid-body near-nullspace (what
+        # the reference does by hand with GAMG)
+        ns = None
+        V = self.u.function_space
+        bs = getattr(V, "block_size", 1)
+        if self.options.pc_type in AMG_PC_TYPES and bs > 1 and bs == V.mesh.gdim:
+            from .utils.mpc_utils import rigid_motions_nullspace
+
+            ns = rigid_motions_nullspace(V)
+        x, its, rnorm = krylov_solve(A.matvec, b, self.options, diag=A.diagonal(), Aop=A, bs=bs,
+                                     nullspace=ns)
         self.its = int(its)
         self.rnorm = float(rnorm)
         x = self.mpc.finalized.backsubstitution(x)

@@ -1,11 +1,11 @@
 """Algebraic verification oracle: explicit K, K^H A K / K^H b (scipy).
 
 Counterpart of ``dolfinx_mpc_tpu/utils/verification.py`` (host numpy/scipy,
-copied).  ``assemble_matrix_scipy`` supplies the oracle's unconstrained
-matrix on the host from the port's own element kernels (the JAX package
-takes it from its general ``assemble_matrix(...).to_scipy()``, which is
-ROADMAP queue 1, item 15 here).  The oracle is then
-u = K (K^T A K)^{-1} K^T b.
+copied).  The oracle's unconstrained matrix comes either from the port's
+general assembler, ``assemble_matrix(a, None, bcs).to_scipy()`` (as the JAX
+package takes it), or from ``assemble_matrix_scipy``, which sums the port's
+element matrices on the host with scipy and shares no assembly code with
+the device paths.  The oracle is then u = K (K^T A K)^{-1} K^T b.
 """
 
 from __future__ import annotations

@@ -54,11 +54,17 @@ def _ball(x):
     return _y_planes(x) | ((x[0] - 0.5) ** 2 + x[1] ** 2 + (x[2] - 0.5) ** 2 < 0.35 ** 2)
 
 
+def _new_mpc(pkg, V, dtype):
+    """pkg.MultiPointConstraint(V, dtype), on the CPU for the port (its
+    entry points default to the card)."""
+    return pkg.MultiPointConstraint(V, dtype, **({"device": "cpu"} if pkg is pt else {}))
+
+
 def _problem(pkg, box, gradf, innerf, dims, degree, dtype, marker=_y_planes):
     mesh = box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims)
     V = pkg.functionspace(mesh, ("Lagrange", degree))
     bc = pkg.dirichletbc(0.0, pkg.locate_dofs_geometrical(V, marker), V)
-    mpc = pkg.MultiPointConstraint(V, dtype)
+    mpc = _new_mpc(pkg, V, dtype)
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
     mpc.finalize()
@@ -149,7 +155,7 @@ def test_k6_plain_matches_pallas_interpret_f32():
     xb = np.random.default_rng(0).standard_normal((8,) + dia.cdims).astype(np.float32)
     ref = np.asarray(make_blocked_matvec_pallas(dia.trips, dia.vshape, dia.r3, interpret=True)(
         dia.data, jnp.asarray(xb)))
-    dp = block_dia_from_numpy(np.asarray(dia.data), dia.trips, dia.vshape, dia.r3)
+    dp = block_dia_from_numpy(np.asarray(dia.data), dia.trips, dia.vshape, dia.r3, device="cpu")
     got = dp.matvec_blocked(torch.as_tensor(xb))
     assert got.dtype == torch.float32
     assert _rel_l2(got.numpy(), ref) < 5e-6
@@ -164,7 +170,7 @@ def test_k6_plain_matches_xla_f64(dims):
     dia = _jx_clf(dims, 2, np.float64).assemble().dia
     xb = np.random.default_rng(1).standard_normal((8,) + dia.cdims)
     ref = np.asarray(dia.matvec_blocked(jnp.asarray(xb)))
-    d_int = block_dia_from_numpy(np.asarray(dia.data), dia.trips, dia.vshape, dia.r3)
+    d_int = block_dia_from_numpy(np.asarray(dia.data), dia.trips, dia.vshape, dia.r3, device="cpu")
     d_pt = _pt_clf(dims, 2, np.float64).assemble().dia
     for d in (d_int, d_pt):
         got = LK.blocked_matvec(d.data, d.trips, d.classes, torch.as_tensor(xb))
@@ -180,9 +186,9 @@ def test_blocked_fold_operator_matches_jax(dims):
     Aj = _jx_clf(dims, 2, np.float64).assemble()
     Ap = _pt_clf(dims, 2, np.float64).assemble()
     Ai = fold_operator_from_numpy(
-        block_dia_from_numpy(np.asarray(Aj.dia.data), Aj.dia.trips, Aj.dia.vshape, Aj.dia.r3),
+        block_dia_from_numpy(np.asarray(Aj.dia.data), Aj.dia.trips, Aj.dia.vshape, Aj.dia.r3, device="cpu"),
         Aj.fold_axis, np.asarray(Aj.fold_mask), Aj.diagval, fold_pairs=Aj.fold_pairs,
-        fold_mask_b=np.asarray(Aj.fold_mask_b))
+        fold_mask_b=np.asarray(Aj.fold_mask_b), device="cpu")
     x = np.random.default_rng(3).standard_normal(Aj.shape[0])
     xb = np.asarray(Aj.dia._to_blocked(jnp.asarray(x)))
     y_ref = np.asarray(Aj.matvec(jnp.asarray(x)))
@@ -340,7 +346,7 @@ def test_gmg_flat_io_over_blocked_fine_level_matches_jax_and_blocked_io():
 
 def _oracle(V, bc, mpc, a, L):
     A = assemble_matrix_scipy(a, [bc])
-    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None), [a], [[bc]], None), [bc]).numpy()
+    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None, device="cpu"), [a], [[bc]], None), [bc]).numpy()
     K = gather_transformation_matrix(mpc)
     return K @ spla.spsolve((K.T @ A @ K).tocsc(), K.T @ b)
 

@@ -1,5 +1,6 @@
-"""K1 to K7 on the card against their plain PyTorch versions, and the f64
-oracles through the card's kernels.  Marked `cuda`: skipped where there is
+"""K1 to K8 on the card against their plain PyTorch versions, the general
+assembler on the card against the CPU, and the f64 oracles through the
+card's kernels.  Marked `cuda`: skipped where there is
 no CUDA card (the CPU suite); run on one with
 ``python -m pytest tests/test_torch_cuda.py -q``."""
 
@@ -228,3 +229,115 @@ def test_elasticity_and_dirichlet_free_f64_on_card_meet_oracle(cuda, case):
     K = gather_transformation_matrix(mpc)
     u_ref = K @ spla.spsolve((K.T @ A @ K).tocsc(), K.T @ b)
     assert np.abs(u.cpu().numpy() - u_ref).max() < 1e-8
+
+
+def _contact_problem(nb, nt, dtype, device):
+    """benchmarks/bench_contact_3D.py's tied contact between two stacked P1
+    vector boxes (NB^3 and NT^3 cells), with a body force."""
+    from dolfinx_mpc_tpu_torch.fem.mesh import Mesh, meshtags
+
+    bot = create_box((0, 0, 0), (1, 1, 1), (nb, nb, nb))
+    top = create_box((0, 0, 1), (1, 1, 2), (nt, nt, nt))
+    mesh = Mesh(np.vstack([bot.points, top.points]), np.vstack([bot.cells, top.cells + bot.num_points]),
+                bot.cell_type)
+    V = pt.functionspace(mesh, ("Lagrange", 1, (3,)))
+    fverts, _, f2c = mesh.facets()
+    on_iface = np.isclose(mesh.points[fverts][:, :, 2], 1.0).all(axis=1)
+    iface = np.flatnonzero(on_iface & np.isin(np.arange(fverts.shape[0]), mesh.exterior_facets()))
+    cz = mesh.points[mesh.cells[f2c[iface, 0]]].mean(axis=1)[:, 2]
+    mpc = pt.MultiPointConstraint(V, dtype, device=device)
+    mpc.create_contact_inelastic_condition(meshtags(mesh, 2, iface, np.where(cz > 1.0, 1, 2)), 1, 2)
+    mpc.finalize()
+    bcs = [pt.dirichletbc(np.zeros(3), pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 0.0)), V),
+           pt.dirichletbc(np.array([0.0, 0.0, -0.05]),
+                          pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 2.0)), V)]
+    a = pt.BilinearForm(V, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v))) + 1.25 * div(u) * conj(div(v)))
+    L = pt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
+                      + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
+    return V, bcs, mpc, a, L
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_k8_matches_plain_on_card(cuda, dtype, tol):
+    """K8 against its plain version on a mesh-like matrix with dense rows,
+    on the same matrix with mt_cap=2 (most of it in the COO remainder), and
+    on an assembled contact operator; BellMatrix.matvec against scipy."""
+    import scipy.sparse as sp
+
+    from dolfinx_mpc_tpu_torch.la import bell as BL
+
+    rng = np.random.default_rng(0)
+    n = 1000
+    rows = np.repeat(np.arange(n), 11)
+    cols = np.clip(rows + rng.integers(-40, 41, rows.shape[0]), 0, n - 1)
+    dense = np.repeat(rng.choice(n, 2, replace=False), n // 3)
+    A = sp.coo_matrix((rng.standard_normal(rows.shape[0] + dense.shape[0]),
+                       (np.concatenate([rows, dense]), np.concatenate([cols, rng.integers(0, n, dense.shape[0])]))),
+                      shape=(n, n)).tocsr()
+    V, bcs, mpc, a, _ = _contact_problem(4, 3, np.float64, "cpu")
+    C = pt.assemble_matrix(a, mpc, bcs).to_scipy()
+    ndt = np.float32 if dtype == torch.float32 else np.float64
+    for M, kw in ((A, {}), (A, {"mt_cap": 2}), (C, {})):
+        B = BL.bell_from_scipy(M, dtype=ndt, device=cuda, **kw)
+        x = torch.as_tensor(rng.standard_normal(M.shape[1]).astype(ndt), device=cuda)
+        n8 = BL.bell_matvec.launches
+        y = BL.bell_matvec(B.data, B.cols, x, M.shape[0])
+        y_ref = BL.bell_matvec_plain(B.data, B.cols, x, M.shape[0])
+        torch.cuda.synchronize()
+        assert BL.bell_matvec.launches == n8 + 1
+        assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= tol
+        ys = B.matvec(x).cpu().numpy()
+        y_sp = M @ x.cpu().numpy().astype(np.float64)
+        assert np.linalg.norm(ys - y_sp) / np.linalg.norm(y_sp) <= max(tol, 1e-12) * 10
+
+
+def test_assemble_matrix_on_card_matches_cpu(cuda):
+    """The general assembler on the card against the same assembly on the
+    CPU: the same pattern, values within 1e-14 (f64) and 1e-6 (f32)
+    relative (atomics change the summation order)."""
+    for dtype, tol in ((np.float64, 1e-14), (np.float32, 1e-6)):
+        out = {}
+        for dev in ("cpu", cuda):
+            V, bcs, mpc, a, L = _contact_problem(4, 3, dtype, dev)
+            A = pt.assemble_matrix(a, mpc, bcs)
+            b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+            assert A.data.device.type == torch.device(dev).type
+            out[str(dev)] = (A.to_scipy(), b.cpu().numpy())
+        (Ac, bc_), (Ag, bg) = out["cpu"], out["cuda"]
+        assert np.array_equal(Ac.indptr, Ag.indptr) and np.array_equal(Ac.indices, Ag.indices)
+        assert abs(Ag - Ac).max() <= tol * abs(Ac).max()
+        assert np.abs(bg - bc_).max() <= tol * np.abs(bc_).max()
+
+
+def test_contact_f64_on_card_meets_oracle(cuda):
+    """The contact solve on the card in float64, through K8 (BELL + AMG +
+    CG) and through LinearProblem with pc gamg (CSR, no K8), against
+    K (K^T A K)^-1 K^T b within 1e-8."""
+    import scipy.sparse.linalg as spla
+
+    from dolfinx_mpc_tpu_torch.la import bell as BL
+    from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+    from dolfinx_mpc_tpu_torch.utils import gather_transformation_matrix
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import rigid_motions_nullspace
+
+    V, bcs, mpc, a, L = _contact_problem(4, 3, np.float64, cuda)
+    A0 = pt.assemble_matrix(a, None, bcs, device="cpu").to_scipy()
+    b0 = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None, device="cpu"), [a], [bcs]), bcs).numpy()
+    K = gather_transformation_matrix(mpc)
+    u_ref = K @ spla.spsolve((K.T @ A0 @ K).tocsc(), K.T @ b0)
+    A = pt.assemble_matrix(a, mpc, bcs)
+    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+    As = A.to_scipy()
+    B = BL.bell_from_scipy(As, dtype=np.float64, device=cuda)
+    M = smoothed_aggregation_amg(As, bs=3, dtype=np.float64, nullspace=rigid_motions_nullspace(V), device=cuda)
+    n8 = BL.bell_matvec.launches
+    x, its, _ = pt.cg(B.matvec, b, M=M, rtol=1e-12, atol=0.0, max_it=500)
+    u = mpc.finalized.backsubstitution(x)
+    assert BL.bell_matvec.launches >= n8 + its + 1
+    assert np.abs(u.cpu().numpy() - u_ref).max() < 1e-8
+    n8 = BL.bell_matvec.launches
+    prob = pt.LinearProblem(a, L, mpc, bcs=bcs, petsc_options={"ksp_type": "cg", "pc_type": "gamg",
+                                                                "ksp_rtol": 1e-12})
+    ug = prob.solve().x.array
+    assert ug.device.type == "cuda" and BL.bell_matvec.launches == n8
+    assert np.abs(ug.cpu().numpy() - u_ref).max() < 1e-8

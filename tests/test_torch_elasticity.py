@@ -66,7 +66,7 @@ def _problem(pkg, dims, degree=1, bs=1, marker=_y_planes, dtype=np.float64):
                           ("Lagrange", degree, (bs,)) if bs > 1 else ("Lagrange", degree))
     bcs = [] if marker is None else [
         mod.dirichletbc(np.zeros(bs) if bs > 1 else 0.0, mod.locate_dofs_geometrical(V, marker), V)]
-    mpc = mod.MultiPointConstraint(V, dtype)
+    mpc = mod.MultiPointConstraint(V, dtype, **({"device": "cpu"} if pkg == "pt" else {}))
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), bcs)
     mpc.finalize()
@@ -169,7 +169,7 @@ def test_k7_plain_matches_pallas_interpret_f32():
     x = np.random.default_rng(3).standard_normal(dia.shape[0]).astype(np.float32)
     ref = np.asarray(make_dia_matvec_bs_pallas(dia.offsets, dia.vshape, 3, interpret=True)(
         dia.data, jnp.asarray(x)))
-    dp = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 3)
+    dp = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 3, device="cpu")
     n7 = LK.dia_matvec_bs.launches
     got = dp.matvec(torch.as_tensor(x))
     assert LK.dia_matvec_bs.launches == n7
@@ -184,7 +184,7 @@ def test_k7_plain_matches_xla_f64_and_refuses_other_devices():
     dia = _clf("jx", (3, 4, 5), bs=3).assemble().dia
     x = np.random.default_rng(4).standard_normal(dia.shape[0])
     ref = np.asarray(dia.matvec(jnp.asarray(x)))
-    dp = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 3)
+    dp = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 3, device="cpu")
     assert _rel_l2(dp.matvec(torch.as_tensor(x)).numpy(), ref) < 1e-13
     with pytest.raises(RuntimeError):
         LK.dia_matvec_bs(dp.data.to("meta"), dp.offsets, dp.vshape, 3, torch.as_tensor(x).to("meta"))
@@ -276,8 +276,8 @@ def test_elasticity_operator_matches_jax_and_scipy():
     Aj = _clf("jx", (3, 4, 5), bs=3).assemble()
     Ap = _clf("pt", (3, 4, 5), bs=3).assemble()
     Ai = fold_operator_from_numpy(
-        dia_from_numpy(np.asarray(Aj.dia.data), Aj.dia.offsets, Aj.dia.vshape, 3),
-        Aj.fold_axis, np.asarray(Aj.fold_mask), Aj.diagval, fold_pairs=Aj.fold_pairs)
+        dia_from_numpy(np.asarray(Aj.dia.data), Aj.dia.offsets, Aj.dia.vshape, 3, device="cpu"),
+        Aj.fold_axis, np.asarray(Aj.fold_mask), Aj.diagval, fold_pairs=Aj.fold_pairs, device="cpu")
     assert Ai.dia.bs == 3 and Ai.fold_mask.shape == Ap.fold_mask.shape == (5, 6, 3)
     x = np.random.default_rng(7).standard_normal(Aj.shape[0])
     y_ref = np.asarray(Aj.matvec(jnp.asarray(x)))
@@ -352,7 +352,7 @@ def _vector_source(v, c):
 
 def _oracle(V, bcs, mpc, a, L):
     A = assemble_matrix_scipy(a, bcs)
-    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None), [a], [bcs], None), bcs).numpy()
+    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None, device="cpu"), [a], [bcs], None), bcs).numpy()
     K = gather_transformation_matrix(mpc)
     return K @ spla.spsolve((K.T @ A @ K).tocsc(), K.T @ b)
 

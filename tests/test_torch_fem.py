@@ -16,13 +16,19 @@ from dolfinx_mpc_tpu_torch.fem.quadrature import quadrature_rule as pt_rule
 DIMS = [(4, 4, 4), (3, 4, 5)]
 
 
+def _new_mpc(pkg, V, dtype):
+    """pkg.MultiPointConstraint(V, dtype), on the CPU for the port (its
+    entry points default to the card)."""
+    return pkg.MultiPointConstraint(V, dtype, **({"device": "cpu"} if pkg is pt else {}))
+
+
 def _periodic(pkg, box, dims, degree=1):
     mesh = box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims)
     V = pkg.functionspace(mesh, ("Lagrange", degree))
     bdofs = pkg.locate_dofs_geometrical(
         V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0))
     bc = pkg.dirichletbc(0.0, bdofs, V)
-    mpc = pkg.MultiPointConstraint(V, np.float64)
+    mpc = _new_mpc(pkg, V, np.float64)
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0),
         lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
@@ -77,10 +83,30 @@ def test_backsubstitution_homogenize_reduce_transpose():
     _, Vj, _, mpcj = _periodic(jx, jx_box, (3, 4, 5))
     fj = mpcj.finalized
     fp = finalized_mpc_from_numpy(np.asarray(fj.slaves), np.asarray(fj.masters),
-                                  np.asarray(fj.coeffs), np.asarray(fj.is_slave), fj.num_dofs)
+                                  np.asarray(fj.coeffs), np.asarray(fj.is_slave), fj.num_dofs,
+                                  device="cpu")
     u = np.random.default_rng(0).standard_normal(Vj.num_dofs)
     ut = torch.as_tensor(u)
     for name in ("backsubstitution", "homogenize", "reduce_transpose"):
         ref = np.asarray(getattr(fj, name)(jnp.asarray(u)))
         got = getattr(fp, name)(ut).numpy()
         assert np.array_equal(ref, got), name
+
+
+def test_entry_points_default_to_the_card():
+    """Entry points place their tensors on the card unless the caller asks
+    for the CPU: without a card, MultiPointConstraint(V) (no device) raises
+    RuntimeError instead of quietly running on the CPU; with one it lands
+    on cuda.  device="cpu" works either way."""
+    import torch
+
+    V = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2)), ("Lagrange", 1))
+    assert pt.MultiPointConstraint(V, device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert pt.MultiPointConstraint(V).device.type == "cuda"
+        assert pt.Function(V).x.array.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt.MultiPointConstraint(V)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt.Function(V)

@@ -23,6 +23,8 @@ def test_import_does_not_import_jax():
         "import dolfinx_mpc_tpu_torch\n"
         "import dolfinx_mpc_tpu_torch.utils.interop\n"
         "import dolfinx_mpc_tpu_torch.utils.verification\n"
+        "import dolfinx_mpc_tpu_torch.utils.mpc_utils\n"
+        "import dolfinx_mpc_tpu_torch.la.amg, dolfinx_mpc_tpu_torch.la.bell, dolfinx_mpc_tpu_torch.la.ell\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('dolfinx_mpc_tpu.') or m == 'dolfinx_mpc_tpu'\n"
         "               for m in sys.modules), 'JAX package imported'\n"

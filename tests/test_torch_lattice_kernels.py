@@ -24,13 +24,19 @@ from dolfinx_mpc_tpu_torch.utils.interop import dia_from_numpy, fold_operator_fr
 DIMS = [(4, 4, 4), (3, 4, 5)]
 
 
+def _new_mpc(pkg, V, dtype):
+    """pkg.MultiPointConstraint(V, dtype), on the CPU for the port (its
+    entry points default to the card)."""
+    return pkg.MultiPointConstraint(V, dtype, **({"device": "cpu"} if pkg is pt else {}))
+
+
 def _clf(pkg, box, lattice, gradf, innerf, dims, dtype, **kw):
     mesh = box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims)
     V = pkg.functionspace(mesh, ("Lagrange", 1))
     bdofs = pkg.locate_dofs_geometrical(
         V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0))
     bc = pkg.dirichletbc(0.0, bdofs, V)
-    mpc = pkg.MultiPointConstraint(V, dtype)
+    mpc = _new_mpc(pkg, V, dtype)
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0),
         lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
@@ -106,7 +112,7 @@ def test_k2_plain_matches_pallas_interpret_f32(dims):
     x = np.random.default_rng(0).standard_normal(dia.shape[0]).astype(np.float32)
     ref = np.asarray(make_dia_matvec_pallas(dia.offsets, dia.vshape, interpret=True)(
         dia.data, jnp.asarray(x)))
-    dp = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 1)
+    dp = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 1, device="cpu")
     got = dp.matvec(torch.as_tensor(x))
     assert got.dtype == torch.float32
     assert _rel_l2(got.numpy(), ref) < 5e-6
@@ -119,7 +125,7 @@ def test_k2_plain_matches_xla_f64(dims):
     dia = _jx_clf(dims, np.float64).assemble().dia
     x = np.random.default_rng(1).standard_normal(dia.shape[0])
     ref = np.asarray(dia.matvec(jnp.asarray(x)))
-    got = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 1).matvec(torch.as_tensor(x))
+    got = dia_from_numpy(np.asarray(dia.data), dia.offsets, dia.vshape, 1, device="cpu").matvec(torch.as_tensor(x))
     assert _rel_l2(got.numpy(), ref) < 1e-13
 
 
@@ -133,8 +139,8 @@ def test_fold_operator_matches_jax(dims):
     Aj = _jx_clf(dims, np.float64).assemble()
     Ap = _pt_clf(dims, np.float64).assemble()
     Ai = fold_operator_from_numpy(
-        dia_from_numpy(np.asarray(Aj.dia.data), Aj.dia.offsets, Aj.dia.vshape, 1),
-        Aj.fold_axis, np.asarray(Aj.fold_mask), Aj.diagval, fold_pairs=Aj.fold_pairs)
+        dia_from_numpy(np.asarray(Aj.dia.data), Aj.dia.offsets, Aj.dia.vshape, 1, device="cpu"),
+        Aj.fold_axis, np.asarray(Aj.fold_mask), Aj.diagval, fold_pairs=Aj.fold_pairs, device="cpu")
     x = np.random.default_rng(2).standard_normal(Aj.shape[0])
     y_ref = np.asarray(Aj.matvec(jnp.asarray(x)))
     d_ref = np.asarray(Aj.diagonal())
@@ -173,26 +179,26 @@ def test_unported_lattice_forms_raise():
     assembles (K4)."""
     mesh = pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 3, 3))
     V = pt.functionspace(mesh, ("Lagrange", 1))
-    mpc = pt.MultiPointConstraint(V, np.float64)
+    mpc = pt.MultiPointConstraint(V, np.float64, device="cpu")
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
     mpc.finalize()
     a_x = pt.BilinearForm(V, lambda u, v, c: (1.0 + c.x[0]) * pinner(pgrad(u), pgrad(v)))
     assert LK._probe_constant_M(a_x.terms[0], 3) is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_lattice(a_x, mpc, side_format="fold")
+        pt_lattice(a_x, mpc, side_format="fold", device="cpu")
     a = pt.BilinearForm(V, lambda u, v, c: pinner(pgrad(u), pgrad(v)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_lattice(a, mpc, side_format="cells")
+        pt_lattice(a, mpc, side_format="cells", device="cpu")
     V3 = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2)), ("Lagrange", 2, (3,)))
-    mpc3 = pt.MultiPointConstraint(V3, np.float64)
+    mpc3 = pt.MultiPointConstraint(V3, np.float64, device="cpu")
     mpc3.create_periodic_constraint_geometrical(
         V3, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
     mpc3.finalize()
     with pytest.raises(NotImplementedError, match="item 14"):
-        pt_lattice(pt.BilinearForm(V3, lambda u, v, c: pinner(pgrad(u), pgrad(v))), mpc3, side_format="fold")
+        pt_lattice(pt.BilinearForm(V3, lambda u, v, c: pinner(pgrad(u), pgrad(v))), mpc3, side_format="fold", device="cpu")
     blob = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: x.sum(axis=0) < 0.35), V)
-    clf = pt_lattice(a, mpc, bcs=[blob], side_format="fold")
+    clf = pt_lattice(a, mpc, bcs=[blob], side_format="fold", device="cpu")
     assert clf.table.factors is None
     n_k1, n_k3 = LK.assemble_fold_lean_factored.launches, LK.assemble_fold_lean_masked.launches
     A = clf.assemble()
@@ -205,10 +211,10 @@ def test_unported_lattice_forms_raise():
     assert torch.equal(A.dia.data, ref)
     # degree 2 assembles on the parity-blocked layout
     V2 = pt.functionspace(mesh, ("Lagrange", 2))
-    mpc2 = pt.MultiPointConstraint(V2, np.float64)
+    mpc2 = pt.MultiPointConstraint(V2, np.float64, device="cpu")
     mpc2.create_periodic_constraint_geometrical(
         V2, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
     mpc2.finalize()
     a2 = pt.BilinearForm(V2, lambda u, v, c: pinner(pgrad(u), pgrad(v)))
-    A2 = pt_lattice(a2, mpc2, side_format="fold").assemble()
+    A2 = pt_lattice(a2, mpc2, side_format="fold", device="cpu").assemble()
     assert A2.supports_blocked() and A2.dia.data.shape == (230, 4, 4, 4)

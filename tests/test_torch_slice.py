@@ -19,13 +19,19 @@ from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube as pt_cube
 from dolfinx_mpc_tpu_torch.utils import assemble_matrix_scipy, gather_transformation_matrix
 
 
+def _new_mpc(pkg, V, dtype):
+    """pkg.MultiPointConstraint(V, dtype), on the CPU for the port (its
+    entry points default to the card)."""
+    return pkg.MultiPointConstraint(V, dtype, **({"device": "cpu"} if pkg is pt else {}))
+
+
 def _problem(pkg, cube, gradf, innerf, n):
     mesh = cube(n, n, n)
     V = pkg.functionspace(mesh, ("Lagrange", 1))
     bdofs = pkg.locate_dofs_geometrical(
         V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0))
     bc = pkg.dirichletbc(0.0, bdofs, V)
-    mpc = pkg.MultiPointConstraint(V, np.float64)
+    mpc = _new_mpc(pkg, V, np.float64)
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0),
         lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
@@ -46,7 +52,7 @@ def _pt(n):
 def _oracle(V, bc, mpc, a, L):
     """u = K (K^T A K)^-1 K^T b from the port's host assembler (float64)."""
     A = assemble_matrix_scipy(a, [bc])
-    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None), [a], [[bc]], None), [bc]).numpy()
+    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None, device="cpu"), [a], [[bc]], None), [bc]).numpy()
     K = gather_transformation_matrix(mpc)
     return A, K @ spla.spsolve((K.T @ A @ K).tocsc(), K.T @ b)
 
