@@ -1,5 +1,5 @@
-// Hopper (sm_90a) kernel of the unstructured path: the blocked-ELL (BELL)
-// SpMV, K8.
+// Hopper (sm_90a) kernel of the unstructured path: the SpMV of the blocked-ELL
+// (BELL) operator, K8, on that operator's nonzeros.
 //
 // Built by dolfinx_mpc_tpu_torch/_build.py together with lattice_kernels.cu
 // (nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -12,81 +12,88 @@
 // the card).
 //
 // K8 replaces dolfinx_mpc_tpu/la/bell.py:_bell_matvec_pallas (:147-189,
-// `kernel` :164): y[b*R + r] = sum_t data[b, t, r, :] . x[cols[b, t]*C : +C]
-// with R = 8 rows per block and C = 128 columns per tile.  The TPU kernel
-// keeps the whole x tile grid in VMEM and streams the data tiles through
-// the grid pipeline.  Here x (300 KB at 74,658 dofs) does not fit shared
-// memory and stays resident in the 50 MB L2 instead, read through the
-// read-only path; the bounds check against n_cols replaces the JAX zero
-// pad of x.
+// `kernel` :164) together with the JAX segment_sum of the COO remainder
+// (:113-116): y = A x for the operator a BellMatrix holds,
+//   y[b*8 + r] = sum_t data[b, t, r, :] . x[cols[b, t]*128 : +128] + remainder,
+// for the first n_rows rows.  The TPU kernel streams every dense 8 x 128
+// tile, because the VPU and MXU want whole tiles; on the contact operator
+// 1.9 % of the tile slots are nonzeros, so a tile stream reads 689 MB (f32)
+// for 26 MB of matrix.  The H100 has no such constraint, so the kernel reads
+// a packed layout of the nonzeros alone (la/bell.py:bell_pack, built once per
+// operator): a CSR whose rows hold the tile nonzeros in (t, lane) order,
+// each with its absolute int32 column, followed by the row's remainder
+// entries.  The remainder therefore rides in the same launch.
 //
-// What bounds it: the data tiles, read once, nblk*mt*R*C values (688.9 MB
-// in f32 at the 74k-dof contact operator, 1.9 % of which are nonzeros),
-// plus cols, x and y (0.7 MB): a pure HBM stream, 0.21 ms at 3.35 TB/s.
-// The design keeps that stream coalesced and in flight: one block of C =
-// 128 threads per row block b, thread c owns lane c of every tile, so each
-// warp reads 32 consecutive values of a tile row per load (128 B in f32,
-// 512 B per row across the block) and issues R = 8 independent loads per
-// tile; the loads are marked evict-first (__ldcs) so the single-use tiles do
-// not push x out of L2.  The R row sums stay in registers across the mt
-// tiles and are reduced over the 128 lanes at the end (warp shuffles, then
-// shared memory across the 4 warps): the sum order is t, then a tree over
-// c, not the plain version's, which holds f32 to a few ulps.
+// What bounds it: device memory, each nonzero read once (value + int32
+// column: 8 B in f32, 12 B in f64), the row pointers, x and y: 26.4 MB in
+// f32 at the 74,658-dof contact operator, 0.0079 ms at 3.35 TB/s.  The
+// design: a sub-warp of G threads (a power of two, from the mean row length;
+// the wrapper picks it) per row, lane l taking entries l, l + G, ... of the
+// row, so each step of a sub-warp reads G consecutive values and columns;
+// x (0.3 MB) stays in L2 and is read through the read-only path; the G
+// partial sums reduce by __shfl_xor_sync inside the sub-warp.  74,658 rows
+// x 8 lanes is 18,700 warps, enough to fill the card.  Long rows (the MPC
+// slave rows of the remainder) just loop longer.  Rows with no entry get 0.
+// The sum order is per lane, then a tree over the lanes; the plain version
+// (bell_packed_matvec_plain) adds in row order.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kR = 8;
-constexpr int kC = 128;
-constexpr int kWarps = kC / 32;
+constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(kC)
-bell_matvec_kernel(const T* __restrict__ data, const int* __restrict__ cols, const T* __restrict__ x,
-                   T* __restrict__ y, int mt, long long n_rows, long long n_cols) {
-  const long long b = blockIdx.x;
-  const int c = threadIdx.x;
-  T acc[kR];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) acc[r] = T(0);
-  const int* cb = cols + b * mt;
-  const T* db = data + b * mt * (kR * kC) + c;
-  for (int t = 0; t < mt; ++t) {
-    const long long col = static_cast<long long>(__ldg(cb + t)) * kC + c;
-    const T xv = col < n_cols ? __ldg(x + col) : T(0);
-    const T* dt = db + static_cast<long long>(t) * (kR * kC);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) acc[r] += __ldcs(dt + r * kC) * xv;
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+bell_csr_matvec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                       const T* __restrict__ val, const T* __restrict__ x, T* __restrict__ y,
+                       int n_rows) {
+  // n_rows * G < 2^31 (checked by the wrapper), so 32-bit indices suffice
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int row = t / G;
+  const int lane = t & (G - 1);
+  int p = 0, e = 0;
+  if (row < n_rows) {
+    p = __ldg(row_ptr + row) + lane;
+    e = __ldg(row_ptr + row + 1);
   }
+  T acc = T(0);
+#pragma unroll 4
+  for (; p < e; p += G) acc += __ldg(val + p) * __ldg(x + __ldg(col + p));
+  // every thread of the warp reaches the shuffles (rows past the end carry
+  // 0), and xor partners within G stay inside the sub-warp
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
-  }
-  __shared__ T part[kWarps][kR];
-  const int warp = c >> 5;
-  if ((c & 31) == 0) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) part[warp][r] = acc[r];
-  }
-  __syncthreads();
-  if (c < kR) {
-    T s = part[0][c];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += part[w][c];
-    const long long row = b * kR + c;
-    if (row < n_rows) y[row] = s;
-  }
+  for (int o = G / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (row < n_rows && lane == 0) y[row] = acc;
 }
 
 template <typename T>
-int launch_bell_matvec(const T* data, const int* cols, const T* x, T* y, int nblk, int mt,
-                       long long n_rows, long long n_cols, void* stream) {
-  if (nblk == 0 || n_rows == 0) return 0;
-  bell_matvec_kernel<T><<<nblk, kC, 0, static_cast<cudaStream_t>(stream)>>>(data, cols, x, y, mt, n_rows,
-                                                                             n_cols);
+int launch_bell_csr_matvec(const int* row_ptr, const int* col, const T* val, const T* x, T* y,
+                           int n_rows, int g, void* stream) {
+  if (n_rows <= 0) return 0;
+  const unsigned int blocks =
+      static_cast<unsigned int>((static_cast<long long>(n_rows) * g + kThreads - 1) / kThreads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (g) {
+    case 2:
+      bell_csr_matvec_kernel<T, 2><<<blocks, kThreads, 0, st>>>(row_ptr, col, val, x, y, n_rows);
+      break;
+    case 4:
+      bell_csr_matvec_kernel<T, 4><<<blocks, kThreads, 0, st>>>(row_ptr, col, val, x, y, n_rows);
+      break;
+    case 8:
+      bell_csr_matvec_kernel<T, 8><<<blocks, kThreads, 0, st>>>(row_ptr, col, val, x, y, n_rows);
+      break;
+    case 16:
+      bell_csr_matvec_kernel<T, 16><<<blocks, kThreads, 0, st>>>(row_ptr, col, val, x, y, n_rows);
+      break;
+    case 32:
+      bell_csr_matvec_kernel<T, 32><<<blocks, kThreads, 0, st>>>(row_ptr, col, val, x, y, n_rows);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -94,14 +101,14 @@ int launch_bell_matvec(const T* data, const int* cols, const T* x, T* y, int nbl
 
 extern "C" {
 
-int dmt_bell_matvec_f32(const float* data, const int* cols, const float* x, float* y, int nblk, int mt,
-                        long long n_rows, long long n_cols, void* stream) {
-  return launch_bell_matvec<float>(data, cols, x, y, nblk, mt, n_rows, n_cols, stream);
+int dmt_bell_csr_matvec_f32(const int* row_ptr, const int* col, const float* val, const float* x,
+                            float* y, int n_rows, int g, void* stream) {
+  return launch_bell_csr_matvec<float>(row_ptr, col, val, x, y, n_rows, g, stream);
 }
 
-int dmt_bell_matvec_f64(const double* data, const int* cols, const double* x, double* y, int nblk, int mt,
-                        long long n_rows, long long n_cols, void* stream) {
-  return launch_bell_matvec<double>(data, cols, x, y, nblk, mt, n_rows, n_cols, stream);
+int dmt_bell_csr_matvec_f64(const int* row_ptr, const int* col, const double* val, const double* x,
+                            double* y, int n_rows, int g, void* stream) {
+  return launch_bell_csr_matvec<double>(row_ptr, col, val, x, y, n_rows, g, stream);
 }
 
 }  // extern "C"

@@ -222,18 +222,8 @@ __global__ void fold_assemble_raw_kernel(T* __restrict__ out, int n_pl, int n0, 
 }
 
 // ---------------------------------------------------------------------------
-// K2: scalar DIA SpMV, y[p] = sum_d data[d, p] * x[p + off_d], zero outside
-// the grid.
-//
-// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_dia_matvec_group,
-// whose per-plane roll + iota masks become bounds-checked indexed loads.
-// One thread per grid point (i, j, k), k fastest.  It is bound by device
-// memory: (n_off + 2) values per point (18.7 MB per fine-level SpMV at n=64
-// in f32).  The data planes stream once, coalesced; the x halo of the
-// neighbouring planes is re-read from L1/L2 rather than staged in shared
-// memory, which the first version leaves to later tuning.  The offsets
-// travel by value in the kernel parameters, so a launch needs no device
-// table and no host-to-device copy.
+// Offsets passed by value in the kernel parameters (no device table, no
+// host-to-device copy per launch): K7's (di, dj, dk) triples.
 // ---------------------------------------------------------------------------
 constexpr int kMaxOffsets = 128;
 
@@ -242,26 +232,128 @@ struct Offsets {
   int d[3 * kMaxOffsets];
 };
 
+// ---------------------------------------------------------------------------
+// K2: scalar DIA SpMV, y[p] = sum_d data[d, p] * x[p + off_d], zero outside
+// the grid, data (n_off, n0, n1, n2), x and y (n0, n1, n2), k fastest.
+//
+// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_dia_matvec_group
+// (`kernel` :766, pallas_call :791), which runs one program per x-plane
+// with the 2W+1 neighbouring x planes in VMEM and roll + iota edge masks.
+//
+// What bounds it: device memory, (n_off + 2) values per point (18.7 MB per
+// fine-level SpMV of the P1 path at n=64 in f32, 0.0056 ms at 3.35 TB/s).
+// The design is 2.5-D blocking.  A block owns a range of kDiaPoints
+// consecutive points of the flattened (j, k) plane, q = j*n2 + k, and
+// marches along i over `li` planes.  Every x neighbour of its points lies in
+// the flat range [q0 - H, q0 + kDiaPoints + H) of planes i-W .. i+W, with
+// H = W*n2 + W, so shared memory holds a ring of 2W+2 such plane segments:
+// 2W+1 in use and one being filled by cp.async with the next plane while
+// the current one is summed.  Cells outside the grid are zero-filled by the
+// copy itself (src-size 0): planes i < 0 or >= n0 and flat indices outside
+// [0, n1*n2) — the JAX package's zero pad.  That covers the i and j edges;
+// a flat shift dj*n2 + dk that crosses a k edge lands on the next row, so
+// each point keeps a (2W+1)-bit mask of the dk in range, computed once.
+// The flat range, not a rectangle, is the tile because every grid of the
+// paths has odd n2 (2^m + 1): a rectangular k tile would leave a ragged
+// one-column tile per row, and the same oddness puts every row at a 4-byte
+// but never a 16-byte boundary, so the data planes are read with coalesced
+// scalar loads (a warp reads 32 consecutive values of a plane), each value
+// once.  Offsets stay kernel parameters, with their flat shifts computed on
+// the host; index arithmetic inside the plane is 32-bit.  The sum per point
+// runs over the offsets in order, as the plain version's does.
+// ---------------------------------------------------------------------------
+constexpr int kDiaPoints = 256;  // plane points per block, one per thread
+
+struct DiaParams {
+  int n;   // offsets
+  int w;   // halo width W: 1 or 2, >= max |d|
+  int n0, n1, n2;
+  int li;  // x planes per block
+  int di[kMaxOffsets];
+  int sh[kMaxOffsets];  // flat shift dj*n2 + dk inside the plane
+  int dk[kMaxOffsets];
+};
+
 template <typename T>
-__global__ void dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                                  T* __restrict__ y, const Offsets offs, int n0, int n1, int n2) {
-  const long long N = static_cast<long long>(n0) * n1 * n2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= N) return;
-  const int k = static_cast<int>(idx % n2);
-  const long long r = idx / n2;
-  const int j = static_cast<int>(r % n1);
-  const int i = static_cast<int>(r / n1);
-  T acc = T(0);
-  for (int d = 0; d < offs.n; ++d) {
-    const int di = offs.d[3 * d], dj = offs.d[3 * d + 1], dk = offs.d[3 * d + 2];
-    const int ii = i + di, jj = j + dj, kk = k + dk;
-    if (ii >= 0 && ii < n0 && jj >= 0 && jj < n1 && kk >= 0 && kk < n2) {
-      const long long shift = (static_cast<long long>(di) * n1 + dj) * n2 + dk;
-      acc += __ldg(data + d * N + idx) * __ldg(x + idx + shift);
-    }
+__device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src, bool in) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  const int n = in ? static_cast<int>(sizeof(T)) : 0;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n) : "memory");
   }
-  y[idx] = acc;
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kDiaPoints)
+dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
+                  const DiaParams p) {
+  constexpr int NP = 2 * W + 2;  // ring slots
+  extern __shared__ __align__(16) unsigned char dia_smem[];
+  T* ring = reinterpret_cast<T*>(dia_smem);
+  const int P = p.n1 * p.n2;
+  const int H = W * p.n2 + W;
+  const int seg = kDiaPoints + 2 * H;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kDiaPoints;
+  const int q = q0 + tid;
+  const bool live = q < P;
+  const int k = live ? q % p.n2 : 0;
+  unsigned int kmask = 0;  // bit dk + W: k + dk lies in [0, n2)
+#pragma unroll
+  for (int dk = -W; dk <= W; ++dk) kmask |= (k + dk >= 0 && k + dk < p.n2) ? (1u << (dk + W)) : 0u;
+  const long long N = static_cast<long long>(p.n0) * P;
+  const int i0 = blockIdx.y * p.li;
+  const int i1 = min(i0 + p.li, p.n0);
+
+  // plane ip's segment [q0 - H, q0 + kDiaPoints + H) into ring slot `slot`
+  auto load_plane = [&](int ip, int slot) {
+    T* dst = ring + slot * seg;
+    const bool plane_in = ip >= 0 && ip < p.n0;
+    const T* src = x + static_cast<long long>(plane_in ? ip : 0) * P;
+    for (int e = tid; e < seg; e += kDiaPoints) {
+      const int g = q0 - H + e;
+      const bool in = plane_in && g >= 0 && g < P;
+      cp_async_or_zero(dst + e, in ? src + g : x, in);
+    }
+  };
+  // planes i0 - W + m go to slot m mod NP
+  for (int m = 0; m <= 2 * W; ++m) load_plane(i0 - W + m, m);
+  cp_async_commit();
+  for (int i = i0; i < i1; ++i) {
+    const int s = i - i0;
+    // the slot of plane i - W - 1, free since the barrier that ended the
+    // last step, takes plane i + W + 1
+    if (i + 1 < i1) load_plane(i + W + 1, (s + 2 * W + 1) % NP);
+    cp_async_commit();
+    cp_async_wait_all_but_one();  // planes i - W .. i + W have landed
+    __syncthreads();
+    if (live) {
+      const int rot = s % NP;
+      const T* xc = ring + tid + H;
+      const T* dd = data + static_cast<long long>(i) * P + q;
+      T acc = T(0);
+#pragma unroll 4
+      for (int d = 0; d < p.n; ++d) {
+        // loads unconditional (both stay in bounds), the add masked, so
+        // that the unrolled loads can be in flight together
+        const T a = __ldg(dd + d * N);
+        int slot = rot + W + p.di[d];
+        slot -= slot >= NP ? NP : 0;
+        const T xv = xc[slot * seg + p.sh[d]];
+        if ((kmask >> (p.dk[d] + W)) & 1u) acc += a * xv;
+      }
+      y[static_cast<long long>(i) * P + q] = acc;
+    }
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -363,18 +455,38 @@ __global__ void blocked_matvec_kernel(const T* __restrict__ data, const T* __res
   y[idx] = acc;
 }
 
-template <typename T>
-int launch_dia_matvec(const T* data, const T* x, T* y, const int* offs_host, int n_off, int n0,
-                      int n1, int n2, void* stream) {
-  if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
-  const long long N = static_cast<long long>(n0) * n1 * n2;
-  if (N == 0) return 0;
-  Offsets offs;
-  offs.n = n_off;
-  for (int q = 0; q < 3 * n_off; ++q) offs.d[q] = offs_host[q];
-  dia_matvec_kernel<T><<<n_blocks(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, x, y, offs, n0, n1, n2);
+template <typename T, int W>
+int launch_dia_matvec_w(const T* data, const T* x, T* y, const DiaParams& p, cudaStream_t st) {
+  const int H = W * p.n2 + W;
+  const size_t smem = static_cast<size_t>(2 * W + 2) * (kDiaPoints + 2 * H) * sizeof(T);
+  if (smem > 48 * 1024) {  // beyond the default 48 KB (long k rows at W = 2, f64): opt in
+    const cudaError_t e = cudaFuncSetAttribute(dia_matvec_kernel<T, W>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long P = static_cast<long long>(p.n1) * p.n2;
+  const dim3 grid(static_cast<unsigned int>((P + kDiaPoints - 1) / kDiaPoints),
+                  static_cast<unsigned int>((p.n0 + p.li - 1) / p.li));
+  dia_matvec_kernel<T, W><<<grid, kDiaPoints, smem, st>>>(data, x, y, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2's launcher: the parameter block is built once per operator by the
+// wrapper (ops/lattice_kernels.py:DiaMatvecLaunch) and read here by pointer.
+template <typename T>
+int launch_dia_matvec(const T* data, const T* x, T* y, const DiaParams* p, void* stream) {
+  if (p->n < 0 || p->n > kMaxOffsets || p->li < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(p->n0) * p->n1 * p->n2 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p->w) {
+    case 1:
+      return launch_dia_matvec_w<T, 1>(data, x, y, *p, st);
+    case 2:
+      return launch_dia_matvec_w<T, 2>(data, x, y, *p, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -458,14 +570,14 @@ int launch_blocked_matvec(const T* data, const T* x, T* y, const int* tab, int n
 
 extern "C" {
 
-int dmt_dia_matvec_f32(const float* data, const float* x, float* y, const int* offs, int n_off,
-                       int n0, int n1, int n2, void* stream) {
-  return launch_dia_matvec<float>(data, x, y, offs, n_off, n0, n1, n2, stream);
+// params: a DiaParams block, built by the wrapper once per operator
+int dmt_dia_matvec_f32(const float* data, const float* x, float* y, const void* params, void* stream) {
+  return launch_dia_matvec<float>(data, x, y, static_cast<const DiaParams*>(params), stream);
 }
 
-int dmt_dia_matvec_f64(const double* data, const double* x, double* y, const int* offs,
-                       int n_off, int n0, int n1, int n2, void* stream) {
-  return launch_dia_matvec<double>(data, x, y, offs, n_off, n0, n1, n2, stream);
+int dmt_dia_matvec_f64(const double* data, const double* x, double* y, const void* params,
+                       void* stream) {
+  return launch_dia_matvec<double>(data, x, y, static_cast<const DiaParams*>(params), stream);
 }
 
 int dmt_dia_matvec_bs_f32(const float* data, const float* x, float* y, const int* offs, int n_off,

@@ -7,15 +7,25 @@ column tile) pair holding a nonzero stores a dense (R, C) tile:
     y[b*R + r] = sum_t  data[b, t, r, :] . x[cols[b, t]*C : +C]
 
 Rows denser than the ``mt`` tile budget (MPC slave rows coupling to
-far-away masters) spill their overflow nonzeros to a COO remainder, added
-with one ``index_add_``, outside the kernel as in the JAX package.
+far-away masters) spill their overflow nonzeros to a COO remainder.
+
+The tiles are the TPU's format.  On the card the operator is also held as
+``BellPacked``, a CSR of its nonzeros alone (``bell_pack``: the tile
+nonzeros of each row in (t, lane) order, then the row's remainder entries),
+built once per operator when the BellMatrix is made on a CUDA device.
 
 - **K8** ``bell_matvec`` replaces the TPU kernel ``_bell_matvec_pallas``
-  (``dolfinx_mpc_tpu/la/bell.py:147-189``).  Its CUDA source is
-  ``csrc/bell_kernels.cu``; every ``BellMatrix.matvec`` on a CUDA tensor
-  launches it, at any size, in float32 and float64, or raises.
-- ``bell_matvec_plain`` is the JAX package's XLA path (gather of x tiles,
-  multiply, sum over (t, C)); CPU tensors run it.
+  (``dolfinx_mpc_tpu/la/bell.py:147-189``) and the JAX ``segment_sum`` of
+  the remainder (``:113-116``): one launch over the packed layout, the
+  remainder included.  Its CUDA source is ``csrc/bell_kernels.cu``; every
+  ``BellMatrix.matvec`` on a CUDA tensor launches it, in float32 and
+  float64, or raises.
+- ``bell_packed_matvec_plain`` is K8's plain version (gather, multiply,
+  row ``index_add_`` over the packed layout); the wrapper runs it for CPU
+  tensors.
+- ``bell_matvec_plain`` is the JAX package's XLA tile path (gather of x
+  tiles, multiply, sum over (t, C)); ``BellMatrix.matvec`` on the CPU runs
+  it plus the remainder, as the JAX package does.
 
 The conversion ``bell_from_scipy`` is the JAX package's numpy code, copied.
 """
@@ -28,26 +38,29 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
+from .._launch import launch_check, on_device
 
-__all__ = ["BellMatrix", "bell_from_scipy", "bell_matvec", "bell_matvec_plain"]
+__all__ = ["BellMatrix", "BellPacked", "bell_from_scipy", "bell_matvec", "bell_matvec_plain", "bell_pack",
+           "bell_packed_matvec_plain"]
 
 _FLOATS = (torch.float32, torch.float64)
 
 
 def declare_signatures(lib: ctypes.CDLL) -> None:
     """ctypes argtypes/restype of the launchers in csrc/bell_kernels.cu."""
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    P, I = ctypes.c_void_p, ctypes.c_int
     for suf in ("f32", "f64"):
-        fn = getattr(lib, f"dmt_bell_matvec_{suf}")
-        fn.argtypes = [P, P, P, P, I, I, L, L, P]
+        fn = getattr(lib, f"dmt_bell_csr_matvec_{suf}")
+        fn.argtypes = [P, P, P, P, P, I, I, P]
         fn.restype = I
 
 
 def bell_matvec_plain(data, cols, x, n_rows=None):
-    """Plain PyTorch BELL SpMV (the JAX package's XLA path, la/bell.py:
+    """Plain PyTorch BELL tile product (the JAX package's XLA path, la/bell.py:
     110-111): x zero-padded to whole tiles, the tiles of each block gathered
     by cols, multiplied and summed over (t, C).  data (nblk, mt, R, C), cols
-    (nblk, mt), x (n_cols,); returns the first n_rows (default nblk*R) rows."""
+    (nblk, mt), x (n_cols,); returns the first n_rows (default nblk*R) rows.
+    The COO remainder is not in it."""
     nblk, mt, R, C = data.shape
     n = x.shape[0]
     ntc = -(-n // C)
@@ -57,44 +70,146 @@ def bell_matvec_plain(data, cols, x, n_rows=None):
     return y if n_rows is None else y[:n_rows]
 
 
-def bell_matvec(data, cols, x, n_rows=None):
-    """K8: the BELL SpMV on the card, y[b*R + r] = sum_t data[b, t, r, :] .
-    x[cols[b, t]*C : +C] for the first n_rows (default nblk*R) rows; data
-    (nblk, mt, 8, 128) float32 or float64, cols (nblk, mt) int32, x
-    (n_cols,) of data's type.
+def _threads_per_row(nnz, n_rows):
+    """K8's sub-warp width: the power of two in [2, 32] nearest above a
+    sixth of the mean row length (8 at the contact operator's 42.7)."""
+    mean = nnz / max(n_rows, 1)
+    g = 2
+    while g < 32 and g < mean / 6:
+        g *= 2
+    return g
+
+
+class BellPacked:
+    """The nonzeros of a BELL operator as a CSR, K8's layout: row_ptr
+    (n_rows + 1,) int32, cols (nnz,) int32 absolute columns, vals (nnz,) in
+    the operator's dtype; each row holds its tile nonzeros in (t, lane)
+    order, then its remainder entries.  ``threads_per_row`` is the sub-warp
+    width K8 launches with."""
+
+    def __init__(self, row_ptr, cols, vals, shape):
+        self.row_ptr = row_ptr
+        self.cols = cols
+        self.vals = vals
+        self.shape = tuple(shape)
+        self.threads_per_row = _threads_per_row(int(vals.shape[0]), self.shape[0])
+        self._launch = None
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def nnz(self):
+        return int(self.vals.shape[0])
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for t in (self.row_ptr, self.cols, self.vals))
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((self.vals.cpu().numpy(), self.cols.cpu().numpy(), self.row_ptr.cpu().numpy()),
+                             shape=self.shape)
+
+
+def bell_pack(data, cols, rem_data, rem_rows, rem_cols, shape) -> BellPacked:
+    """The packed layout of the BELL arrays, on their device: every nonzero
+    of the tiles (dropped where it falls outside `shape`, as to_scipy drops
+    it) with its absolute column cols[b, t]*C + lane, then the remainder,
+    sorted stably by row, so that a row keeps the (t, lane) order of its
+    tile entries followed by its remainder entries.  Explicit zeros, in the
+    tiles or the remainder, drop out (nothing in A x changes)."""
+    nblk, mt, R, C = data.shape
+    n_rows, n_cols = (int(v) for v in shape)
+    b, t, r, c = torch.nonzero(data, as_tuple=True)
+    rows = b * R + r
+    ccols = cols[b, t].long() * C + c
+    vals = data[b, t, r, c]
+    ok = (rows < n_rows) & (ccols < n_cols)
+    rem_data = rem_data.to(vals.device, vals.dtype)
+    rem_ok = rem_data != 0
+    rows = torch.cat([rows[ok], rem_rows.to(rows.device).long()[rem_ok]])
+    ccols = torch.cat([ccols[ok], rem_cols.to(rows.device).long()[rem_ok]])
+    vals = torch.cat([vals[ok], rem_data[rem_ok]])
+    if vals.shape[0] >= 2 ** 31 or n_cols >= 2 ** 31:
+        raise ValueError(f"bell_pack: {vals.shape[0]} nonzeros / {n_cols} columns exceed int32 indices")
+    order = torch.sort(rows, stable=True).indices
+    counts = torch.bincount(rows, minlength=n_rows)
+    row_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return BellPacked(row_ptr.to(torch.int32), ccols[order].to(torch.int32), vals[order].contiguous(),
+                      (n_rows, n_cols))
+
+
+def bell_packed_matvec_plain(packed: BellPacked, x):
+    """Plain PyTorch version of K8 on the packed layout: the products
+    vals * x[cols] added into their rows in storage order (index_add_), any
+    device."""
+    n_rows = packed.shape[0]
+    lengths = (packed.row_ptr[1:] - packed.row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(n_rows, device=x.device), lengths)
+    y = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, packed.vals * x[packed.cols.long()])
+
+
+class _K8Launch:
+    """K8 prepared once per packed operator on the card: the ctypes
+    function, the layout's pointers, the row count and the sub-warp width."""
+
+    def __init__(self, packed: BellPacked):
+        if packed.device.type != "cuda":
+            raise RuntimeError(f"bell_matvec: the packed layout lies on {packed.device}")
+        if packed.vals.dtype not in _FLOATS:
+            raise TypeError(f"bell_matvec: dtype {packed.vals.dtype} is not float32/float64")
+        n_rows, n_cols = packed.shape
+        if n_rows * packed.threads_per_row >= 2 ** 31:
+            raise ValueError(f"bell_matvec: {n_rows} rows x {packed.threads_per_row} threads exceed int32")
+        from .._build import load_kernels
+
+        self.device, self.dtype, self.n_rows, self.n_cols = packed.device, packed.vals.dtype, n_rows, n_cols
+        self.index = packed.device.index if packed.device.index is not None else torch.cuda.current_device()
+        self.fn = getattr(load_kernels(), f"dmt_bell_csr_matvec_{'f32' if self.dtype == torch.float32 else 'f64'}")
+        self.args = (packed.row_ptr.data_ptr(), packed.cols.data_ptr(), packed.vals.data_ptr())
+        self.g = packed.threads_per_row
+
+    def __call__(self, x):
+        if x.device != self.device:
+            raise RuntimeError(f"bell_matvec: operator on {self.device}, x on {x.device}")
+        if x.dtype != self.dtype:
+            raise TypeError(f"bell_matvec: operator {self.dtype}, x {x.dtype}")
+        if x.dim() != 1 or x.shape[0] != self.n_cols or not x.is_contiguous():
+            raise ValueError(f"bell_matvec: x {tuple(x.shape)}, need a contiguous ({self.n_cols},) vector")
+        y = torch.empty(self.n_rows, dtype=self.dtype, device=self.device)
+        rp, cp, vp = self.args
+        xp, yp = x.data_ptr(), y.data_ptr()
+        launch_check(on_device(self.index, lambda st: self.fn(rp, cp, vp, xp, yp, self.n_rows, self.g, st)),
+                     "bell_matvec")
+        return y
+
+
+def bell_matvec(B, x):
+    """K8: y = A x for the operator of BellMatrix B, on B's packed layout
+    (the tile product plus the COO remainder, rows 0 .. n_rows-1); x
+    (n_cols,) of B's dtype, float32 or float64.
 
     Replaces the TPU kernel dolfinx_mpc_tpu/la/bell.py:_bell_matvec_pallas
-    (f32 only there, x at most 8 MiB).  One block of 128 threads per row
-    block, each thread one lane of every tile with 8 row sums in registers,
-    then a reduction over the lanes (csrc/bell_kernels.cu).  Bound by
-    device memory: the tiles are streamed once, nblk*mt*R*C values.  CPU
-    tensors run the plain version."""
-    nblk, mt, R, C = data.shape
-    n_rows = nblk * R if n_rows is None else int(n_rows)
-    if data.device.type == "cpu" and x.device.type == "cpu":
-        return bell_matvec_plain(data, cols, x, n_rows)
-    if data.device.type != "cuda" or x.device != data.device or cols.device != data.device:
-        raise RuntimeError(f"bell_matvec: data on {data.device}, cols on {cols.device}, x on {x.device}")
-    if data.dtype not in _FLOATS or x.dtype != data.dtype:
-        raise TypeError(f"bell_matvec: data {data.dtype}, x {x.dtype} (need equal float32/float64)")
-    if (R, C) != (8, 128):
-        raise ValueError(f"bell_matvec: tiles ({R}, {C}); the kernel is built for R=8, C=128")
-    if cols.dtype != torch.int32 or tuple(cols.shape) != (nblk, mt):
-        raise ValueError(f"bell_matvec: cols {cols.dtype} {tuple(cols.shape)}, need int32 ({nblk}, {mt})")
-    if not (data.is_contiguous() and cols.is_contiguous() and x.is_contiguous()) or x.dim() != 1:
-        raise ValueError("bell_matvec: data, cols and x must be contiguous, x flat")
-    if n_rows > nblk * R:
-        raise ValueError(f"bell_matvec: n_rows {n_rows} > {nblk} blocks of {R}")
-    from .._build import load_kernels
-    from ..ops.lattice_kernels import _launch_check
-
-    lib = load_kernels()
-    y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, f"dmt_bell_matvec_{'f32' if x.dtype == torch.float32 else 'f64'}")(
-            data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), nblk, mt, n_rows, x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_check(rc, "bell_matvec")
+    and the remainder's segment_sum: one launch on PyTorch's current stream,
+    a sub-warp of threads per row over the row's nonzeros
+    (csrc/bell_kernels.cu).  Bound by device memory: the nonzeros (value +
+    int32 column), the row pointers, x and y, each once.  The launch is
+    prepared once per operator.  CPU tensors run the plain version; B must
+    hold its packed layout (made on a CUDA device, or by B.pack())."""
+    P = B.packed
+    if P is None:
+        raise ValueError("bell_matvec: the BellMatrix holds no packed layout (BellMatrix.pack())")
+    if P.device.type == "cpu" and x.device.type == "cpu":
+        return bell_packed_matvec_plain(P, x)
+    if P.device.type != "cuda" or x.device.type != "cuda":
+        raise RuntimeError(f"bell_matvec: operator on {P.device}, x on {x.device}")
+    if P._launch is None:
+        P._launch = _K8Launch(P)
+    y = P._launch(x)
     bell_matvec.launches += 1
     return y
 
@@ -105,7 +220,11 @@ bell_matvec.launches = 0
 class BellMatrix:
     """data: (nblk, mt, R, C) dense tiles; cols: (nblk, mt) int32 column
     TILE indices (padded slots point at tile 0 with zero data); diag: (n,)
-    stored at conversion; rem_*: COO overflow (rows and columns int64)."""
+    stored at conversion; rem_*: COO overflow (rows and columns int64);
+    packed: K8's layout (BellPacked), made at construction on a CUDA
+    device, else None until pack() is called.  The tiles stay on the
+    device too: the plain tile product and to_scipy read them, and they
+    are what the JAX package's arrays compare with."""
 
     def __init__(self, data, cols, diag, rem_data, rem_rows, rem_cols, shape):
         self.data = data
@@ -115,6 +234,14 @@ class BellMatrix:
         self.rem_rows = rem_rows
         self.rem_cols = rem_cols
         self.shape = tuple(shape)
+        self.packed = None
+        if data.device.type == "cuda":
+            self.pack()
+
+    def pack(self) -> BellPacked:
+        """Build (again) and keep the packed layout on the tiles' device."""
+        self.packed = bell_pack(self.data, self.cols, self.rem_data, self.rem_rows, self.rem_cols, self.shape)
+        return self.packed
 
     @property
     def R(self):
@@ -129,10 +256,14 @@ class BellMatrix:
         return int(np.prod(self.data.shape)) + int(self.rem_data.shape[0])
 
     def matvec(self, x):
-        y = bell_matvec(self.data, self.cols, x, self.shape[0])
-        if self.rem_data.shape[0]:
-            y = y.index_add_(0, self.rem_rows, self.rem_data * x[self.rem_cols])
-        return y
+        """K8 on the card (one launch, remainder included); on the CPU the
+        JAX package's tile product plus the remainder's scatter-add."""
+        if x.device.type == "cpu" and self.data.device.type == "cpu":
+            y = bell_matvec_plain(self.data, self.cols, x, self.shape[0])
+            if self.rem_data.shape[0]:
+                y = y.index_add_(0, self.rem_rows, self.rem_data * x[self.rem_cols])
+            return y
+        return bell_matvec(self, x)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -236,8 +367,9 @@ def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=n
 
 
 def bell_from_arrays(data, cols, diag, rem_data, rem_rows, rem_cols, shape, device=DEFAULT_DEVICE):
-    """BellMatrix on `device` from its host arrays (cols as int32, the
-    kernel's type; the remainder's indices as int64)."""
+    """BellMatrix on `device` from its host arrays (cols as int32; the
+    remainder's indices as int64).  On a CUDA device the BellMatrix packs
+    its nonzeros for K8 there and then."""
     dev = resolve_device(device)
     f = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
     return BellMatrix(f(data), torch.as_tensor(np.asarray(cols, np.int32), device=dev), f(diag), f(rem_data),

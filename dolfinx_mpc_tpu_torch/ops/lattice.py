@@ -39,6 +39,7 @@ from ..fem.lattice_info import LatticeInfo, get_lattice_info
 from ..multipointconstraint import MultiPointConstraint
 from .assemble import _bc_masks, _mpc_pair, _real_dtype
 from .lattice_kernels import (
+    DiaMatvecLaunch,
     _detect_factored_masks,
     assemble_fold_lean_blocked,
     assemble_fold_lean_factored,
@@ -66,7 +67,8 @@ class DIAMatrix:
     components per vertex.
 
     data: (n_off, bs, bs, n0, n1, n2) — entry A[(v, ci), (v+off_d, cj)] =
-    data[d, ci, cj, v].
+    data[d, ci, cj, v].  At bs = 1 on the card the first matvec prepares
+    K2's launch (DiaMatvecLaunch) and keeps it for the next ones.
     """
 
     def __init__(self, data, offsets, vshape, bs):
@@ -74,6 +76,7 @@ class DIAMatrix:
         self.offsets = tuple(tuple(int(v) for v in o) for o in offsets)
         self.vshape = tuple(int(v) for v in vshape)
         self.bs = int(bs)
+        self._k2 = None
 
     @property
     def shape(self):
@@ -84,6 +87,10 @@ class DIAMatrix:
         """K2 (bs = 1) or K7 (bs > 1) on the card, their plain version on
         the CPU."""
         if self.bs == 1:
+            if self._k2 is None and self.data.device.type == "cuda":
+                self._k2 = DiaMatvecLaunch(self.data, self.offsets, self.vshape)
+            if self._k2 is not None:
+                return self._k2(x)
             return dia_matvec(self.data, self.offsets, self.vshape, x)
         return dia_matvec_bs(self.data, self.offsets, self.vshape, self.bs, x)
 

@@ -7,7 +7,8 @@ Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
   lean-fold assembler (``_make_lean_fold_pallas_group`` -> ``kernel_factored``,
   entry ``make_lean_fold_pallas(fuse_mask=True)``) on the vertex grid.
 - **K2** ``dia_matvec`` replaces the scalar DIA SpMV
-  (``_make_dia_matvec_group``, entry ``make_dia_matvec_pallas``).
+  (``_make_dia_matvec_group``, entry ``make_dia_matvec_pallas``);
+  ``DiaMatvecLaunch`` is its launch prepared once per operator.
 - **K3** ``assemble_fold_lean_masked`` replaces the non-separable-mask
   variant (``kernel_masked``, fuse mode "2d"), on both layouts.
 - **K4** ``assemble_fold_lean_blocked`` replaces the degree-2 blocked
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from .._dtypes import numpy_dtype
+from .._launch import launch_check, on_device
 
 __all__ = [
     "FoldTable",
@@ -59,10 +61,14 @@ __all__ = [
     "blocked_matvec_plain",
     "blocked_trip_table",
     "build_fold_table",
+    "DiaMatvecLaunch",
+    "K2_MAX_HALO",
+    "dia_launch_params",
     "dia_matvec",
     "dia_matvec_bs",
     "dia_matvec_plain",
     "fold_kernel_supported",
+    "k2_halo_width",
 ]
 
 _FLOATS = (torch.float32, torch.float64)
@@ -73,7 +79,7 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     for suf, F in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         mv = getattr(lib, f"dmt_dia_matvec_{suf}")
-        mv.argtypes = [P, P, P, P, I, I, I, I, P]
+        mv.argtypes = [P, P, P, P, P]
         mv.restype = I
         fa = getattr(lib, f"dmt_fold_assemble_{suf}")
         fa.argtypes = [P, I, I, I, I, I, I, I, P, P, P, P, I, F, F, P]
@@ -94,11 +100,6 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
 
 def _suffix(dtype):
     return "f32" if dtype == torch.float32 else "f64"
-
-
-def _launch_check(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -508,7 +509,7 @@ def _fold_factored(wrapper, blocked, tab: FoldTableDevice, jitter, diagval):
             tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), tab.fac.data_ptr(),
             tab.n_stack, F(1.0 + float(jitter)), F(float(diagval)),
             torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check(rc, name)
+    launch_check(rc, name)
     wrapper.launches += 1
     return out
 
@@ -574,7 +575,7 @@ def assemble_fold_lean_masked(tab: FoldTableDevice, jitter, diagval):
             tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(),
             tab.keep.data_ptr(), tab.bc_ind.data_ptr(), F(1.0 + float(jitter)), F(float(diagval)),
             torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check(rc, "assemble_fold_lean_masked")
+    launch_check(rc, "assemble_fold_lean_masked")
     assemble_fold_lean_masked.launches += 1
     return out
 
@@ -614,7 +615,7 @@ def assemble_fold_lean_raw(tab: FoldTableDevice, jitter):
             out.data_ptr(), tab.n_planes, n0, n1, n2, nx, ny, nz,
             tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), tab.refine,
             F(1.0 + float(jitter)), torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check(rc, "assemble_fold_lean_raw")
+    launch_check(rc, "assemble_fold_lean_raw")
     assemble_fold_lean_raw.launches += 1
     return out
 
@@ -650,43 +651,123 @@ def dia_matvec_plain(data, offsets, vshape, bs, x):
     return torch.movedim(y, 0, -1).reshape(-1)
 
 
+# K2's halo: the widest offset the kernel's shared-memory ring takes, and
+# the most offsets its parameter block holds (csrc/lattice_kernels.cu)
+K2_MAX_HALO = 2
+K2_MAX_OFFSETS = 128
+_K2_POINTS = 256  # plane points per block (kDiaPoints)
+_SMEM_MAX = 232448  # shared memory one block may use on the H100
+_SMS = 132
+
+
+class DiaParams(ctypes.Structure):
+    """K2's parameter block (struct DiaParams of csrc/lattice_kernels.cu),
+    built once per operator: the offsets as plane offset di, flat shift
+    dj*n2 + dk inside the plane and dk, the halo width, the grid and the x
+    planes per block."""
+
+    _fields_ = [("n", ctypes.c_int), ("w", ctypes.c_int), ("n0", ctypes.c_int), ("n1", ctypes.c_int),
+                ("n2", ctypes.c_int), ("li", ctypes.c_int), ("di", ctypes.c_int * K2_MAX_OFFSETS),
+                ("sh", ctypes.c_int * K2_MAX_OFFSETS), ("dk", ctypes.c_int * K2_MAX_OFFSETS)]
+
+
+def k2_halo_width(offsets) -> int:
+    """The halo width K2 launches with for these offsets: max |d| over all
+    axes, at least 1; raises beyond K2_MAX_HALO."""
+    w = max([abs(int(v)) for o in offsets for v in o], default=0)
+    if w > K2_MAX_HALO:
+        raise ValueError(f"dia_matvec: an offset reaches {w} planes, beyond K2's halo width {K2_MAX_HALO}")
+    return max(w, 1)
+
+
+def dia_launch_params(offsets, vshape, itemsize=4) -> DiaParams:
+    """K2's parameter block for `offsets` on the (n0, n1, n2) grid.  Each
+    block takes 256 consecutive points of the flattened (j, k) plane; the x
+    planes per block (li) are the most of 8, 4, 2 that still give 16
+    blocks per SM (two full waves at 8 resident blocks), else 1: on the
+    H100 the device time fell with more blocks down to that point (65^3:
+    0.0096 ms at li 4, 0.0082 at 2; 129^3: 0.0748 at 16, 0.0581 at 4;
+    chip_smoke.py's sweep).  Raises where the kernel cannot take the
+    operator: too many offsets, an offset beyond the halo, a grid of 2^31
+    points or more, or a shared-memory ring beyond one block's 227 KB."""
+    n0, n1, n2 = (int(v) for v in vshape)
+    offsets = [tuple(int(v) for v in o) for o in offsets]
+    if len(offsets) > K2_MAX_OFFSETS:
+        raise ValueError(f"dia_matvec: {len(offsets)} offsets, K2 takes at most {K2_MAX_OFFSETS}")
+    w = k2_halo_width(offsets)
+    if n0 * n1 * n2 >= 2 ** 31:
+        raise ValueError(f"dia_matvec: grid {vshape} has 2^31 points or more")
+    if (2 * w + 2) * (_K2_POINTS + 2 * (w * n2 + w)) * itemsize > _SMEM_MAX:
+        raise ValueError(f"dia_matvec: rows of {n2} points need more shared memory than a block has")
+    tiles = -(-(n1 * n2) // _K2_POINTS)
+    li = next((li for li in (8, 4, 2) if tiles * -(-n0 // li) >= 16 * _SMS), 1)
+    p = DiaParams(n=len(offsets), w=w, n0=n0, n1=n1, n2=n2, li=li)
+    for d, (di, dj, dk) in enumerate(offsets):
+        p.di[d], p.sh[d], p.dk[d] = di, dj * n2 + dk, dk
+    return p
+
+
+class DiaMatvecLaunch:
+    """K2 prepared once per operator: the parameter block, the ctypes
+    function of the dtype, data's pointer and the device checks.  A call
+    allocates y, reads the current stream and makes one ctypes call."""
+
+    def __init__(self, data, offsets, vshape):
+        n0, n1, n2 = (int(v) for v in vshape)
+        n_off = len(offsets)
+        if data.device.type != "cuda":
+            raise RuntimeError(f"dia_matvec: data on {data.device}")
+        if data.dtype not in _FLOATS:
+            raise TypeError(f"dia_matvec: data {data.dtype} (need float32/float64)")
+        self.N = n0 * n1 * n2
+        if data.numel() != n_off * self.N:
+            raise ValueError(f"dia_matvec: data {tuple(data.shape)} does not match {n_off} offsets on {vshape}")
+        if not data.is_contiguous():
+            raise ValueError("dia_matvec: data must be contiguous")
+        from .._build import load_kernels
+
+        self.params = dia_launch_params(offsets, vshape, data.element_size())
+        self.data = data  # keeps the pointer valid
+        self.device, self.dtype = data.device, data.dtype
+        self.index = data.device.index if data.device.index is not None else torch.cuda.current_device()
+        self.fn = getattr(load_kernels(), f"dmt_dia_matvec_{_suffix(data.dtype)}")
+        self.args = (data.data_ptr(), ctypes.addressof(self.params))
+
+    def __call__(self, x):
+        if x.device != self.device:
+            raise RuntimeError(f"dia_matvec: data on {self.device}, x on {x.device}")
+        if x.dtype != self.dtype:
+            raise TypeError(f"dia_matvec: data {self.dtype}, x {x.dtype}")
+        if x.numel() != self.N or not x.is_contiguous():
+            raise ValueError(f"dia_matvec: x {tuple(x.shape)}, need {self.N} contiguous values")
+        y = torch.empty(self.N, dtype=self.dtype, device=self.device)
+        dp, pp = self.args
+        xp, yp = x.data_ptr(), y.data_ptr()
+        launch_check(on_device(self.index, lambda st: self.fn(dp, xp, yp, pp, st)), "dia_matvec")
+        dia_matvec.launches += 1
+        return y
+
+
 def dia_matvec(data, offsets, vshape, x):
     """K2: scalar DIA SpMV y[p] = sum_d data[d, p] x[p + off_d] (zero outside
     the grid); data (n_off, 1, 1, n0, n1, n2) or (n_off, n0, n1, n2), x flat.
 
     Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
     _make_dia_matvec_group.  On the card it is bound by device memory,
-    (n_off + 2) values per point: one thread per point, k fastest, the data
-    planes streamed once and coalesced, x's neighbours re-read through
-    L1/L2, the offsets passed by value.  CPU tensors run the plain version;
-    every bs=1 DIA matvec on a CUDA tensor launches the kernel, at any grid
-    size."""
+    (n_off + 2) values per point: 2.5-D blocking, each block marching along
+    i over a range of the flattened (j, k) plane with a cp.async ring of the
+    2W+1 x planes (W = max |d| <= 2) in shared memory, zero-filled outside
+    the grid (csrc/lattice_kernels.cu).  This function prepares the launch
+    for the one call; DIAMatrix prepares it once (DiaMatvecLaunch) and calls
+    it directly.  CPU tensors run the plain version; every bs=1 DIA matvec
+    on a CUDA tensor launches the kernel, at any grid size."""
     n0, n1, n2 = vshape
     n_off = len(offsets)
     if data.device.type == "cpu" and x.device.type == "cpu":
         return dia_matvec_plain(data.reshape(n_off, 1, 1, n0, n1, n2), offsets, vshape, 1, x)
     if data.device.type != "cuda" or x.device != data.device:
         raise RuntimeError(f"dia_matvec: data on {data.device}, x on {x.device}")
-    if data.dtype not in _FLOATS or x.dtype != data.dtype:
-        raise TypeError(f"dia_matvec: data {data.dtype}, x {x.dtype} (need equal float32/float64)")
-    N = n0 * n1 * n2
-    if data.numel() != n_off * N or x.numel() != N:
-        raise ValueError(f"dia_matvec: data {tuple(data.shape)} / x {tuple(x.shape)} "
-                         f"do not match {n_off} offsets on {vshape}")
-    if not (data.is_contiguous() and x.is_contiguous()):
-        raise ValueError("dia_matvec: data and x must be contiguous")
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    offs = np.ascontiguousarray(offsets, dtype=np.int32).reshape(-1)
-    y = torch.empty(N, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, f"dmt_dia_matvec_{_suffix(x.dtype)}")(
-            data.data_ptr(), x.data_ptr(), y.data_ptr(), offs.ctypes.data, n_off, n0, n1, n2,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_check(rc, "dia_matvec")
-    dia_matvec.launches += 1
-    return y
+    return DiaMatvecLaunch(data, offsets, vshape)(x)
 
 
 dia_matvec.launches = 0
@@ -738,7 +819,7 @@ def dia_matvec_bs(data, offsets, vshape, bs, x):
         rc = getattr(lib, f"dmt_dia_matvec_bs_{_suffix(x.dtype)}")(
             data.data_ptr(), x.data_ptr(), y.data_ptr(), offs.ctypes.data, n_off, bs, n0, n1, n2,
             torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_check(rc, "dia_matvec_bs")
+    launch_check(rc, "dia_matvec_bs")
     dia_matvec_bs.launches += 1
     return y
 
@@ -821,7 +902,7 @@ def blocked_matvec(data, trips, classes, xb, table=None):
         rc = getattr(lib, f"dmt_blocked_matvec_{_suffix(xb.dtype)}")(
             data.data_ptr(), xb.data_ptr(), y.data_ptr(), table.data_ptr(), n_cls, s0, s1, s2,
             torch.cuda.current_stream(xb.device).cuda_stream)
-    _launch_check(rc, "blocked_matvec")
+    launch_check(rc, "blocked_matvec")
     blocked_matvec.launches += 1
     return y
 

@@ -11,8 +11,9 @@ blocked_io GMG: K4, K6) or, with --path bs3, its bs=3 problem (bench.py's
 BENCH_BS=3 elasticity, float32, four levels, Chebyshev 3+3: K1 at bs=3,
 K7), or, with --path contact, its contact problem (bench_contact_3D.py
 --format bell --pc amg at NB=24/NT=20, float32 BELL operator and SA-AMG:
-K8; the "assembler" region is the general slot-CSR assembler in float64,
-n is ignored), warms every region, then for each region prints one JSON
+K8 on the operator's packed nonzeros, one launch per matvec; the
+"assembler" region is the general slot-CSR assembler in float64, n is
+ignored), warms every region, then for each region prints one JSON
 line: the host-clock wall per call with and without the profiler, the
 device (kernel) time per call, kernels per call, the device busy share
 against both walls, and the eight largest kernels.  The unprofiled wall is
@@ -90,7 +91,7 @@ def main():
 
         V, mpc, a, bcs, bb, _, B, M, _, _, _, _ = cs.build_contact(dev)
         mv, names = B.matvec, ("K8", "assemble_matrix")
-        mv_kernel = lambda x: bell_matvec(B.data, B.cols, x, B.shape[0])  # noqa: E731
+        mv_kernel = lambda x: bell_matvec(B, x)  # noqa: E731
         assemble, levels = (lambda: dmt.assemble_matrix(a, mpc, bcs)), [o.shape for o in M.ops]
     xr = bb / torch.linalg.vector_norm(bb)
 

@@ -271,3 +271,61 @@ def test_solve_amg_needs_the_operator():
     opts = SolverOptions.from_petsc({"pc_type": "gamg"})
     with pytest.raises(ValueError, match="assembled operator"):
         solve(lambda v: v, torch.ones(4, dtype=torch.float64), opts, diag=torch.ones(4, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype,tol,mt_cap", [(np.float64, 1e-13, None), (np.float32, 5e-6, None),
+                                              (np.float64, 1e-13, 4), (np.float32, 5e-6, 4)])
+def test_bell_packed_contact_operator_matches_jax(dtype, tol, mt_cap):
+    """K8's packed layout of the contact operator at NB=4/NT=3 (and with a
+    4-tile budget, which spills the MPC rows' far couplings to the
+    remainder): every nonzero once (exact against to_scipy), and its plain
+    SpMV against the JAX package's BellMatrix.matvec and its Pallas kernel
+    in interpret mode + the remainder's segment_sum (f32)."""
+    import jax
+
+    from dolfinx_mpc_tpu.la.bell import _bell_matvec_pallas
+    from dolfinx_mpc_tpu_torch.la.bell import bell_matvec, bell_packed_matvec_plain
+
+    Ap, _ = _pt_system(4, 3)
+    As = Ap.to_scipy()
+    kw = {} if mt_cap is None else {"mt_cap": mt_cap}
+    Bj = jx_bell(As, dtype=dtype, **kw)
+    Bp = pt_bell(As, dtype=dtype, device="cpu", **kw)
+    P = Bp.pack()
+    S = Bp.to_scipy()
+    S.eliminate_zeros()
+    assert abs(P.to_scipy() - S).max() == 0 and P.nnz == S.nnz
+    if mt_cap is not None:
+        assert Bp.rem_data.shape[0] > 0
+    x = np.random.default_rng(4).standard_normal(As.shape[1]).astype(dtype)
+    got = bell_matvec(Bp, torch.as_tensor(x)).numpy()
+    assert np.array_equal(got, bell_packed_matvec_plain(P, torch.as_tensor(x)).numpy())
+    assert np.linalg.norm(got - np.asarray(Bj.matvec(jnp.asarray(x)))) <= tol * np.linalg.norm(got)
+    if dtype == np.float32:
+        nblk, mt, R, C = Bj.data.shape
+        x2 = Bj._x_tiles(jnp.asarray(x))
+        y = _bell_matvec_pallas(nblk, mt, R, C, x2.shape[0], interpret=True)(Bj.cols, Bj.data, x2)
+        y = y.reshape(-1)[:Bj.shape[0]]
+        if Bj.rem_data.shape[0]:
+            y = y + jax.ops.segment_sum(Bj.rem_data * jnp.asarray(x)[Bj.rem_cols], Bj.rem_rows,
+                                        num_segments=Bj.shape[0], indices_are_sorted=True)
+        assert np.linalg.norm(got - np.asarray(y)) <= tol * np.linalg.norm(got)
+
+
+def test_packed_bell_cg_float32_counts_match_jax():
+    """The float32 recipe of test_bell_amg_cg_float32_counts_match_jax with
+    every matvec through K8's plain version on the packed layout (the sum
+    order of the card's path): the JAX package's CPU iteration count."""
+    from dolfinx_mpc_tpu_torch.la.bell import bell_matvec
+
+    Aj, bj = _jx_system(6, 5)
+    Vj = _contact("jx", 6, 5)[0]
+    Mj = jx_amg(Aj, bs=3, dtype=np.float32, nullspace=jx_rigid(Vj))
+    _, its_j, _ = jx_cg(jx_bell(Aj, dtype=np.float32).matvec, jnp.asarray(bj, jnp.float32), M=Mj, rtol=1e-6)
+    Ap, bp = _pt_system(6, 5)
+    As = Ap.to_scipy()
+    Mp = pt_amg(As, bs=3, dtype=np.float32, nullspace=pt_rigid(_contact("pt", 6, 5)[0]), device="cpu")
+    Bp = pt_bell(As, dtype=np.float32, device="cpu")
+    Bp.pack()
+    _, its_p, _ = pt.cg(lambda v: bell_matvec(Bp, v), bp.to(torch.float32), M=Mp, rtol=1e-6)
+    assert its_p == int(its_j)

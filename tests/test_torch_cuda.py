@@ -257,11 +257,29 @@ def _contact_problem(nb, nt, dtype, device):
     return V, bcs, mpc, a, L
 
 
+def _edge_rows_matrix(rng):
+    """101 x 1000 with empty rows (40-49, 100), a row held only by the
+    remainder under mt_cap=1 (row 9: far tiles only) and n_rows < nblk * 8
+    (13 row blocks rounded up to 16)."""
+    import scipy.sparse as sp
+
+    rows, cols = [], []
+    for r in range(101):
+        if 40 <= r < 50 or r == 100:
+            continue
+        cs = [400, 700, 900] if r == 9 else [r] + list(rng.integers(max(r - 5, 0), r + 6, 4))
+        rows += [r] * len(cs)
+        cols += cs
+    return sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(101, 1000)).tocsr()
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
 def test_k8_matches_plain_on_card(cuda, dtype, tol):
-    """K8 against its plain version on a mesh-like matrix with dense rows,
-    on the same matrix with mt_cap=2 (most of it in the COO remainder), and
-    on an assembled contact operator; BellMatrix.matvec against scipy."""
+    """K8 on the packed layout against its plain version and against the
+    tile product + remainder, on a mesh-like matrix with dense rows, on the
+    same matrix with mt_cap=2 (most of it in the COO remainder), on empty
+    rows / remainder-only rows / n_rows < nblk*8, and on an assembled
+    contact operator; BellMatrix.matvec is one K8 launch and matches scipy."""
     import scipy.sparse as sp
 
     from dolfinx_mpc_tpu_torch.la import bell as BL
@@ -277,18 +295,58 @@ def test_k8_matches_plain_on_card(cuda, dtype, tol):
     V, bcs, mpc, a, _ = _contact_problem(4, 3, np.float64, "cpu")
     C = pt.assemble_matrix(a, mpc, bcs).to_scipy()
     ndt = np.float32 if dtype == torch.float32 else np.float64
-    for M, kw in ((A, {}), (A, {"mt_cap": 2}), (C, {})):
+    for M, kw in ((A, {}), (A, {"mt_cap": 2}), (_edge_rows_matrix(rng), {"mt_cap": 1}), (C, {})):
         B = BL.bell_from_scipy(M, dtype=ndt, device=cuda, **kw)
+        assert B.packed is not None and B.packed.device.type == "cuda"
         x = torch.as_tensor(rng.standard_normal(M.shape[1]).astype(ndt), device=cuda)
         n8 = BL.bell_matvec.launches
-        y = BL.bell_matvec(B.data, B.cols, x, M.shape[0])
-        y_ref = BL.bell_matvec_plain(B.data, B.cols, x, M.shape[0])
+        y = BL.bell_matvec(B, x)
+        y_ref = BL.bell_packed_matvec_plain(B.packed, x)
         torch.cuda.synchronize()
         assert BL.bell_matvec.launches == n8 + 1
         assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= tol
-        ys = B.matvec(x).cpu().numpy()
+        tiles = BL.bell_matvec_plain(B.data, B.cols, x, M.shape[0]).index_add_(
+            0, B.rem_rows, B.rem_data * x[B.rem_cols])
+        assert float(torch.linalg.vector_norm(y - tiles) / torch.linalg.vector_norm(tiles)) <= tol
+        if "mt_cap" in kw and M.shape[0] == 101:
+            yc = y.cpu().numpy()
+            assert (yc[40:50] == 0).all() and yc[100] == 0 and yc[9] != 0
+        ys = B.matvec(x)
+        assert BL.bell_matvec.launches == n8 + 2
         y_sp = M @ x.cpu().numpy().astype(np.float64)
-        assert np.linalg.norm(ys - y_sp) / np.linalg.norm(y_sp) <= max(tol, 1e-12) * 10
+        assert np.linalg.norm(ys.cpu().numpy() - y_sp) / np.linalg.norm(y_sp) <= max(tol, 1e-12) * 10
+    with pytest.raises(TypeError):
+        BL.bell_matvec(B, x.to(torch.float64 if dtype == torch.float32 else torch.float32))
+    with pytest.raises(RuntimeError):
+        BL.bell_matvec(B, x.cpu())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-13)])
+def test_k2_matches_plain_on_card_grids(cuda, dtype, tol):
+    """K2 (the prepared launch DIAMatrix.matvec keeps) against its plain
+    version on the P1 15-offset stencil over 9^3, 17^3, 33^3 and a ragged
+    7 x 13 x 70 grid, and on the 65-offset refined P2 DIA (|d| <= 2) over
+    9^3 and 7 x 13 x 70, with random planes; one launch per matvec."""
+    from dolfinx_mpc_tpu_torch.ops.lattice import DIAMatrix
+
+    p1 = _problem((2, 2, 2), np.float64, "cpu")[5].offsets
+    p2 = _problem((2, 2, 2), np.float64, "cpu", degree=2)[5].offsets
+    assert len(p1) == 15 and len(p2) == 65
+    rng = np.random.default_rng(1)
+    for offs, grids in ((p1, ((9, 9, 9), (17, 17, 17), (33, 33, 33), (7, 13, 70))),
+                        (p2, ((9, 9, 9), (7, 13, 70)))):
+        for vshape in grids:
+            data = torch.as_tensor(rng.standard_normal((len(offs), 1, 1) + vshape), device=cuda).to(dtype)
+            x = torch.as_tensor(rng.standard_normal(int(np.prod(vshape))), device=cuda).to(dtype)
+            dia = DIAMatrix(data, offs, vshape, 1)
+            n2 = LK.dia_matvec.launches
+            y = dia.matvec(x)
+            y2 = dia.matvec(x)
+            torch.cuda.synchronize()
+            assert LK.dia_matvec.launches == n2 + 2 and torch.equal(y, y2)
+            y_ref = LK.dia_matvec_plain(data, offs, vshape, 1, x)
+            rel = float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref))
+            assert rel <= tol, (len(offs), vshape, rel)
 
 
 def test_assemble_matrix_on_card_matches_cpu(cuda):
@@ -333,7 +391,7 @@ def test_contact_f64_on_card_meets_oracle(cuda):
     n8 = BL.bell_matvec.launches
     x, its, _ = pt.cg(B.matvec, b, M=M, rtol=1e-12, atol=0.0, max_it=500)
     u = mpc.finalized.backsubstitution(x)
-    assert BL.bell_matvec.launches >= n8 + its + 1
+    assert BL.bell_matvec.launches == n8 + its + 1
     assert np.abs(u.cpu().numpy() - u_ref).max() < 1e-8
     n8 = BL.bell_matvec.launches
     prob = pt.LinearProblem(a, L, mpc, bcs=bcs, petsc_options={"ksp_type": "cg", "pc_type": "gamg",

@@ -218,3 +218,66 @@ def test_unported_lattice_forms_raise():
     a2 = pt.BilinearForm(V2, lambda u, v, c: pinner(pgrad(u), pgrad(v)))
     A2 = pt_lattice(a2, mpc2, side_format="fold", device="cpu").assemble()
     assert A2.supports_blocked() and A2.dia.data.shape == (230, 4, 4, 4)
+
+
+def _pt_form_clf(dims, degree, with_bc):
+    """The port's P1 / P2 Poisson fold form on the CPU, with the y-plane
+    Dirichlet set or (Dirichlet-free) the reaction-diffusion form."""
+    V = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims), ("Lagrange", degree))
+    bcs = [pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
+        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)), V)] if with_bc else []
+    mpc = _new_mpc(pt, V, np.float64)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), bcs)
+    mpc.finalize()
+    if with_bc:
+        a = pt.BilinearForm(V, lambda u, v, c: pinner(pgrad(u), pgrad(v)), quad_degree=degree)
+    else:
+        a = pt.BilinearForm(V, lambda u, v, c: pinner(pgrad(u), pgrad(v)) + 0.5 * pinner(u, v),
+                            quad_degree=degree + 1)
+    return pt_lattice(a, mpc, bcs=bcs, dtype=np.float64, side_format="fold", device="cpu")
+
+
+@pytest.mark.parametrize("case", ["P1 GMG", "P2 refined", "Dirichlet-free P1", "Dirichlet-free P2 refined"])
+def test_k2_halo_covers_every_dia_of_the_paths(case):
+    """Every scalar DIA operator the paths build has its offsets within K2's
+    halo width (W = 2): the P1 fine level and its GMG levels (with the
+    absolute-value copies the Chebyshev bounds take), the refined degree-2
+    DIA (65 offsets, |d| <= 2) and the Dirichlet-free forms (K5's tables);
+    K2's parameter block builds for each, and an offset of 3 raises."""
+    from dolfinx_mpc_tpu_torch.la.gmg import _abs_dia
+
+    degree = 2 if "P2" in case else 1
+    if case == "P1 GMG":
+        ops, _ = pt.build_gmg_hierarchy(lambda m: _pt_form_clf((m, m, m), 1, True), 8, 3, min_n=2)
+        dias = [o.dia for o in ops] + [_abs_dia(o.dia) for o in ops]
+        assert [d.vshape for d in dias[:3]] == [(9, 9, 9), (5, 5, 5), (3, 3, 3)]
+        offsets = [(d.offsets, d.vshape) for d in dias]
+    else:
+        clf = _pt_form_clf((2, 3, 4), degree, case.startswith("P2"))
+        offsets = [(clf.offsets, clf.vshape)]
+        if degree == 1:
+            A = clf.assemble()
+            offsets.append((A.dia.offsets, A.dia.vshape))
+    for offs, vshape in offsets:
+        assert LK.k2_halo_width(offs) <= LK.K2_MAX_HALO
+        assert LK.dia_launch_params(offs, vshape).n == len(offs)
+        if degree == 2:
+            assert len(offs) == 65 and LK.k2_halo_width(offs) == 2
+    with pytest.raises(ValueError, match="halo"):
+        LK.dia_launch_params(list(offsets[0][0]) + [(0, 0, 3)], offsets[0][1])
+
+
+@pytest.mark.parametrize("degree,dims", [(1, (3, 4, 5)), (2, (2, 3, 4))])
+def test_k2_prepared_launch_equals_its_dia(degree, dims):
+    """The parameter block K2 is launched with holds its DIA's offsets (as
+    plane offset, flat shift dj*n2 + dk and dk, in offset order), its grid,
+    a halo width >= every |d|, and x-plane chunks that cover the grid."""
+    clf = _pt_form_clf(dims, degree, degree == 1)
+    offs, (n0, n1, n2) = clf.offsets, clf.vshape
+    p = LK.dia_launch_params(offs, clf.vshape)
+    assert (p.n, p.n0, p.n1, p.n2) == (len(offs), n0, n1, n2)
+    assert [(p.di[d], p.sh[d], p.dk[d]) for d in range(p.n)] == [(di, dj * n2 + dk, dk) for di, dj, dk in offs]
+    assert p.w == max(1, max(abs(v) for o in offs for v in o)) and p.li == 1  # a small grid: one plane each
+    big = LK.dia_launch_params(offs, (129, 129, 129))
+    assert big.li == 4 and -(-129 * 129 // 256) * -(-129 // big.li) >= 16 * 132

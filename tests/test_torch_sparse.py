@@ -223,19 +223,132 @@ def test_bell_matvec_plain_matches_pallas_interpret_and_xla(dtype, tol):
         pallas = np.asarray(jbell._bell_matvec_pallas(nblk, mt, R, C, x2.shape[0], interpret=True)(
             Bj.cols, Bj.data, x2)).reshape(-1)
         assert _rel_l2(got, pallas) < tol
-    # and the first n_rows rows of it, as BellMatrix.matvec takes them
-    sub = pbell.bell_matvec(torch.as_tensor(np.asarray(Bj.data)), torch.as_tensor(np.asarray(Bj.cols)),
-                            torch.as_tensor(x), 700).numpy()
-    assert np.array_equal(sub, got[:700])
+    # the first n_rows rows of it plus the remainder are the operator, which
+    # K8's wrapper computes on the packed layout (its plain version here)
+    Bp = bell_from_numpy(*(np.asarray(getattr(Bj, n)) for n in _ARRAYS), Bj.shape, device="cpu")
+    Bp.pack()
+    full = torch.as_tensor(got[:700]).index_add_(0, Bp.rem_rows, Bp.rem_data * torch.as_tensor(x)[Bp.rem_cols])
+    assert _rel_l2(pbell.bell_matvec(Bp, torch.as_tensor(x)).numpy(), full.numpy()) < tol
 
 
 def test_bell_wrapper_refuses_other_devices():
     """A tensor on a non-CPU, non-CUDA device raises instead of falling
-    back to the plain version."""
+    back to the plain version, and so does a BellMatrix without its packed
+    layout; made on the CPU, a BellMatrix is not packed until pack()."""
     Bp = pbell.bell_from_scipy(_rand_mesh_like(73, 5, seed=73), device="cpu")
     x = torch.ones(73, dtype=torch.float32)
+    assert Bp.packed is None
+    with pytest.raises(ValueError, match="packed"):
+        pbell.bell_matvec(Bp, x)
+    Bp.pack()
     with pytest.raises(RuntimeError):
-        pbell.bell_matvec(Bp.data.to("meta"), Bp.cols.to("meta"), x.to("meta"), 73)
+        pbell.bell_matvec(Bp, x.to("meta"))
+
+
+def _pack_cases():
+    """The BELL cases above, an mt_cap=3 case whose dense rows spill a long
+    remainder, and one with empty rows, rows held only by the remainder and
+    n_rows < nblk * 8."""
+    cases = {k: v for k, v in _bell_cases().items() if k != "chunked_bchunk3"}
+    cases["long_remainder_mtcap3_f64"] = (_rand_mesh_like(900, 13, seed=5, n_dense_rows=5),
+                                          dict(mt_cap=3, dtype=np.float64))
+    cases["long_remainder_mtcap3_f32"] = (_rand_mesh_like(900, 13, seed=5, n_dense_rows=5),
+                                          dict(mt_cap=3, dtype=np.float32))
+    cases["edge_rows_f64"] = (_edge_rows_matrix(), dict(mt_cap=1, dtype=np.float64))
+    return cases
+
+
+def _edge_rows_matrix():
+    """101 x 1000: rows 40-49 and 100 are empty; row 9's entries lie in
+    tiles 3, 5 and 7, which its row block's budget (mt_cap=1, taken by tile
+    0 of its other rows) cannot hold, so the remainder alone holds row 9;
+    101 rows make 13 row blocks, rounded up to 16 (n_rows < nblk * 8)."""
+    rng = np.random.default_rng(11)
+    rows, cols = [], []
+    for r in range(101):
+        if 40 <= r < 50 or r == 100:
+            continue
+        cs = [400, 700, 900] if r == 9 else [r] + list(rng.integers(max(r - 5, 0), r + 6, 4))
+        rows += [r] * len(cs)
+        cols += cs
+    return sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(101, 1000)).tocsr()
+
+
+@pytest.mark.parametrize("case", list(_pack_cases()))
+def test_bell_pack_holds_every_nonzero_once(case):
+    """bell_pack holds each nonzero of the tiles and the remainder exactly
+    once, in the operator's dtype: its CSR equals BellMatrix.to_scipy()
+    after eliminate_zeros exactly; each row lists its tile entries in (t,
+    lane) order, then its remainder entries."""
+    A, kw = _pack_cases()[case]
+    B = pbell.bell_from_scipy(A, device="cpu", **kw)
+    P = B.pack()
+    S = B.to_scipy()
+    S.eliminate_zeros()
+    Q = P.to_scipy()
+    assert P.nnz == S.nnz and Q.shape == S.shape and P.vals.dtype == B.data.dtype
+    assert P.row_ptr.dtype == torch.int32 and P.cols.dtype == torch.int32
+    assert abs(Q - S).max() == 0
+    # the order inside each row: slot t of the row's block, then lane, then
+    # the remainder's entries in their stored order
+    R, C = B.R, B.C
+    slot = {}  # (block, tile) -> slot; padded slots repeat tile 0 after its real slot
+    for b, row in enumerate(B.cols.numpy()):
+        for t, c in enumerate(row):
+            slot.setdefault((b, int(c)), t)
+    rem = {}
+    for r, c, v in zip(B.rem_rows.numpy(), B.rem_cols.numpy(), B.rem_data.numpy()):
+        if v != 0:
+            rem.setdefault(int(r), []).append(int(c))
+    rp, pc = P.row_ptr.numpy(), P.cols.numpy()
+    for r in range(B.shape[0]):
+        cs = [int(c) for c in pc[rp[r]:rp[r + 1]]]
+        n_rem = len(rem.get(r, []))
+        tile_part = cs[:len(cs) - n_rem]
+        keys = [(slot[(r // R, c // C)], c % C) for c in tile_part]
+        assert keys == sorted(keys) and cs[len(cs) - n_rem:] == rem.get(r, [])
+    if case == "edge_rows_f64":
+        counts = np.diff(rp)
+        assert B.shape[0] < B.data.shape[0] * R and (counts[40:50] == 0).all() and counts[100] == 0
+        assert (B.rem_rows.numpy() == 9).all() and sorted(pc[rp[9]:rp[10]]) == [400, 700, 900]
+
+
+@pytest.mark.parametrize("case", list(_pack_cases()))
+def test_bell_packed_plain_matches_tile_path_and_jax(case):
+    """K8's plain version on the packed layout against the port's tile path
+    (bell_matvec_plain + remainder), the JAX package's BellMatrix.matvec and
+    its Pallas kernel in interpret mode + the remainder's segment_sum (f32,
+    the only type that kernel takes); f64 1e-13 relative, f32 5e-6 relative
+    L2.  CPU tensors launch nothing."""
+    import jax
+    import jax.numpy as jnp
+
+    A, kw = _pack_cases()[case]
+    dt = kw["dtype"]
+    Bj = jbell.bell_from_scipy(A, **kw)
+    Bp = pbell.bell_from_scipy(A, device="cpu", **kw)
+    Bp.pack()
+    x = np.random.default_rng(2).standard_normal(A.shape[1]).astype(dt)
+    xt = torch.as_tensor(x)
+    n0 = pbell.bell_matvec.launches
+    got = pbell.bell_matvec(Bp, xt).numpy()
+    assert pbell.bell_matvec.launches == n0
+    assert np.array_equal(got, pbell.bell_packed_matvec_plain(Bp.packed, xt).numpy())
+    tol = 1e-13 if dt == np.float64 else 5e-6
+    tiles = pbell.bell_matvec_plain(Bp.data, Bp.cols, xt, Bp.shape[0])
+    tiles = tiles.index_add_(0, Bp.rem_rows, Bp.rem_data * xt[Bp.rem_cols]).numpy()
+    assert _rel_l2(got, tiles) < tol
+    assert _rel_l2(got, Bp.matvec(xt).numpy()) < tol
+    assert _rel_l2(got, np.asarray(Bj.matvec(jnp.asarray(x)))) < tol
+    if dt == np.float32:
+        nblk, mt, R, C = Bj.data.shape
+        x2 = Bj._x_tiles(jnp.asarray(x))
+        yb = jbell._bell_matvec_pallas(nblk, mt, R, C, x2.shape[0], interpret=True)(Bj.cols, Bj.data, x2)
+        y = yb.reshape(-1)[:Bj.shape[0]]
+        if Bj.rem_data.shape[0]:
+            y = y + jax.ops.segment_sum(Bj.rem_data * jnp.asarray(x)[Bj.rem_cols], Bj.rem_rows,
+                                        num_segments=Bj.shape[0], indices_are_sorted=True)
+        assert _rel_l2(got, np.asarray(y)) < tol
 
 
 def test_interop_round_trips():
