@@ -14,9 +14,13 @@ each (or a few), any failure exits non-zero:
    P1 n=64 operator and on P1 n=128 (the P2 path's level 1; K2 also at
    n=32; K2 through the launch its DIAMatrix prepares, with warm, cold-L2,
    profiler and wrapper-host times), K4 on the P2 n=64 blocked table, K6 on
-   that operator, K3 on P1 65^3 and P2 n=64 with a non-separable Dirichlet
-   set (the y-planes and a ball on the y=0 face); K1 at bs=3 (135 x 65^3),
-   K7 on the bs=3 grids 65^3 and 33^3, and K5 on the raw bs=3 grid table
+   that operator and on P2 n=32 (8 x 65^3 and 8 x 33^3, through the launch
+   its BlockDIAMatrix prepares, with the same four times and, at 8 x 65^3,
+   a sweep of its launch shape), K3 on P1 65^3 and P2 n=64 with a
+   non-separable Dirichlet set (the y-planes and a ball on the y=0 face);
+   K1 at bs=3 (135 x 65^3), K7 on the bs=3 grids 65^3, 33^3 and 17^3
+   (through DIAMatrix's prepared launch, the same four times, x planes per
+   block swept at 65^3 and 33^3), and K5 on the raw bs=3 grid table
    (135 x 65^3), the raw blocked P2 n=64 table (230 x 65^3) and the refined
    r=2 P2 n=64 table (65 x 129^3), where K5 must also equal K1 / K4 with
    unit mask factors bit for bit;
@@ -38,7 +42,8 @@ each (or a few), any failure exits non-zero:
    elasticity with mu=1, lambda=1.25, quad_degree=1), float32:
    assemble_matrix_lattice (K1 at bs=3) -> manufactured b = A u0 -> 4-level
    GMG (Chebyshev 3+3) -> cg -> backsubstitution, counters reset before and
-   read after (K1 and K7 launched, K2 not at all); then the same at n=32;
+   read after (K1 and K7 launched, K2 not at all; K7's launches also by
+   grid); then the same at n=32;
 4d. the contact path: benchmarks/bench_contact_3D.py --format bell --pc amg
    at NB=24/NT=20 (two stacked P1 vector tet boxes tied by the inelastic
    contact MPC, 74,658 dofs), through the port's entry points:
@@ -74,6 +79,7 @@ JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -211,11 +217,11 @@ def ptxas_summary(log):
 
     out, name, spill = [], None, "?"
     for ln in log.read_text().splitlines() if log.exists() else []:
-        m = re.search(r"(fold_assemble_masked|fold_assemble_raw|fold_assemble|dia_matvec_bs|dia_matvec|"
-                      r"blocked_matvec|bell_csr_matvec)_kernelI([fd])(?:Li(\d+)E)?E", ln)
+        m = re.search(r"(fold_assemble_masked|fold_assemble_raw|fold_assemble|dia_matvec|"
+                      r"blocked_matvec|bell_csr_matvec)_kernelI([fd])((?:L[ib]\d+E)*)E", ln)
         if m and "Compiling entry function" in ln:
-            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
-                    f"{', ' + m.group(3) if m.group(3) else ''}>")
+            ints = "".join(f", {v}" for v in re.findall(r"L[ib](\d+)E", m.group(3)))
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{ints}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m.group(1)}/{m.group(2)}"
@@ -478,6 +484,7 @@ def wrapper(kid):
 def reset_counts():
     for k in KERNELS:
         wrapper(k).launches = 0
+    wrapper("K7").launches_by_grid.clear()
 
 
 def read_counts(names):
@@ -595,7 +602,7 @@ def compare_kernels(dev, gen):
                     sweep.append(f"{li}: cold {cold_ms(lambda: L(x), 50):.4f} / device "
                                  f"{'not measured' if prof is None else f'{prof:.4f}'} ms")
                 line += (f"\nK2 f32 {dia.vshape} by x planes per block (the launch takes "
-                         f"{op._k2.params.li}): {'; '.join(sweep)}")
+                         f"{op._launch.params.li}): {'; '.join(sweep)}")
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K2 disagrees with its plain version in {dt} at {dia.vshape}: {rel:.3e} > {tol:g}")
@@ -637,31 +644,9 @@ def compare_blocked_kernels(dev, gen):
         if not rel <= tol or pad_nz:
             fail(f"K4 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g} or {pad_nz} padded values")
         del got, ref
-    dia = clf.assemble().dia
-    table = torch.as_tensor(LK.blocked_trip_table(dia.trips, dia.classes), device=dev)
-    for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-13)):
-        data = dia.data.to(dt).contiguous()
-        x = torch.randn(dia.shape[0], generator=gen, device=dev, dtype=torch.float64).to(dt)
-        xb = dia._to_blocked(x).contiguous()
-        got = LK.blocked_matvec(data, dia.trips, dia.classes, xb, table)
-        ref = LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb)
-        rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
-        line = f"K6 {str(dt)[6:]} {tuple(xb.shape)}: rel L2 {rel:.3e} (tol {tol:g})"
-        if dt == torch.float32:
-            ms = cuda_ms(lambda: LK.blocked_matvec(data, dia.trips, dia.classes, xb, table), 100)
-            plain_ms = cuda_ms(lambda: LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb), 10)
-            # the library call computes the same operator on the flat dof vector
-            lib_ms, y_lib = csr_library_ms(dia.to_scipy(), dia._from_blocked(xb).contiguous(), 100)
-            bms, by = spmv_bound(data.numel(), xb, got, table.numel() * table.element_size())
-            out["K6"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
-            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE CSR (flat) {lib_ms:.4f} ms "
-                     f"(rel L2 to the kernel {_rel_l2(y_lib, dia._from_blocked(got)):.1e}), "
-                     f"bound {bms:.4f} ms ({by})")
-        print(line, flush=True)
-        if not rel <= tol:
-            fail(f"K6 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
-    del clf, dia, data
+    del clf
+    for m in (N_P2, N_P2 // 2):
+        out.update(compare_k6(dev, gen, make_problem(m, np.float32, dev, degree=2)[4].assemble().dia, m == N_P2))
     for degree in (1, 2):
         clf = make_problem(N_P2, np.float32, dev, degree=degree, marker=blob)[4]
         if clf.table.factors is not None:
@@ -688,6 +673,62 @@ def compare_blocked_kernels(dev, gen):
     return out
 
 
+def compare_k6(dev, gen, dia, main):
+    """K6 on the blocked P2 operator `dia` against its plain version on the
+    card, f32 and f64, through the launch a BlockDIAMatrix prepares, with
+    warm, cold-L2, profiler and wrapper-host times and the bound; on the
+    main path's operator (`main`) also cuSPARSE on the flat dof vector and
+    the sweep of threads x points per thread x x planes per block.  Returns
+    the kernels line's numbers when `main`."""
+    import torch
+
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+    from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix
+
+    out = {}
+    for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-13)):
+        data = dia.data.to(dt).contiguous()
+        op = BlockDIAMatrix(data, dia.trips, dia.vshape, dia.r3)  # holds K6's prepared launch
+        x = torch.randn(dia.shape[0], generator=gen, device=dev, dtype=torch.float64).to(dt)
+        xb = dia._to_blocked(x).contiguous()
+        got = op.matvec_blocked(xb)
+        ref = LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb)
+        rel = _rel_l2(got, ref)
+        line = f"K6 {str(dt)[6:]} {tuple(xb.shape)}: rel L2 {rel:.3e} (tol {tol:g})"
+        if dt == torch.float32:
+            p = op._launch.params
+            t = spmv_times(lambda: op.matvec_blocked(xb), "blocked_matvec_kernel", 100)
+            plain_ms = cuda_ms(lambda: LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb), 10)
+            bms, by = spmv_bound(data.numel(), xb, got, 8 * len(dia.trips))
+            line += (f", kernel ({p.pts} points, {p.li} x planes per block, evict-first loads {p.stream}) "
+                     f"{fmt_times(t)}, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); cold "
+                     f"{bms / t['cold_ms']:.0%}, device {bms / (t['prof_ms'] or float('inf')):.0%} of the bound")
+            if main:
+                # the library call computes the same operator on the flat dof vector
+                lib_ms, y_lib = csr_library_ms(dia.to_scipy(), dia._from_blocked(xb).contiguous(), 100)
+                line += (f"; cuSPARSE CSR (flat) {lib_ms:.4f} ms warm (rel L2 to the kernel "
+                         f"{_rel_l2(y_lib, dia._from_blocked(got)):.1e}), warm {lib_ms / t['warm_ms']:.2f}x its speed")
+                out["K6"] = dict(max_abs_err=float((got - ref).abs().max()), ms=t["warm_ms"], plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                sweep = []
+                for pts, li, stream in ((256, 1, 1), (512, 1, 1), (256, 3, 1), (512, 2, 1), (512, 3, 1), (512, 4, 1),
+                                        (512, 3, 0)):
+                    L = LK.BlockedMatvecLaunch(data, dia.trips, dia.classes)
+                    L.params = LK.blocked_launch_params(dia.trips, dia.classes, dia.cdims, 4, pts=pts, li=li)
+                    L.params.stream = stream
+                    L.args = L.args[:2] + (ctypes.addressof(L.params),)
+                    prof = profiler_ms(lambda: L(xb), 30, "blocked_matvec_kernel")
+                    sweep.append(f"{pts}/{li}/{stream}: cold {cold_ms(lambda: L(xb), 30):.4f} / device "
+                                 f"{'not measured' if prof is None else f'{prof:.4f}'} ms")
+                line += (f"\nK6 f32 {tuple(xb.shape)} by points / x planes per block / evict-first loads (the launch "
+                         f"takes {p.pts}/{p.li}/{p.stream}): {'; '.join(sweep)}")
+        print(line, flush=True)
+        if not rel <= tol:
+            fail(f"K6 disagrees with its plain version in {dt} at {tuple(xb.shape)}: {rel:.3e} > {tol:g}")
+        del op
+    return out
+
+
 def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
     """Phase 3, slice 3: K1 at bs=3 on the bs=3 path's fine table, K7 on its
     fine level and level 1, and K5 on three raw tables (the bs=3 grid table,
@@ -698,6 +739,7 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
     import torch
 
     from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+    from dolfinx_mpc_tpu_torch.ops.lattice import DIAMatrix
 
     out = {}
     clf = make_elasticity(n, np.float32, dev)[4]
@@ -716,28 +758,44 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
         if not rel <= tol:
             fail(f"K1 at bs=3 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
         del got, ref
-    for m in (n, n // 2):
+    for m in (n, n // 2, n // 4):
         dia = (clf if m == n else make_elasticity(m, np.float32, dev)[4]).assemble().dia
         for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-13)):
             data = dia.data.to(dt).contiguous()
+            op = DIAMatrix(data, dia.offsets, dia.vshape, 3)  # holds K7's prepared launch
             x = torch.randn(dia.shape[0], generator=gen, device=dev, dtype=torch.float64).to(dt)
-            got = LK.dia_matvec_bs(data, dia.offsets, dia.vshape, 3, x)
+            got = op.matvec(x)
             ref = LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 3, x)
-            rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+            rel = _rel_l2(got, ref)
             line = f"K7 {str(dt)[6:]} {dia.vshape} bs=3: rel L2 {rel:.3e} (tol {tol:g})"
             if dt == torch.float32:
-                ms = cuda_ms(lambda: LK.dia_matvec_bs(data, dia.offsets, dia.vshape, 3, x), 200)
+                t = spmv_times(lambda: op.matvec(x), "dia_matvec_kernel", 200)
                 plain_ms = cuda_ms(lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 3, x), 10)
                 bms, by = spmv_bound(data.numel(), x, got)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+                line += (f", kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); cold "
+                         f"{bms / t['cold_ms']:.0%}, device {bms / (t['prof_ms'] or float('inf')):.0%} of the bound")
                 if m == n:
                     lib_ms, y_lib = csr_library_ms(dia.to_scipy(), x, 100)
-                    line += f", cuSPARSE CSR {lib_ms:.4f} ms (rel L2 to the kernel {_rel_l2(y_lib, got):.1e})"
-                    out["K7"] = dict(max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                    line += (f"; cuSPARSE CSR {lib_ms:.4f} ms warm (rel L2 to the kernel {_rel_l2(y_lib, got):.1e}), "
+                             f"warm {lib_ms / t['warm_ms']:.2f}x its speed")
+                    out["K7"] = dict(max_abs_err=float((got - ref).abs().max()), ms=t["warm_ms"], plain_ms=plain_ms,
                                      bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                if m in (n, n // 2):
+                    sweep = []
+                    stream = op._launch.params.stream
+                    for li, st in ((1, stream), (2, stream), (4, stream), (8, stream), (1, 1 - stream)):
+                        L = LK.DiaBsMatvecLaunch(data, dia.offsets, dia.vshape, 3)
+                        L.params.li, L.params.stream = li, st
+                        prof = profiler_ms(lambda: L(x), 50, "dia_matvec_kernel")
+                        sweep.append(f"{li}/{st}: warm {cuda_ms(lambda: L(x), 100):.4f} / cold "
+                                     f"{cold_ms(lambda: L(x), 50):.4f} / device "
+                                     f"{'not measured' if prof is None else f'{prof:.4f}'} ms")
+                    line += (f"\nK7 f32 {dia.vshape} by x planes per block / evict-first loads (the launch takes "
+                             f"{op._launch.params.li}/{stream}): {'; '.join(sweep)}")
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K7 disagrees with its plain version in {dt} at {dia.vshape}: {rel:.3e} > {tol:g}")
+            del op
         del dia, data
     # K5's tables: raw (no masks) builds of the bs=3 form and of the P2
     # n_p2 form, beside unit-factor K1 / K4 tables of the same planes
@@ -823,6 +881,7 @@ def elasticity_path(dev, n, measure=True):
     u = mpc.finalized.backsubstitution(x)
     torch.cuda.synchronize()
     counts = read_counts(("K1", "K2", "K7"))
+    k7_by_grid = {"x".join(map(str, g)): c for g, c in sorted(wrapper("K7").launches_by_grid.items(), reverse=True)}
 
     if not bool(torch.isfinite(u).all()):
         fail(f"bs=3 path n={n}: the solution is not finite")
@@ -835,7 +894,7 @@ def elasticity_path(dev, n, measure=True):
     eta, rel_res, fwd = error_gates(A, b, x, x_ref)
     summary = dict(n=n, dofs=V.num_dofs, setup_s=t_setup, build_s=t_build, its=its, rnorm=rnorm,
                    bnorm=float(torch.linalg.vector_norm(b)), cg_s=t_cg, rel_res=rel_res, eta=eta, fwd=fwd,
-                   its_ref=its_ref, levels=[o.dia.vshape for o in ops], bounds=M._bounds)
+                   its_ref=its_ref, levels=[o.dia.vshape for o in ops], bounds=M._bounds, k7_by_grid=k7_by_grid)
     if measure:
         # phase breakdown on the built objects (launches here are not counted)
         xr = b / torch.linalg.vector_norm(b)
@@ -1327,20 +1386,21 @@ def main():
             fail(f"P2 CG took {s2['its']} its at n={n}, JAX-CPU takes {JAX_CPU_P2_CG_ITS} at n={N_P2_JAX} "
                  f"(+-2 allowed)")
 
-    counts4 = None
+    counts4 = k7_by_grid = None
     for n in (N_BS3, 32):
         c4, s4 = elasticity_path(dev, n, measure=n == N_BS3)
         line = (f"bs=3 path n={n} ({s4['dofs']} dofs, f32, levels {s4['levels']}): setup {s4['setup_s']:.2f} s, "
                 f"assembly+rhs+GMG build {s4['build_s']:.2f} s, ")
         if n == N_BS3:
-            counts4 = c4
+            counts4, k7_by_grid = c4, s4["k7_by_grid"]
             line += (f"assembly {s4['asm_ms']:.4f} ms, fine SpMV {s4['spmv_ms']:.4f} ms, "
                      f"V-cycle {s4['vcycle_ms']:.4f} ms, {s4['ms_per_it']:.4f} ms/it warm "
                      f"({s4['k7_per_it']:.1f} K7 launches/it), ")
         print(line + f"CG {s4['its']} its in {s4['cg_s']:.4f} s first solve, rnorm {s4['rnorm']:.3e} "
               f"(|b| {s4['bnorm']:.3e}); recomputed in f64: |b-Ax|/|b| {s4['rel_res']:.3e}, backward "
               f"error {s4['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s4['fwd']:.3e} "
-              f"(gate {FORWARD_ERROR_GATE:g}, f64 GMG-CG {s4['its_ref']} its); launches {c4}", flush=True)
+              f"(gate {FORWARD_ERROR_GATE:g}, f64 GMG-CG {s4['its_ref']} its); launches {c4}, K7 by grid "
+              f"{s4['k7_by_grid']}", flush=True)
         if c4["K1"] <= 0 or c4["K7"] <= 0 or c4["K2"] != 0:
             fail(f"bs=3 path n={n}: K1 and K7 must launch and K2 must not: {c4}")
         if not s4["eta"] <= BACKWARD_ERROR_GATE:
@@ -1422,8 +1482,9 @@ def main():
              replaces=f"{pl}:611", launches=counts5["K5"], **cmp["K5"]),
         dict(name="K6 blocked_matvec (P2 main path; error and times at 8 x 65^3 f32)", route="cuda", source=src,
              replaces=f"{pl}:916", launches=counts2["K6"], **cmp["K6"]),
-        dict(name="K7 dia_matvec_bs (bs=3 path n=64; error and times at 65^3 x 3 f32)", route="cuda",
-             source=src, replaces=f"{pl}:835", launches=counts4["K7"], **cmp["K7"]),
+        dict(name=f"K7 dia_matvec_bs (bs=3 path n=64, launches by grid {k7_by_grid}; error and times at 65^3 x 3 "
+                  f"f32)", route="cuda", source=src, replaces=f"{pl}:835", launches=counts4["K7"],
+             launches_by_grid=k7_by_grid, **cmp["K7"]),
         dict(name=f"K8 bell_matvec (contact path NB={NB_CONTACT}/NT={NT_CONTACT}; error and times on the packed "
                   f"layout of its operator, {s8['packed_nnz']} nonzeros, f32)", route="cuda",
              source="dolfinx_mpc_tpu_torch/csrc/bell_kernels.cu", replaces="dolfinx_mpc_tpu/la/bell.py:164",

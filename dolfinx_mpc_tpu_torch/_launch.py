@@ -1,7 +1,8 @@
 """What a prepared kernel launch needs per call, kept to the least.
 
-A wrapper that launches the same kernel many times on one operator (K2 in
-every DIA matvec, K8 in every BELL matvec) prepares the fixed part once: the
+A wrapper that launches the same kernel many times on one operator (K2 or
+K7 in every DIA matvec, K6 in every blocked one, K8 in every BELL matvec)
+prepares the fixed part once: the
 ctypes function, the pointers of the operator's tensors, the packed
 parameters.  Per call it then allocates the output, reads the current
 stream's handle and makes one ctypes call, entering a device context only

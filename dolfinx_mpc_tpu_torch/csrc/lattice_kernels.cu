@@ -222,58 +222,9 @@ __global__ void fold_assemble_raw_kernel(T* __restrict__ out, int n_pl, int n0, 
 }
 
 // ---------------------------------------------------------------------------
-// Offsets passed by value in the kernel parameters (no device table, no
-// host-to-device copy per launch): K7's (di, dj, dk) triples.
+// cp.async helpers and the shared-memory opt-in of the plane-staged SpMVs
+// (K2, K7, K6).
 // ---------------------------------------------------------------------------
-constexpr int kMaxOffsets = 128;
-
-struct Offsets {
-  int n;
-  int d[3 * kMaxOffsets];
-};
-
-// ---------------------------------------------------------------------------
-// K2: scalar DIA SpMV, y[p] = sum_d data[d, p] * x[p + off_d], zero outside
-// the grid, data (n_off, n0, n1, n2), x and y (n0, n1, n2), k fastest.
-//
-// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_dia_matvec_group
-// (`kernel` :766, pallas_call :791), which runs one program per x-plane
-// with the 2W+1 neighbouring x planes in VMEM and roll + iota edge masks.
-//
-// What bounds it: device memory, (n_off + 2) values per point (18.7 MB per
-// fine-level SpMV of the P1 path at n=64 in f32, 0.0056 ms at 3.35 TB/s).
-// The design is 2.5-D blocking.  A block owns a range of kDiaPoints
-// consecutive points of the flattened (j, k) plane, q = j*n2 + k, and
-// marches along i over `li` planes.  Every x neighbour of its points lies in
-// the flat range [q0 - H, q0 + kDiaPoints + H) of planes i-W .. i+W, with
-// H = W*n2 + W, so shared memory holds a ring of 2W+2 such plane segments:
-// 2W+1 in use and one being filled by cp.async with the next plane while
-// the current one is summed.  Cells outside the grid are zero-filled by the
-// copy itself (src-size 0): planes i < 0 or >= n0 and flat indices outside
-// [0, n1*n2) — the JAX package's zero pad.  That covers the i and j edges;
-// a flat shift dj*n2 + dk that crosses a k edge lands on the next row, so
-// each point keeps a (2W+1)-bit mask of the dk in range, computed once.
-// The flat range, not a rectangle, is the tile because every grid of the
-// paths has odd n2 (2^m + 1): a rectangular k tile would leave a ragged
-// one-column tile per row, and the same oddness puts every row at a 4-byte
-// but never a 16-byte boundary, so the data planes are read with coalesced
-// scalar loads (a warp reads 32 consecutive values of a plane), each value
-// once.  Offsets stay kernel parameters, with their flat shifts computed on
-// the host; index arithmetic inside the plane is 32-bit.  The sum per point
-// runs over the offsets in order, as the plain version's does.
-// ---------------------------------------------------------------------------
-constexpr int kDiaPoints = 256;  // plane points per block, one per thread
-
-struct DiaParams {
-  int n;   // offsets
-  int w;   // halo width W: 1 or 2, >= max |d|
-  int n0, n1, n2;
-  int li;  // x planes per block
-  int di[kMaxOffsets];
-  int sh[kMaxOffsets];  // flat shift dj*n2 + dk inside the plane
-  int dk[kMaxOffsets];
-};
-
 template <typename T>
 __device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src, bool in) {
   const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
@@ -291,16 +242,112 @@ __device__ __forceinline__ void cp_async_wait_all_but_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <typename T, int W>
+// A data-plane load: through the read-only cache, or, for an operator larger
+// than the 50 MB L2 (STREAM), evict-first (ld.global.cs) so that the
+// stream does not push x and y out of L2; where the operator fits, the
+// cached load keeps it L2-resident from one call to the next.
+template <bool STREAM, typename T>
+__device__ __forceinline__ T ld_plane(const T* p) {
+  if constexpr (STREAM) {
+    return __ldcs(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Beyond the default 48 KB a launch is refused unless the kernel has been
+// opted in to its dynamic shared memory on the current device.  `granted`
+// (one array per kernel instantiation) remembers what each device already
+// allows, so the runtime call is made once and not per launch.
+inline int smem_opt_in(const void* kernel, size_t smem, size_t* granted) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < kMaxDevices && granted[dev] >= smem) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = smem;
+  return static_cast<int>(e);
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K7: DIA SpMV with BS dof components per lattice point (K2: BS = 1,
+// K7: BS = 2, 3),
+//   y[(v, ci)] = sum_{d, cj} data[d, ci, cj, v] * x[(v + off_d, cj)],
+// data (n_off, BS, BS, n0, n1, n2), x and y interleaved (point-major, BS
+// components each, k fastest), zero outside the grid.
+//
+// K2 replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_dia_matvec_group
+// (`kernel` :766, pallas_call :791), K7 make_dia_matvec_bs_pallas (`kernel`
+// :835, pallas_call :874).  The TPU kernels run one program per x plane with
+// the 2W+1 neighbouring planes in VMEM and roll + iota edge masks; K7's
+// splits x into component-major planes and its (offset, ci, cj) rows across
+// calls to fit VMEM.
+//
+// What bounds them: device memory, (BS^2 n_off + 2 BS) values per point
+// (K2: 18.7 MB per fine-level SpMV of the P1 path at n=64 in f32, 0.0056 ms
+// at 3.35 TB/s; K7: 155 MB for P1 elasticity at n=64, 0.0462 ms).  The
+// design is 2.5-D blocking.  A block owns a range of kDiaPoints consecutive
+// points of the flattened (j, k) plane, q = j*n2 + k, and marches along i
+// over `li` planes.  Every x neighbour of its points lies in the flat range
+// [q0 - H, q0 + kDiaPoints + H) of planes i-W .. i+W, with H = W*n2 + W; in
+// the interleaved layout that range, all BS components, is one contiguous
+// run of x, so shared memory holds a ring of 2W+2 such runs: 2W+1 in use
+// and one being filled by cp.async with the next plane while the current
+// one is summed.  Cells outside the grid are zero-filled by the copy itself
+// (src-size 0): planes i < 0 or >= n0 and flat indices outside [0, n1*n2)
+// — the JAX package's zero pad.  That covers the i and j edges; a flat
+// shift dj*n2 + dk that crosses a k edge lands on the next row, so each
+// point keeps a (2W+1)-bit mask of the dk in range, computed once.  The
+// flat range, not a rectangle, is the tile because every grid of the paths
+// has odd n2 (2^m + 1): a rectangular k tile would leave a ragged
+// one-column tile per row, and the same oddness puts every row at a 4-byte
+// but never a 16-byte boundary, so the data planes are read with coalesced
+// scalar loads (a warp reads 32 consecutive values of a plane), each value
+// once.  The ring is read at stride BS words, free of bank conflicts in
+// f32 at BS = 1 and 3.  K7 walks the offsets in chunks of kDiaChunk: the
+// BS^2 data loads of every offset of a chunk are issued before any add,
+// unconditionally (they stay in bounds), and only the add is masked, so it
+// has 27 loads in flight per thread at BS = 3 (a chunk of 3 offsets, 71
+// registers, three blocks per SM, ran faster than 2 or 4 on the H100); K2
+// keeps its own unrolled loop over the offsets.  Offsets stay kernel
+// parameters, with their flat shifts computed on the host; index
+// arithmetic inside the plane is 32-bit.  The BS sums per point stay in
+// registers and run over the offsets in order, then cj — the plain
+// version's order.
+// ---------------------------------------------------------------------------
+constexpr int kMaxOffsets = 128;
+constexpr int kDiaPoints = 256;  // plane points per block, one per thread
+constexpr int kDiaChunk = 3;     // K7: offsets whose loads are issued together
+
+struct DiaParams {
+  int n;   // offsets
+  int w;   // halo width W: 1 or 2, >= max |d|
+  int bs;  // dof components per point: 1 (K2), 2 or 3 (K7)
+  int n0, n1, n2;
+  int li;  // x planes per block
+  int di[kMaxOffsets];
+  int sh[kMaxOffsets];  // flat shift dj*n2 + dk inside the plane
+  int dk[kMaxOffsets];
+  // K7: evict-first data loads (the operator exceeds the L2).  Last, so that
+  // K2's offset arrays keep their place in the parameter space: placed
+  // before them it made K2 up to 18 % slower on the H100.
+  int stream;
+};
+
+template <typename T, int W, int BS, bool STREAM>
 __global__ void __launch_bounds__(kDiaPoints)
 dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
                   const DiaParams p) {
   constexpr int NP = 2 * W + 2;  // ring slots
+  constexpr int BB = BS * BS;
   extern __shared__ __align__(16) unsigned char dia_smem[];
   T* ring = reinterpret_cast<T*>(dia_smem);
   const int P = p.n1 * p.n2;
   const int H = W * p.n2 + W;
-  const int seg = kDiaPoints + 2 * H;
+  const int seg = (kDiaPoints + 2 * H) * BS;  // values per ring slot
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kDiaPoints;
   const int q = q0 + tid;
@@ -313,14 +360,16 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
   const int i0 = blockIdx.y * p.li;
   const int i1 = min(i0 + p.li, p.n0);
 
-  // plane ip's segment [q0 - H, q0 + kDiaPoints + H) into ring slot `slot`
+  // plane ip's points [q0 - H, q0 + kDiaPoints + H), every component, into
+  // ring slot `slot`
   auto load_plane = [&](int ip, int slot) {
     T* dst = ring + slot * seg;
     const bool plane_in = ip >= 0 && ip < p.n0;
-    const T* src = x + static_cast<long long>(plane_in ? ip : 0) * P;
+    const T* src = x + static_cast<long long>(plane_in ? ip : 0) * P * BS;
+    const int g0 = (q0 - H) * BS, g1 = P * BS;
     for (int e = tid; e < seg; e += kDiaPoints) {
-      const int g = q0 - H + e;
-      const bool in = plane_in && g >= 0 && g < P;
+      const int g = g0 + e;
+      const bool in = plane_in && g >= 0 && g < g1;
       cp_async_or_zero(dst + e, in ? src + g : x, in);
     }
   };
@@ -337,75 +386,65 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
     __syncthreads();
     if (live) {
       const int rot = s % NP;
-      const T* xc = ring + tid + H;
+      const T* xc = ring + (tid + H) * BS;
       const T* dd = data + static_cast<long long>(i) * P + q;
-      T acc = T(0);
+      if constexpr (BS == 1) {
+        // K2: its own loop (the chunked walk below was slower at BS = 1
+        // on the H100)
+        T acc = T(0);
 #pragma unroll 4
-      for (int d = 0; d < p.n; ++d) {
-        // loads unconditional (both stay in bounds), the add masked, so
-        // that the unrolled loads can be in flight together
-        const T a = __ldg(dd + d * N);
-        int slot = rot + W + p.di[d];
-        slot -= slot >= NP ? NP : 0;
-        const T xv = xc[slot * seg + p.sh[d]];
-        if ((kmask >> (p.dk[d] + W)) & 1u) acc += a * xv;
+        for (int d = 0; d < p.n; ++d) {
+          // loads unconditional (both stay in bounds), the add masked, so
+          // that the unrolled loads can be in flight together
+          const T a = __ldg(dd + d * N);
+          int slot = rot + W + p.di[d];
+          slot -= slot >= NP ? NP : 0;
+          const T xv = xc[slot * seg + p.sh[d]];
+          if ((kmask >> (p.dk[d] + W)) & 1u) acc += a * xv;
+        }
+        y[static_cast<long long>(i) * P + q] = acc;
+      } else {
+        T acc[BS];
+#pragma unroll
+        for (int c = 0; c < BS; ++c) acc[c] = T(0);
+        for (int d0 = 0; d0 < p.n; d0 += kDiaChunk) {
+          T a[kDiaChunk][BB];
+          T xv[kDiaChunk][BS];
+          bool on[kDiaChunk];
+#pragma unroll
+          for (int u = 0; u < kDiaChunk; ++u) {
+            // past the last offset: offset 0 again (in bounds), never added
+            const int d = d0 + u < p.n ? d0 + u : 0;
+            const T* dp = dd + static_cast<long long>(d) * BB * N;
+#pragma unroll
+            for (int c = 0; c < BB; ++c) a[u][c] = ld_plane<STREAM>(dp + c * N);
+            int slot = rot + W + p.di[d];
+            slot -= slot >= NP ? NP : 0;
+            const T* xs = xc + slot * seg + p.sh[d] * BS;
+#pragma unroll
+            for (int cj = 0; cj < BS; ++cj) xv[u][cj] = xs[cj];
+            on[u] = d0 + u < p.n && ((kmask >> (p.dk[d] + W)) & 1u);
+          }
+#pragma unroll
+          for (int u = 0; u < kDiaChunk; ++u) {
+            if (on[u]) {
+#pragma unroll
+              for (int ci = 0; ci < BS; ++ci) {
+                T t = a[u][ci * BS] * xv[u][0];
+#pragma unroll
+                for (int cj = 1; cj < BS; ++cj) t += a[u][ci * BS + cj] * xv[u][cj];
+                acc[ci] += t;
+              }
+            }
+          }
+        }
+        T* yq = y + (static_cast<long long>(i) * P + q) * BS;
+#pragma unroll
+        for (int c = 0; c < BS; ++c) yq[c] = acc[c];
       }
-      y[static_cast<long long>(i) * P + q] = acc;
     }
     __syncthreads();
   }
-}
-
-// ---------------------------------------------------------------------------
-// K7: vector DIA SpMV with BS dof components per lattice point,
-//   y[(v, ci)] = sum_{d, cj} data[d, ci, cj, v] * x[(v + off_d, cj)],
-// data (n_off, BS, BS, n0, n1, n2), x and y interleaved (point-major, BS
-// components each), zero outside the grid.
-//
-// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:make_dia_matvec_bs_pallas
-// (kernel).  The TPU version splits x into component-major planes with a
-// moveaxis + halo pad and splits the (offset, ci, cj) rows across calls to
-// fit VMEM; here one thread per grid point (k fastest) reads the BS source
-// components at v + off (contiguous in the interleaved layout) once per
-// offset, with bounds checks in place of the roll + iota masks, streams the
-// BS^2 data planes (coalesced along k) and keeps the BS sums in registers.
-// Bound by device memory: (BS^2 n_off + 2 BS) values per point, 155 MB per
-// fine-level SpMV of P1 elasticity at n=64 in f32.  The sum order per
-// output is the plain version's: offset-major, then cj.
-// ---------------------------------------------------------------------------
-template <typename T, int BS>
-__global__ void dia_matvec_bs_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                                     T* __restrict__ y, const Offsets offs, int n0, int n1, int n2) {
-  const long long N = static_cast<long long>(n0) * n1 * n2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= N) return;
-  const int k = static_cast<int>(idx % n2);
-  const long long r = idx / n2;
-  const int j = static_cast<int>(r % n1);
-  const int i = static_cast<int>(r / n1);
-  T acc[BS];
-#pragma unroll
-  for (int c = 0; c < BS; ++c) acc[c] = T(0);
-  for (int d = 0; d < offs.n; ++d) {
-    const int di = offs.d[3 * d], dj = offs.d[3 * d + 1], dk = offs.d[3 * d + 2];
-    const int ii = i + di, jj = j + dj, kk = k + dk;
-    if (ii >= 0 && ii < n0 && jj >= 0 && jj < n1 && kk >= 0 && kk < n2) {
-      const long long src = idx + (static_cast<long long>(di) * n1 + dj) * n2 + dk;
-      T xs[BS];
-#pragma unroll
-      for (int cj = 0; cj < BS; ++cj) xs[cj] = __ldg(x + src * BS + cj);
-      const T* dd = data + static_cast<long long>(d) * BS * BS * N + idx;
-#pragma unroll
-      for (int ci = 0; ci < BS; ++ci) {
-        T t = __ldg(dd + (ci * BS) * N) * xs[0];
-#pragma unroll
-        for (int cj = 1; cj < BS; ++cj) t += __ldg(dd + (ci * BS + cj) * N) * xs[cj];
-        acc[ci] += t;
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < BS; ++c) y[idx * BS + c] = acc[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -413,103 +452,239 @@ __global__ void dia_matvec_bs_kernel(const T* __restrict__ data, const T* __rest
 //   y_b[ci, q] = sum over the triples (m, cj, off) of row class ci of
 //                data[m, q] * x_b[cj, q + off],  zero outside [0, s)^3.
 //
-// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:make_blocked_matvec_pallas,
-// whose per-plane roll + iota masks become bounds-checked loads (equal to
-// the JAX package's halo pad, ops/lattice.py:337-345).  tab is the host-built
-// CSR of the triples by row class, uploaded once per operator:
-//   tab[0 .. n_cls]                 row pointers,
-//   tab[n_cls+1 + 5*t .. +4]        (m, cj, di, dj, dk) of triple t,
-// 230 triples for P2 tets, 4.6 KB: beyond the classic 4 KB kernel-parameter
-// budget, so it is a device table and not passed by value as K2's offsets.
-// One thread per (row class, coarse point), k fastest.  Bound by device
-// memory: (n_trip + 2 n_cls) values per coarse point, 270 MB per matvec at
-// n=64 in f32; the x neighbours come again through L1/L2.  The classes
-// carry 19 to 65 triples, so whole blocks of the body class do ~3x the
-// vertex class's work; that imbalance is left to later tuning.
+// Replaces dolfinx_mpc_tpu/ops/pallas_lattice.py:make_blocked_matvec_pallas
+// (`kernel` :916, pallas_call :989), whose per-plane roll + iota masks
+// equal the JAX package's halo pad (ops/lattice.py:337-345).
+//
+// What bounds it: device memory, (n_trip + 2 n_cls) values per coarse
+// point (270 MB per matvec at P2 n=64 in f32, 0.0807 ms).  Every coarse
+// offset is within +-1, so it is K2's 2.5-D design at W = 1 over all
+// classes at once: a block owns `pts` consecutive points of the flattened
+// (j, k) class plane and marches along i, with a cp.async ring of 4 slots
+// x n_cls classes x (pts + 2H) values in shared memory (H = s2 + 1),
+// zero-filled outside the grid, and the per-point k-edge mask.  Each thread
+// computes all n_cls outputs of R = 2 points (pts = 2 x threads), so every
+// thread walks all the triples (the classes carry 19 to 65 each; one
+// thread per (class, point) left whole blocks with 3x the work of others).
+// The triple table (grouped by row class, each class in triple order) is
+// a device array built once per operator, one int2 per triple: (column
+// class cj << 24 | H + flat shift, m | row class << 16 | last of its class
+// << 21 | (di + 1) << 22 | (dk + 1) << 24); each block copies it into
+// shared memory as (offset of x_b[cj] at the flat shift inside a ring
+// slot, the same second word), so every read of it in the loop is a
+// warp-uniform broadcast.  (Passed in the kernel parameters instead, it ran
+// no faster, and its 4 KB copy into every launch doubled the wrapper's host
+// time.)  The triples are walked flat, across class boundaries, in chunks
+// of U = 16 whose U x R data loads are issued before any add, so a thread
+// keeps 32 of the 230 coalesced data streams in flight (fewer, at R = 1 or
+// U = 8, and more, at R = 4, ran slower on the H100); the sum of a class
+// is stored when its last triple has been added, so each class's sum runs
+// over its triples in triple order — the plain version's order.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void blocked_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                                      T* __restrict__ y, const int* __restrict__ tab, int n_cls,
-                                      int s0, int s1, int s2) {
-  const long long S = static_cast<long long>(s0) * s1 * s2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n_cls * S) return;
-  const int ci = static_cast<int>(idx / S);
-  const long long qf = idx - ci * S;
-  const int k = static_cast<int>(qf % s2);
-  const long long r = qf / s2;
-  const int j = static_cast<int>(r % s1);
-  const int p = static_cast<int>(r / s1);
-  const int* trip = tab + n_cls + 1;
-  T acc = T(0);
-  const int t1 = __ldg(tab + ci + 1);
-  for (int t = __ldg(tab + ci); t < t1; ++t) {
-    const int* e = trip + 5 * t;
-    const int m = __ldg(e), cj = __ldg(e + 1);
-    const int di = __ldg(e + 2), dj = __ldg(e + 3), dk = __ldg(e + 4);
-    const int pp = p + di, jj = j + dj, kk = k + dk;
-    if (pp >= 0 && pp < s0 && jj >= 0 && jj < s1 && kk >= 0 && kk < s2) {
-      acc += __ldg(data + m * S + qf) * __ldg(x + cj * S + (static_cast<long long>(pp) * s1 + jj) * s2 + kk);
-    }
+constexpr int kBlockedThreads = 256;  // most threads per block
+constexpr int kBlockedR = 2;          // points per thread
+constexpr int kBlockedU = 16;         // triples whose loads are issued together
+
+struct BlockedParams {
+  int n_cls, n_trip;
+  int s0, s1, s2;
+  int li;              // coarse x planes per block
+  int pts;             // plane points per block: kBlockedR per thread
+  unsigned int empty;  // row classes without triples (their output is 0)
+  int stream;          // evict-first data loads (the operator exceeds the L2)
+};
+
+template <typename T, bool STREAM>
+__global__ void __launch_bounds__(kBlockedThreads)
+blocked_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
+                      const int2* __restrict__ tab, const BlockedParams p) {
+  constexpr int W = 1, NP = 2 * W + 2, R = kBlockedR, U = kBlockedU;
+  extern __shared__ __align__(16) unsigned char blk_smem[];
+  int2* trip = reinterpret_cast<int2*>(blk_smem);
+  T* ring = reinterpret_cast<T*>(trip + ((p.n_trip + 1) & ~1));  // 16-byte aligned
+  const int n_cls = p.n_cls, n_trip = p.n_trip;
+  const int nt = p.pts / R;
+  const int P = p.s1 * p.s2;
+  const int H = W * p.s2 + W;
+  const int seg = p.pts + 2 * H;  // values per class per ring slot
+  const int cseg = n_cls * seg;   // values per ring slot
+  const long long S = static_cast<long long>(p.s0) * P;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * p.pts;
+  bool live[R];
+  unsigned int kmask[R];  // bit dk + W: k + dk lies in [0, s2)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = q0 + tid + r * nt;
+    live[r] = q < P;
+    const int k = live[r] ? q % p.s2 : 0;
+    kmask[r] = 0;
+#pragma unroll
+    for (int dk = -W; dk <= W; ++dk) kmask[r] |= (k + dk >= 0 && k + dk < p.s2) ? (1u << (dk + W)) : 0u;
   }
-  y[idx] = acc;
+  const int i0 = blockIdx.y * p.li;
+  const int i1 = min(i0 + p.li, p.s0);
+  for (int t = tid; t < n_trip; t += nt) {  // published by the first barrier below
+    const int2 e = __ldg(tab + t);
+    trip[t] = make_int2((e.x >> 24) * seg + (e.x & 0xffffff), e.y);
+  }
+
+  // plane ip's points [q0 - H, q0 + pts + H) of every class into slot `slot`
+  auto load_plane = [&](int ip, int slot) {
+    const bool plane_in = ip >= 0 && ip < p.s0;
+    const T* src = x + static_cast<long long>(plane_in ? ip : 0) * P;
+    for (int c = 0; c < n_cls; ++c) {
+      T* dst = ring + slot * cseg + c * seg;
+      for (int e = tid; e < seg; e += nt) {
+        const int g = q0 - H + e;
+        const bool in = plane_in && g >= 0 && g < P;
+        cp_async_or_zero(dst + e, in ? src + c * S + g : x, in);
+      }
+    }
+  };
+  for (int m = 0; m <= 2 * W; ++m) load_plane(i0 - W + m, m);
+  cp_async_commit();
+  for (int i = i0; i < i1; ++i) {
+    const int s = i - i0;
+    if (i + 1 < i1) load_plane(i + W + 1, (s + 2 * W + 1) % NP);
+    cp_async_commit();
+    cp_async_wait_all_but_one();
+    __syncthreads();
+    if (live[0]) {  // live[r] implies live[0]
+      const int rot = s % NP;
+      const T* xr = ring + tid;
+      const T* dq = data + static_cast<long long>(i) * P + q0 + tid;
+      T* yq = y + static_cast<long long>(i) * P + q0 + tid;
+      T acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = T(0);
+      for (int t0 = 0; t0 < n_trip; t0 += U) {
+        int2 e[U];
+        T a[U][R], xv[U][R];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          // past the last triple: the last one again (in bounds), never added
+          e[u] = trip[min(t0 + u, n_trip - 1)];
+          const T* dm = dq + (e[u].y & 0xffff) * S;
+          int slot = rot + ((e[u].y >> 22) & 3);
+          slot -= slot >= NP ? NP : 0;
+          const T* xs = xr + slot * cseg + e[u].x;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            a[u][r] = live[r] ? ld_plane<STREAM>(dm + r * nt) : T(0);
+            xv[u][r] = xs[r * nt];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (t0 + u < n_trip) {
+            const int dk = (e[u].y >> 24) & 3;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              if ((kmask[r] >> dk) & 1u) acc[r] += a[u][r] * xv[u][r];
+            if ((e[u].y >> 21) & 1) {
+              const long long ci = (e[u].y >> 16) & 31;
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                if (live[r]) yq[ci * S + r * nt] = acc[r];
+                acc[r] = T(0);
+              }
+            }
+          }
+        }
+      }
+      for (int ci = 0; ci < n_cls; ++ci) {
+        if ((p.empty >> ci) & 1u) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (live[r]) yq[ci * S + r * nt] = T(0);
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
-template <typename T, int W>
-int launch_dia_matvec_w(const T* data, const T* x, T* y, const DiaParams& p, cudaStream_t st) {
+template <typename T, int W, int BS, bool STREAM>
+int launch_dia_matvec_wbs(const T* data, const T* x, T* y, const DiaParams& p, cudaStream_t st) {
+  static size_t granted[kMaxDevices] = {};
   const int H = W * p.n2 + W;
-  const size_t smem = static_cast<size_t>(2 * W + 2) * (kDiaPoints + 2 * H) * sizeof(T);
-  if (smem > 48 * 1024) {  // beyond the default 48 KB (long k rows at W = 2, f64): opt in
-    const cudaError_t e = cudaFuncSetAttribute(dia_matvec_kernel<T, W>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const size_t smem = static_cast<size_t>(2 * W + 2) * (kDiaPoints + 2 * H) * BS * sizeof(T);
+  const int e =
+      smem_opt_in(reinterpret_cast<const void*>(dia_matvec_kernel<T, W, BS, STREAM>), smem, granted);
+  if (e != 0) return e;
   const long long P = static_cast<long long>(p.n1) * p.n2;
   const dim3 grid(static_cast<unsigned int>((P + kDiaPoints - 1) / kDiaPoints),
                   static_cast<unsigned int>((p.n0 + p.li - 1) / p.li));
-  dia_matvec_kernel<T, W><<<grid, kDiaPoints, smem, st>>>(data, x, y, p);
+  dia_matvec_kernel<T, W, BS, STREAM><<<grid, kDiaPoints, smem, st>>>(data, x, y, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2's launcher: the parameter block is built once per operator by the
-// wrapper (ops/lattice_kernels.py:DiaMatvecLaunch) and read here by pointer.
+template <typename T, int W, int BS>
+int launch_dia_matvec_wb(const T* data, const T* x, T* y, const DiaParams& p, cudaStream_t st) {
+  if constexpr (BS > 1) {
+    if (p.stream) return launch_dia_matvec_wbs<T, W, BS, true>(data, x, y, p, st);
+  }
+  return launch_dia_matvec_wbs<T, W, BS, false>(data, x, y, p, st);
+}
+
+// K2's and K7's launcher: the parameter block is built once per operator by
+// the wrapper (ops/lattice_kernels.py:DiaMatvecLaunch, DiaBsMatvecLaunch)
+// and read here by pointer.
 template <typename T>
 int launch_dia_matvec(const T* data, const T* x, T* y, const DiaParams* p, void* stream) {
   if (p->n < 0 || p->n > kMaxOffsets || p->li < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(p->n0) * p->n1 * p->n2 == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (p->w) {
-    case 1:
-      return launch_dia_matvec_w<T, 1>(data, x, y, *p, st);
-    case 2:
-      return launch_dia_matvec_w<T, 2>(data, x, y, *p, st);
+  switch (10 * p->w + p->bs) {
+    case 11:
+      return launch_dia_matvec_wb<T, 1, 1>(data, x, y, *p, st);
+    case 12:
+      return launch_dia_matvec_wb<T, 1, 2>(data, x, y, *p, st);
+    case 13:
+      return launch_dia_matvec_wb<T, 1, 3>(data, x, y, *p, st);
+    case 21:
+      return launch_dia_matvec_wb<T, 2, 1>(data, x, y, *p, st);
+    case 22:
+      return launch_dia_matvec_wb<T, 2, 2>(data, x, y, *p, st);
+    case 23:
+      return launch_dia_matvec_wb<T, 2, 3>(data, x, y, *p, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
-int launch_dia_matvec_bs(const T* data, const T* x, T* y, const int* offs_host, int n_off, int bs,
-                         int n0, int n1, int n2, void* stream) {
-  if (n_off < 0 || n_off > kMaxOffsets) return static_cast<int>(cudaErrorInvalidValue);
-  const long long N = static_cast<long long>(n0) * n1 * n2;
-  if (N == 0) return 0;
-  Offsets offs;
-  offs.n = n_off;
-  for (int q = 0; q < 3 * n_off; ++q) offs.d[q] = offs_host[q];
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bs) {
-    case 2:
-      dia_matvec_bs_kernel<T, 2><<<n_blocks(N), kThreads, 0, st>>>(data, x, y, offs, n0, n1, n2);
-      break;
-    case 3:
-      dia_matvec_bs_kernel<T, 3><<<n_blocks(N), kThreads, 0, st>>>(data, x, y, offs, n0, n1, n2);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T, bool STREAM>
+int launch_blocked_matvec_s(const T* data, const T* x, T* y, const int2* tab, const BlockedParams& p,
+                            cudaStream_t st) {
+  static size_t granted[kMaxDevices] = {};
+  const int H = p.s2 + 1;
+  const size_t smem = static_cast<size_t>((p.n_trip + 1) & ~1) * sizeof(int2) +
+                      static_cast<size_t>(4) * p.n_cls * (p.pts + 2 * H) * sizeof(T);
+  const int e = smem_opt_in(reinterpret_cast<const void*>(blocked_matvec_kernel<T, STREAM>), smem, granted);
+  if (e != 0) return e;
+  const long long P = static_cast<long long>(p.s1) * p.s2;
+  const dim3 grid(static_cast<unsigned int>((P + p.pts - 1) / p.pts),
+                  static_cast<unsigned int>((p.s0 + p.li - 1) / p.li));
+  blocked_matvec_kernel<T, STREAM><<<grid, p.pts / kBlockedR, smem, st>>>(data, x, y, tab, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K6's launcher: the parameter block and the device table are built once
+// per operator by the wrapper (ops/lattice_kernels.py:BlockedMatvecLaunch);
+// the block is read here by pointer.
+template <typename T>
+int launch_blocked_matvec(const T* data, const T* x, T* y, const int* tab, const BlockedParams* p,
+                          void* stream) {
+  const int nt = p->pts / kBlockedR;
+  if (p->n_cls < 1 || p->n_cls > 32 || p->n_trip < 1 || p->n_trip > 65535 || p->li < 1 || nt < 32 ||
+      nt > kBlockedThreads || nt % 32 != 0 || nt * kBlockedR != p->pts)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(p->s0) * p->s1 * p->s2 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int2* t2 = reinterpret_cast<const int2*>(tab);
+  return p->stream ? launch_blocked_matvec_s<T, true>(data, x, y, t2, *p, st)
+                   : launch_blocked_matvec_s<T, false>(data, x, y, t2, *p, st);
 }
 
 template <typename T>
@@ -556,21 +731,12 @@ int launch_fold_assemble_masked(T* out, int n_pl, int n0, int n1, int n2, int nx
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_blocked_matvec(const T* data, const T* x, T* y, const int* tab, int n_cls, int s0,
-                          int s1, int s2, void* stream) {
-  const long long total = static_cast<long long>(n_cls) * s0 * s1 * s2;
-  if (total == 0) return 0;
-  blocked_matvec_kernel<T><<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, x, y, tab, n_cls, s0, s1, s2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-// params: a DiaParams block, built by the wrapper once per operator
+// params: a DiaParams block (K2 at bs 1, K7 at bs 2 and 3), built by the
+// wrapper once per operator
 int dmt_dia_matvec_f32(const float* data, const float* x, float* y, const void* params, void* stream) {
   return launch_dia_matvec<float>(data, x, y, static_cast<const DiaParams*>(params), stream);
 }
@@ -580,14 +746,16 @@ int dmt_dia_matvec_f64(const double* data, const double* x, double* y, const voi
   return launch_dia_matvec<double>(data, x, y, static_cast<const DiaParams*>(params), stream);
 }
 
-int dmt_dia_matvec_bs_f32(const float* data, const float* x, float* y, const int* offs, int n_off,
-                          int bs, int n0, int n1, int n2, void* stream) {
-  return launch_dia_matvec_bs<float>(data, x, y, offs, n_off, bs, n0, n1, n2, stream);
+// tab: K6's device table; params: a BlockedParams block; both built by the
+// wrapper once per operator
+int dmt_blocked_matvec_f32(const float* data, const float* x, float* y, const int* tab,
+                           const void* params, void* stream) {
+  return launch_blocked_matvec<float>(data, x, y, tab, static_cast<const BlockedParams*>(params), stream);
 }
 
-int dmt_dia_matvec_bs_f64(const double* data, const double* x, double* y, const int* offs,
-                          int n_off, int bs, int n0, int n1, int n2, void* stream) {
-  return launch_dia_matvec_bs<double>(data, x, y, offs, n_off, bs, n0, n1, n2, stream);
+int dmt_blocked_matvec_f64(const double* data, const double* x, double* y, const int* tab,
+                           const void* params, void* stream) {
+  return launch_blocked_matvec<double>(data, x, y, tab, static_cast<const BlockedParams*>(params), stream);
 }
 
 int dmt_fold_assemble_raw_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
@@ -632,16 +800,6 @@ int dmt_fold_assemble_masked_f64(double* out, int n_pl, int n0, int n1, int n2, 
                                  void* stream) {
   return launch_fold_assemble_masked<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef,
                                              keep, ind, s, dv, stream);
-}
-
-int dmt_blocked_matvec_f32(const float* data, const float* x, float* y, const int* tab, int n_cls,
-                           int s0, int s1, int s2, void* stream) {
-  return launch_blocked_matvec<float>(data, x, y, tab, n_cls, s0, s1, s2, stream);
-}
-
-int dmt_blocked_matvec_f64(const double* data, const double* x, double* y, const int* tab,
-                           int n_cls, int s0, int s1, int s2, void* stream) {
-  return launch_blocked_matvec<double>(data, x, y, tab, n_cls, s0, s1, s2, stream);
 }
 
 }  // extern "C"

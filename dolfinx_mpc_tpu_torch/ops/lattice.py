@@ -39,6 +39,8 @@ from ..fem.lattice_info import LatticeInfo, get_lattice_info
 from ..multipointconstraint import MultiPointConstraint
 from .assemble import _bc_masks, _mpc_pair, _real_dtype
 from .lattice_kernels import (
+    BlockedMatvecLaunch,
+    DiaBsMatvecLaunch,
     DiaMatvecLaunch,
     _detect_factored_masks,
     assemble_fold_lean_blocked,
@@ -46,7 +48,6 @@ from .lattice_kernels import (
     assemble_fold_lean_masked,
     assemble_fold_lean_raw,
     blocked_matvec,
-    blocked_trip_table,
     build_fold_table,
     dia_matvec,
     dia_matvec_bs,
@@ -67,8 +68,9 @@ class DIAMatrix:
     components per vertex.
 
     data: (n_off, bs, bs, n0, n1, n2) — entry A[(v, ci), (v+off_d, cj)] =
-    data[d, ci, cj, v].  At bs = 1 on the card the first matvec prepares
-    K2's launch (DiaMatvecLaunch) and keeps it for the next ones.
+    data[d, ci, cj, v].  On the card the first matvec prepares the launch of
+    K2 (bs = 1, DiaMatvecLaunch) or K7 (bs > 1, DiaBsMatvecLaunch) and keeps
+    it for the next ones.
     """
 
     def __init__(self, data, offsets, vshape, bs):
@@ -76,7 +78,7 @@ class DIAMatrix:
         self.offsets = tuple(tuple(int(v) for v in o) for o in offsets)
         self.vshape = tuple(int(v) for v in vshape)
         self.bs = int(bs)
-        self._k2 = None
+        self._launch = None
 
     @property
     def shape(self):
@@ -84,13 +86,14 @@ class DIAMatrix:
         return (n, n)
 
     def matvec(self, x):
-        """K2 (bs = 1) or K7 (bs > 1) on the card, their plain version on
-        the CPU."""
+        """K2 (bs = 1) or K7 (bs > 1) on the card, one launch; their plain
+        version on the CPU."""
+        if self._launch is None and self.data.device.type == "cuda":
+            self._launch = (DiaMatvecLaunch(self.data, self.offsets, self.vshape) if self.bs == 1
+                            else DiaBsMatvecLaunch(self.data, self.offsets, self.vshape, self.bs))
+        if self._launch is not None:
+            return self._launch(x)
         if self.bs == 1:
-            if self._k2 is None and self.data.device.type == "cuda":
-                self._k2 = DiaMatvecLaunch(self.data, self.offsets, self.vshape)
-            if self._k2 is not None:
-                return self._k2(x)
             return dia_matvec(self.data, self.offsets, self.vshape, x)
         return dia_matvec_bs(self.data, self.offsets, self.vshape, self.bs, x)
 
@@ -146,7 +149,7 @@ class BlockDIAMatrix:
         self.vshape = tuple(int(v) for v in vshape)
         self.r3 = tuple(int(v) for v in r3)
         self.bs = 1
-        self._tables = {}  # K6's triple table, per device
+        self._launch = None  # K6's, prepared by the first matvec on the card
 
     @property
     def cdims(self):
@@ -185,16 +188,14 @@ class BlockDIAMatrix:
 
     def matvec_blocked(self, xb):
         """SpMV on the padded blocked class stack (n_cls, s0, s1, s2), the
-        solve path's layout: kernel K6 on a CUDA tensor, the plain halo-pad
-        slice-FMA on a CPU one.  Padded slots stay exact zeros."""
-        table = None
-        if xb.device.type == "cuda":
-            table = self._tables.get(xb.device)
-            if table is None:
-                table = torch.as_tensor(blocked_trip_table(self.trips, self.classes), device=xb.device)
-                self._tables[xb.device] = table
-            xb = xb.contiguous()
-        return blocked_matvec(self.data, self.trips, self.classes, xb, table)
+        solve path's layout: one launch of kernel K6 (BlockedMatvecLaunch,
+        prepared once) on the card, the plain halo-pad slice-FMA on the
+        CPU.  Padded slots stay exact zeros."""
+        if self._launch is None and self.data.device.type == "cuda":
+            self._launch = BlockedMatvecLaunch(self.data, self.trips, self.classes)
+        if self._launch is not None:
+            return self._launch(xb.contiguous())
+        return blocked_matvec(self.data, self.trips, self.classes, xb)
 
     def diagonal_blocked(self):
         """Diagonal as the padded blocked class stack (n_cls, s0, s1, s2)."""

@@ -18,9 +18,11 @@ Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
   (``kernel``, fuse mode None) of forms without Dirichlet dofs, on the
   vertex grid, the blocked class grids and the refined degree-2 grid.
 - **K6** ``blocked_matvec`` replaces the parity-blocked SpMV
-  (``make_blocked_matvec_pallas``).
+  (``make_blocked_matvec_pallas``); ``BlockedMatvecLaunch`` is its launch
+  prepared once per operator.
 - **K7** ``dia_matvec_bs`` replaces the vector (bs > 1) DIA SpMV
-  (``make_dia_matvec_bs_pallas``).
+  (``make_dia_matvec_bs_pallas``); ``DiaBsMatvecLaunch`` is its launch
+  prepared once per operator.  K2 and K7 share one device template.
 
 The CUDA sources are ``csrc/lattice_kernels.cu``; ``_build.py`` compiles them
 with nvcc on first use.  Each wrapper runs its plain version only for
@@ -57,10 +59,13 @@ __all__ = [
     "assemble_fold_lean_masked_plain",
     "assemble_fold_lean_raw",
     "assemble_fold_lean_raw_plain",
+    "BlockedMatvecLaunch",
+    "blocked_launch_params",
+    "blocked_launch_table",
     "blocked_matvec",
     "blocked_matvec_plain",
-    "blocked_trip_table",
     "build_fold_table",
+    "DiaBsMatvecLaunch",
     "DiaMatvecLaunch",
     "K2_MAX_HALO",
     "dia_launch_params",
@@ -88,11 +93,8 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
         fm.argtypes = [P, I, I, I, I, I, I, I, P, P, P, P, P, F, F, P]
         fm.restype = I
         bm = getattr(lib, f"dmt_blocked_matvec_{suf}")
-        bm.argtypes = [P, P, P, P, I, I, I, I, P]
+        bm.argtypes = [P, P, P, P, P, P]
         bm.restype = I
-        mb = getattr(lib, f"dmt_dia_matvec_bs_{suf}")
-        mb.argtypes = [P, P, P, P, I, I, I, I, I, P]
-        mb.restype = I
         fr = getattr(lib, f"dmt_fold_assemble_raw_{suf}")
         fr.argtypes = [P, I, I, I, I, I, I, I, P, P, P, I, F, P]
         fr.restype = I
@@ -651,100 +653,146 @@ def dia_matvec_plain(data, offsets, vshape, bs, x):
     return torch.movedim(y, 0, -1).reshape(-1)
 
 
-# K2's halo: the widest offset the kernel's shared-memory ring takes, and
-# the most offsets its parameter block holds (csrc/lattice_kernels.cu)
+# K2's and K7's halo: the widest offset the kernel's shared-memory ring
+# takes, and the most offsets its parameter block holds
+# (csrc/lattice_kernels.cu)
 K2_MAX_HALO = 2
 K2_MAX_OFFSETS = 128
 _K2_POINTS = 256  # plane points per block (kDiaPoints)
 _SMEM_MAX = 232448  # shared memory one block may use on the H100
 _SMS = 132
+_L2_BYTES = 50 * 2 ** 20  # operators beyond the L2 stream their data planes evict-first
 
 
 class DiaParams(ctypes.Structure):
-    """K2's parameter block (struct DiaParams of csrc/lattice_kernels.cu),
-    built once per operator: the offsets as plane offset di, flat shift
-    dj*n2 + dk inside the plane and dk, the halo width, the grid and the x
-    planes per block."""
+    """The parameter block of K2 (bs = 1) and K7 (bs = 2, 3) (struct
+    DiaParams of csrc/lattice_kernels.cu), built once per operator: the
+    offsets as plane offset di, flat shift dj*n2 + dk inside the plane and
+    dk, the halo width, the components per point, the grid, the x planes
+    per block and K7's evict-first data loads."""
 
-    _fields_ = [("n", ctypes.c_int), ("w", ctypes.c_int), ("n0", ctypes.c_int), ("n1", ctypes.c_int),
-                ("n2", ctypes.c_int), ("li", ctypes.c_int), ("di", ctypes.c_int * K2_MAX_OFFSETS),
-                ("sh", ctypes.c_int * K2_MAX_OFFSETS), ("dk", ctypes.c_int * K2_MAX_OFFSETS)]
+    _fields_ = [("n", ctypes.c_int), ("w", ctypes.c_int), ("bs", ctypes.c_int), ("n0", ctypes.c_int),
+                ("n1", ctypes.c_int), ("n2", ctypes.c_int), ("li", ctypes.c_int),
+                ("di", ctypes.c_int * K2_MAX_OFFSETS), ("sh", ctypes.c_int * K2_MAX_OFFSETS),
+                ("dk", ctypes.c_int * K2_MAX_OFFSETS), ("stream", ctypes.c_int)]
 
 
 def k2_halo_width(offsets) -> int:
-    """The halo width K2 launches with for these offsets: max |d| over all
-    axes, at least 1; raises beyond K2_MAX_HALO."""
+    """The halo width K2 and K7 launch with for these offsets: max |d| over
+    all axes, at least 1; raises beyond K2_MAX_HALO."""
     w = max([abs(int(v)) for o in offsets for v in o], default=0)
     if w > K2_MAX_HALO:
         raise ValueError(f"dia_matvec: an offset reaches {w} planes, beyond K2's halo width {K2_MAX_HALO}")
     return max(w, 1)
 
 
-def dia_launch_params(offsets, vshape, itemsize=4) -> DiaParams:
-    """K2's parameter block for `offsets` on the (n0, n1, n2) grid.  Each
-    block takes 256 consecutive points of the flattened (j, k) plane; the x
-    planes per block (li) are the most of 8, 4, 2 that still give 16
-    blocks per SM (two full waves at 8 resident blocks), else 1: on the
-    H100 the device time fell with more blocks down to that point (65^3:
-    0.0096 ms at li 4, 0.0082 at 2; 129^3: 0.0748 at 16, 0.0581 at 4;
-    chip_smoke.py's sweep).  Raises where the kernel cannot take the
-    operator: too many offsets, an offset beyond the halo, a grid of 2^31
-    points or more, or a shared-memory ring beyond one block's 227 KB."""
+def dia_launch_params(offsets, vshape, itemsize=4, bs=1) -> DiaParams:
+    """The parameter block of K2 (bs = 1) or K7 (bs = 2, 3) for `offsets`
+    on the (n0, n1, n2) grid.  Each block takes 256 consecutive points of
+    the flattened (j, k) plane; the x planes per block (li) are the most of
+    8, 4, 2 that still give 16 blocks per SM (two full waves at 8 resident
+    blocks), else 1: on the H100 the device time fell with more blocks down
+    to that point (K2 65^3: 0.0096 ms at li 4, 0.0082 at 2; 129^3: 0.0748 at
+    16, 0.0581 at 4; chip_smoke.py's sweep), and K7, with 9x the work per
+    point, gives 1 on every grid of the bs=3 path (65^3 and below).  K7
+    loads the data planes evict-first where they exceed the 50 MB L2 (65^3
+    x 3: 148 MB), where that was faster on the H100, and through the cache
+    where they fit (33^3 x 3: 19 MB stays L2-resident between calls).  Raises
+    where the kernel cannot take the operator: too many offsets, an offset
+    beyond the halo, a grid of 2^31 values or more, or a shared-memory ring
+    beyond one block's 227 KB."""
     n0, n1, n2 = (int(v) for v in vshape)
+    name = "dia_matvec" if bs == 1 else "dia_matvec_bs"
+    if bs not in (1, 2, 3):
+        raise ValueError(f"{name}: bs={bs} (the kernel is built for 1, 2 and 3)")
     offsets = [tuple(int(v) for v in o) for o in offsets]
     if len(offsets) > K2_MAX_OFFSETS:
-        raise ValueError(f"dia_matvec: {len(offsets)} offsets, K2 takes at most {K2_MAX_OFFSETS}")
+        raise ValueError(f"{name}: {len(offsets)} offsets, the kernel takes at most {K2_MAX_OFFSETS}")
     w = k2_halo_width(offsets)
-    if n0 * n1 * n2 >= 2 ** 31:
-        raise ValueError(f"dia_matvec: grid {vshape} has 2^31 points or more")
-    if (2 * w + 2) * (_K2_POINTS + 2 * (w * n2 + w)) * itemsize > _SMEM_MAX:
-        raise ValueError(f"dia_matvec: rows of {n2} points need more shared memory than a block has")
+    if n0 * n1 * n2 * bs >= 2 ** 31:
+        raise ValueError(f"{name}: grid {vshape} at bs={bs} has 2^31 values or more")
+    if (2 * w + 2) * (_K2_POINTS + 2 * (w * n2 + w)) * bs * itemsize > _SMEM_MAX:
+        raise ValueError(f"{name}: rows of {n2} points need more shared memory than a block has")
     tiles = -(-(n1 * n2) // _K2_POINTS)
     li = next((li for li in (8, 4, 2) if tiles * -(-n0 // li) >= 16 * _SMS), 1)
-    p = DiaParams(n=len(offsets), w=w, n0=n0, n1=n1, n2=n2, li=li)
+    stream = int(bs > 1 and len(offsets) * bs * bs * n0 * n1 * n2 * itemsize > _L2_BYTES)
+    p = DiaParams(n=len(offsets), w=w, bs=bs, n0=n0, n1=n1, n2=n2, li=li, stream=stream)
     for d, (di, dj, dk) in enumerate(offsets):
         p.di[d], p.sh[d], p.dk[d] = di, dj * n2 + dk, dk
     return p
 
 
-class DiaMatvecLaunch:
-    """K2 prepared once per operator: the parameter block, the ctypes
-    function of the dtype, data's pointer and the device checks.  A call
-    allocates y, reads the current stream and makes one ctypes call."""
+class _DiaLaunch:
+    """A DIA SpMV launch prepared once per operator: the parameter block,
+    the ctypes function of the dtype, data's pointer and the device checks.
+    A call allocates y, reads the current stream and makes one ctypes
+    call."""
 
-    def __init__(self, data, offsets, vshape):
+    def __init__(self, data, offsets, vshape, bs, name):
         n0, n1, n2 = (int(v) for v in vshape)
         n_off = len(offsets)
+        self.name = name
         if data.device.type != "cuda":
-            raise RuntimeError(f"dia_matvec: data on {data.device}")
+            raise RuntimeError(f"{name}: data on {data.device}")
         if data.dtype not in _FLOATS:
-            raise TypeError(f"dia_matvec: data {data.dtype} (need float32/float64)")
-        self.N = n0 * n1 * n2
-        if data.numel() != n_off * self.N:
-            raise ValueError(f"dia_matvec: data {tuple(data.shape)} does not match {n_off} offsets on {vshape}")
+            raise TypeError(f"{name}: data {data.dtype} (need float32/float64)")
+        self.n = n0 * n1 * n2 * bs
+        if data.numel() != n_off * bs * self.n:
+            raise ValueError(f"{name}: data {tuple(data.shape)} does not match {n_off} offsets on {vshape} "
+                             f"at bs={bs}")
         if not data.is_contiguous():
-            raise ValueError("dia_matvec: data must be contiguous")
+            raise ValueError(f"{name}: data must be contiguous")
         from .._build import load_kernels
 
-        self.params = dia_launch_params(offsets, vshape, data.element_size())
+        self.params = dia_launch_params(offsets, vshape, data.element_size(), bs)
+        self.vshape = (n0, n1, n2)
         self.data = data  # keeps the pointer valid
         self.device, self.dtype = data.device, data.dtype
         self.index = data.device.index if data.device.index is not None else torch.cuda.current_device()
         self.fn = getattr(load_kernels(), f"dmt_dia_matvec_{_suffix(data.dtype)}")
         self.args = (data.data_ptr(), ctypes.addressof(self.params))
 
-    def __call__(self, x):
+    def _launch(self, x):
         if x.device != self.device:
-            raise RuntimeError(f"dia_matvec: data on {self.device}, x on {x.device}")
+            raise RuntimeError(f"{self.name}: data on {self.device}, x on {x.device}")
         if x.dtype != self.dtype:
-            raise TypeError(f"dia_matvec: data {self.dtype}, x {x.dtype}")
-        if x.numel() != self.N or not x.is_contiguous():
-            raise ValueError(f"dia_matvec: x {tuple(x.shape)}, need {self.N} contiguous values")
-        y = torch.empty(self.N, dtype=self.dtype, device=self.device)
+            raise TypeError(f"{self.name}: data {self.dtype}, x {x.dtype}")
+        if x.numel() != self.n or not x.is_contiguous():
+            raise ValueError(f"{self.name}: x {tuple(x.shape)}, need {self.n} contiguous values")
+        y = torch.empty(self.n, dtype=self.dtype, device=self.device)
         dp, pp = self.args
         xp, yp = x.data_ptr(), y.data_ptr()
-        launch_check(on_device(self.index, lambda st: self.fn(dp, xp, yp, pp, st)), "dia_matvec")
+        launch_check(on_device(self.index, lambda st: self.fn(dp, xp, yp, pp, st)), self.name)
+        return y
+
+
+class DiaMatvecLaunch(_DiaLaunch):
+    """K2 prepared once per operator (a bs = 1 DIAMatrix on the card)."""
+
+    def __init__(self, data, offsets, vshape):
+        super().__init__(data, offsets, vshape, 1, "dia_matvec")
+
+    def __call__(self, x):
+        y = self._launch(x)
         dia_matvec.launches += 1
+        return y
+
+
+class DiaBsMatvecLaunch(_DiaLaunch):
+    """K7 prepared once per operator (a bs = 2 or 3 DIAMatrix on the card).
+    Besides its count, each launch adds one to
+    dia_matvec_bs.launches_by_grid[vshape]."""
+
+    def __init__(self, data, offsets, vshape, bs):
+        if bs not in (2, 3):
+            raise ValueError(f"dia_matvec_bs: bs={bs} (the kernel is built for 2 and 3)")
+        super().__init__(data, offsets, vshape, bs, "dia_matvec_bs")
+
+    def __call__(self, x):
+        y = self._launch(x)
+        dia_matvec_bs.launches += 1
+        by_grid = dia_matvec_bs.launches_by_grid
+        by_grid[self.vshape] = by_grid.get(self.vshape, 0) + 1
         return y
 
 
@@ -757,10 +805,11 @@ def dia_matvec(data, offsets, vshape, x):
     (n_off + 2) values per point: 2.5-D blocking, each block marching along
     i over a range of the flattened (j, k) plane with a cp.async ring of the
     2W+1 x planes (W = max |d| <= 2) in shared memory, zero-filled outside
-    the grid (csrc/lattice_kernels.cu).  This function prepares the launch
-    for the one call; DIAMatrix prepares it once (DiaMatvecLaunch) and calls
-    it directly.  CPU tensors run the plain version; every bs=1 DIA matvec
-    on a CUDA tensor launches the kernel, at any grid size."""
+    the grid (csrc/lattice_kernels.cu, dia_matvec_kernel at BS = 1).  This
+    function prepares the launch for the one call; DIAMatrix prepares it
+    once (DiaMatvecLaunch) and calls it directly.  CPU tensors run the plain
+    version; every bs=1 DIA matvec on a CUDA tensor launches the kernel, at
+    any grid size."""
     n0, n1, n2 = vshape
     n_off = len(offsets)
     if data.device.type == "cpu" and x.device.type == "cpu":
@@ -787,64 +836,98 @@ def dia_matvec_bs(data, offsets, vshape, bs, x):
     make_dia_matvec_bs_pallas, which the JAX package keeps out of dispatch
     for a Mosaic miscompile in composed programs; that defect has no CUDA
     counterpart, so here every bs > 1 DIA matvec on the card runs it, at
-    any grid size.  One thread per point, k fastest: it reads the bs
-    source components at each in-grid neighbour (contiguous in the
-    interleaved layout), the bs^2 data planes coalesced along k, and sums
-    in registers in the plain version's order (offset, then cj).  Bound by
-    device memory: (bs^2 n_off + 2 bs) values per point, 155 MB per fine
-    matvec of P1 elasticity at n=64 in f32.  CPU tensors run the plain
-    version."""
-    n0, n1, n2 = vshape
-    n_off = len(offsets)
+    any grid size.  K2's plane-staged design at bs components per point
+    (csrc/lattice_kernels.cu, dia_matvec_kernel at BS = 2, 3): the ring
+    holds each x plane's flat range with the components interleaved as x
+    is, the bs^2 data planes of four offsets at a time are loaded before
+    any add, and the bs sums stay in registers in the plain version's order
+    (offset, then cj).  Bound by device memory: (bs^2 n_off + 2 bs) values
+    per point, 155 MB per fine matvec of P1 elasticity at n=64 in f32.  This
+    function prepares the launch for the one call; DIAMatrix prepares it
+    once (DiaBsMatvecLaunch).  CPU tensors run the plain version."""
     if data.device.type == "cpu" and x.device.type == "cpu":
         return dia_matvec_plain(data, offsets, vshape, bs, x)
     if data.device.type != "cuda" or x.device != data.device:
         raise RuntimeError(f"dia_matvec_bs: data on {data.device}, x on {x.device}")
-    if data.dtype not in _FLOATS or x.dtype != data.dtype:
-        raise TypeError(f"dia_matvec_bs: data {data.dtype}, x {x.dtype} (need equal float32/float64)")
-    if bs not in (2, 3):
-        raise ValueError(f"dia_matvec_bs: bs={bs} (the kernel is built for 2 and 3)")
-    N = n0 * n1 * n2
-    if data.numel() != n_off * bs * bs * N or x.numel() != N * bs:
-        raise ValueError(f"dia_matvec_bs: data {tuple(data.shape)} / x {tuple(x.shape)} "
-                         f"do not match {n_off} offsets on {vshape} at bs={bs}")
-    if not (data.is_contiguous() and x.is_contiguous()):
-        raise ValueError("dia_matvec_bs: data and x must be contiguous")
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    offs = np.ascontiguousarray(offsets, dtype=np.int32).reshape(-1)
-    y = torch.empty(N * bs, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, f"dmt_dia_matvec_bs_{_suffix(x.dtype)}")(
-            data.data_ptr(), x.data_ptr(), y.data_ptr(), offs.ctypes.data, n_off, bs, n0, n1, n2,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    launch_check(rc, "dia_matvec_bs")
-    dia_matvec_bs.launches += 1
-    return y
+    return DiaBsMatvecLaunch(data, offsets, vshape, bs)(x)
 
 
 dia_matvec_bs.launches = 0
+dia_matvec_bs.launches_by_grid = {}
 
 
 # ---------------------------------------------------------------------------
 # K6: parity-blocked SpMV
 # ---------------------------------------------------------------------------
 
+_K6_THREADS = 256  # kBlockedThreads
+_K6_R = 2  # kBlockedR: points per thread
 
-def blocked_trip_table(trips, classes) -> np.ndarray:
-    """K6's host table: the triples grouped by row class as a CSR,
-    [row_ptr (n_cls + 1) | (m, column class, di, dj, dk) per triple] int32,
-    each class's triples in triple order (the plain version's sum order)."""
+
+class BlockedParams(ctypes.Structure):
+    """K6's parameter block (struct BlockedParams of
+    csrc/lattice_kernels.cu): classes, triples, the class grid, the x
+    planes and plane points per block, the classes without triples and the
+    evict-first data loads."""
+
+    _fields_ = [("n_cls", ctypes.c_int), ("n_trip", ctypes.c_int), ("s0", ctypes.c_int),
+                ("s1", ctypes.c_int), ("s2", ctypes.c_int), ("li", ctypes.c_int), ("pts", ctypes.c_int),
+                ("empty", ctypes.c_uint), ("stream", ctypes.c_int)]
+
+
+def blocked_launch_table(trips, classes, cdims) -> np.ndarray:
+    """K6's device table, (n_trip, 2) int32, one row per triple: (column
+    class << 24 | s2 + 1 + flat shift dj*s2 + dk, m | row class << 16 |
+    last of its class << 21 | (di + 1) << 22 | (dk + 1) << 24).  Rows are
+    grouped by row class, each class's triples in triple order: the order
+    the plain version sums them.  The kernel turns the first word into the
+    triple's offset inside a ring slot of its launch shape.  Raises for a
+    coarse offset beyond ±1 (the kernel's halo)."""
+    s2 = int(cdims[2])
     cid = {c: i for i, c in enumerate(classes)}
     rows = [[] for _ in classes]
-    for m, (cr, cc, off) in enumerate(trips):
-        if max(abs(v) for v in off) > 1:
+    for m, (cr, cc, (di, dj, dk)) in enumerate(trips):
+        if max(abs(di), abs(dj), abs(dk)) > 1:
             raise ValueError("blocked SpMV: coarse offsets beyond ±1")
-        rows[cid[cr]].append((m, cid[cc], *off))
-    ptr = np.cumsum([0] + [len(r) for r in rows])
-    ent = np.asarray([e for r in rows for e in r], np.int64).reshape(-1)
-    return np.concatenate([ptr, ent]).astype(np.int32)
+        rows[cid[cr]].append(((cid[cc] << 24) | (s2 + 1 + dj * s2 + dk),
+                              m | (di + 1) << 22 | (dk + 1) << 24))
+    out = [(x, y | ci << 16 | int(k == len(r) - 1) << 21)
+           for ci, r in enumerate(rows) for k, (x, y) in enumerate(r)]
+    return np.asarray(out, np.int64).reshape(-1, 2).astype(np.int32)
+
+
+def blocked_launch_params(trips, classes, cdims, itemsize=4, pts=None, li=None) -> BlockedParams:
+    """K6's parameter block for `trips` over `classes` on the (s0, s1, s2)
+    class grids.  By default 256 threads of 2 points each (pts = 512 plane
+    points per block) and the fewest x planes per block (li) that make every
+    block resident in one wave (two such blocks per SM, fewer where the
+    ring's shared memory allows fewer): on the H100 that beat 256 points per
+    block and one plane per block at 8 x 65^3 and equals them at 8 x 33^3
+    (chip_smoke.py's sweep).  The data planes are loaded evict-first where
+    they exceed the 50 MB L2 (8 x 65^3: 253 MB), through the cache where
+    they fit (8 x 33^3: 33 MB).  The keywords override the defaults.
+    Raises where the kernel cannot take the operator: more than 32 classes
+    or 65,535 triples, a class stack of 2^31 values or more, or a ring and
+    table beyond one block's 227 KB."""
+    s0, s1, s2 = (int(v) for v in cdims)
+    n_cls, n_trip = len(classes), len(trips)
+    if not 1 <= n_cls <= 32 or not 1 <= n_trip < 2 ** 16:
+        raise ValueError(f"blocked_matvec: {n_cls} classes, {n_trip} triples (the kernel takes 1 to 32 "
+                         f"classes and 1 to 65535 triples)")
+    if max(n_cls, n_trip) * s0 * s1 * s2 >= 2 ** 31:
+        raise ValueError(f"blocked_matvec: class grids {cdims} hold 2^31 values or more")
+    pts = pts or _K6_R * _K6_THREADS
+    smem = 8 * (n_trip + 1) + 4 * n_cls * (pts + 2 * (s2 + 1)) * itemsize
+    if smem > _SMEM_MAX:
+        raise ValueError(f"blocked_matvec: rows of {s2} points need more shared memory than a block has")
+    if li is None:
+        resident = _SMS * min(2, _SMEM_MAX // smem)
+        li = min(-(-(-(-(s1 * s2) // pts) * s0) // resident), s0)
+    rows = {cr for cr, _, _ in trips}
+    empty = sum(1 << ci for ci, c in enumerate(classes) if c not in rows)
+    stream = int(n_trip * s0 * s1 * s2 * itemsize > _L2_BYTES)
+    return BlockedParams(n_cls=n_cls, n_trip=n_trip, s0=s0, s1=s1, s2=s2, li=li, pts=pts, empty=empty,
+                         stream=stream)
 
 
 def blocked_matvec_plain(data, trips, classes, xb):
@@ -864,47 +947,67 @@ def blocked_matvec_plain(data, trips, classes, xb):
     return torch.stack([a if a is not None else zero for a in acc])
 
 
-def blocked_matvec(data, trips, classes, xb, table=None):
+class BlockedMatvecLaunch:
+    """K6 prepared once per operator (a BlockDIAMatrix on the card): the
+    packed triple table on the device, the parameter block, the ctypes
+    function of the dtype, the pointers and the device checks.  A call
+    allocates y, reads the current stream and makes one ctypes call."""
+
+    def __init__(self, data, trips, classes):
+        if data.device.type != "cuda":
+            raise RuntimeError(f"blocked_matvec: data on {data.device}")
+        if data.dtype not in _FLOATS:
+            raise TypeError(f"blocked_matvec: data {data.dtype} (need float32/float64)")
+        if data.dim() != 4 or data.shape[0] != len(trips):
+            raise ValueError(f"blocked_matvec: data {tuple(data.shape)} does not hold {len(trips)} triples")
+        if not data.is_contiguous():
+            raise ValueError("blocked_matvec: data must be contiguous")
+        from .._build import load_kernels
+
+        cdims = tuple(int(v) for v in data.shape[1:])
+        self.shape = (len(classes),) + cdims
+        self.params = blocked_launch_params(trips, classes, cdims, data.element_size())
+        self.table = torch.as_tensor(blocked_launch_table(trips, classes, cdims), device=data.device)
+        self.data = data  # keeps the pointers valid
+        self.device, self.dtype = data.device, data.dtype
+        self.index = data.device.index if data.device.index is not None else torch.cuda.current_device()
+        self.fn = getattr(load_kernels(), f"dmt_blocked_matvec_{_suffix(data.dtype)}")
+        self.args = (data.data_ptr(), self.table.data_ptr(), ctypes.addressof(self.params))
+
+    def __call__(self, xb):
+        if xb.device != self.device:
+            raise RuntimeError(f"blocked_matvec: data on {self.device}, x on {xb.device}")
+        if xb.dtype != self.dtype:
+            raise TypeError(f"blocked_matvec: data {self.dtype}, x {xb.dtype}")
+        if tuple(xb.shape) != self.shape or not xb.is_contiguous():
+            raise ValueError(f"blocked_matvec: x {tuple(xb.shape)}, need a contiguous {self.shape}")
+        y = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        dp, tp, pp = self.args
+        xp, yp = xb.data_ptr(), y.data_ptr()
+        launch_check(on_device(self.index, lambda st: self.fn(dp, xp, yp, tp, pp, st)), "blocked_matvec")
+        blocked_matvec.launches += 1
+        return y
+
+
+def blocked_matvec(data, trips, classes, xb):
     """K6: blocked SpMV on the padded class stack (n_cls, s0, s1, s2).
 
     Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
-    make_blocked_matvec_pallas.  One thread per (row class, coarse point),
-    k fastest; it walks its class's triples from `table` (blocked_trip_table
-    on xb's device, which the operator uploads once) and reads x_b[cj] at
-    the shifted point with bounds checks in place of the halo pad / roll +
-    mask.  Bound by device memory: (n_trip + 2 n_cls) values per coarse
-    point, 270 MB per matvec at n=64 in f32.  The classes carry 19 to 65
-    triples each, so the threads of the body class do ~3x the work of the
-    vertex class's; balancing that is later work.  CPU tensors run the
-    plain version."""
+    make_blocked_matvec_pallas.  K2's plane-staged design at W = 1 over all
+    classes at once (csrc/lattice_kernels.cu, blocked_matvec_kernel): each
+    thread computes every class's output at its points, walking the triple
+    table (blocked_launch_table, on the device and staged into shared
+    memory) with 32 data loads in flight (16 triples x 2 points), its x
+    neighbours read from a cp.async ring of every class's x planes,
+    zero-filled outside the grid in place of the halo pad / roll + mask.  Bound by device memory: (n_trip + 2 n_cls) values
+    per coarse point, 270 MB per matvec at n=64 in f32.  This function
+    prepares the launch for the one call; BlockDIAMatrix prepares it once
+    (BlockedMatvecLaunch).  CPU tensors run the plain version."""
     if data.device.type == "cpu" and xb.device.type == "cpu":
         return blocked_matvec_plain(data, trips, classes, xb)
     if data.device.type != "cuda" or xb.device != data.device:
         raise RuntimeError(f"blocked_matvec: data on {data.device}, x on {xb.device}")
-    if data.dtype not in _FLOATS or xb.dtype != data.dtype:
-        raise TypeError(f"blocked_matvec: data {data.dtype}, x {xb.dtype} (need equal float32/float64)")
-    n_cls = len(classes)
-    if (xb.dim() != 4 or xb.shape[0] != n_cls or data.shape != (len(trips),) + xb.shape[1:]):
-        raise ValueError(f"blocked_matvec: data {tuple(data.shape)} / x {tuple(xb.shape)} "
-                         f"do not match {len(trips)} triples over {n_cls} classes")
-    if not (data.is_contiguous() and xb.is_contiguous()):
-        raise ValueError("blocked_matvec: data and x must be contiguous")
-    if table is None:
-        table = torch.as_tensor(blocked_trip_table(trips, classes), device=xb.device)
-    if table.device != xb.device or table.dtype != torch.int32:
-        raise ValueError("blocked_matvec: the triple table must be int32 on x's device")
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    s0, s1, s2 = xb.shape[1:]
-    y = torch.empty_like(xb)
-    with torch.cuda.device(xb.device):
-        rc = getattr(lib, f"dmt_blocked_matvec_{_suffix(xb.dtype)}")(
-            data.data_ptr(), xb.data_ptr(), y.data_ptr(), table.data_ptr(), n_cls, s0, s1, s2,
-            torch.cuda.current_stream(xb.device).cuda_stream)
-    launch_check(rc, "blocked_matvec")
-    blocked_matvec.launches += 1
-    return y
+    return BlockedMatvecLaunch(data, trips, classes)(xb)
 
 
 blocked_matvec.launches = 0

@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
-"""Host cost per call of the port's two most-launched SpMV wrappers (K2's
-DIAMatrix.matvec, K8's BellMatrix.matvec) and the warm CG time per
-iteration of the P1 and contact paths, on one NVIDIA card.
+"""Host cost per call of the port's SpMV wrappers (K2's and K7's
+DIAMatrix.matvec, K6's BlockDIAMatrix.matvec_blocked, K8's
+BellMatrix.matvec) and the warm CG time per iteration of the P1, bs=3, P2
+and contact paths, on one NVIDIA card.
 
     python3 path_times.py [--root DIR] [--calls 1000] [--solves 5]
 
 DIR is a checkout of the repository (default: the one holding this
 script); its package and its chip_smoke.py build everything, so the same
 script measures two commits alike (unpack the other one with `git archive`
-into a git-ignored directory, and alternate the two in one call).  It
-prints one JSON line per item; the first line is the card's nvidia-smi
-name and power limit.
+into a git-ignored directory, and alternate the two in one call: parent,
+change, change, parent).  It prints one JSON line per item; the first line
+is the card's nvidia-smi name and power limit.
 
 - SpMV wrappers: the P1 fold operator of chip_smoke.make_problem at n=64
-  and n=32 (65^3 and 33^3, float32) and the BELL operator of the contact
-  problem at NB=24/NT=20 (float32): the host clock per call over `calls`
-  back-to-back matvecs with no synchronize (the wrapper's own cost while
-  the card keeps up) and the warm CUDA-event time per call over the same
-  calls.
-- Paths: chip_smoke's P1 main path at n=64 (4-level GMG, Chebyshev 2+2)
-  and its contact path (chip_smoke.build_contact: BELL + SA-AMG), each
-  solved `solves` times warm (CG, rtol 1e-6, host clock around a solve
-  ending in synchronize): ms per iteration of every solve and their
-  median, and for the contact path the peak device memory of its build
-  and first solve (torch.cuda.max_memory_allocated).
+  and n=32 (65^3 and 33^3, float32, K2), the bs=3 operator of
+  chip_smoke.make_elasticity at n=64 and n=32 (K7), the P2 operator at
+  n=64 on its class stack (8 x 65^3, K6) and the BELL operator of the
+  contact problem at NB=24/NT=20 (K8): the host clock per call over
+  `calls` back-to-back matvecs with no synchronize (the wrapper's own cost
+  while the card keeps up) and the warm CUDA-event time per call over the
+  same calls.
+- Paths: chip_smoke's P1 main path at n=64 (4-level GMG, Chebyshev 2+2),
+  its bs=3 path at n=64 (chip_smoke.build_bs3: 4-level GMG, Chebyshev
+  3+3), its P2 path at n=64 (chip_smoke.build_p2: blocked_io GMG over the
+  p-coarsened levels, CG on the class stack) and its contact path
+  (chip_smoke.build_contact: BELL + SA-AMG), each solved `solves` times
+  warm (CG, rtol 1e-6, host clock around a solve ending in synchronize):
+  ms per iteration of every solve and their median, and for the contact
+  path the peak device memory of its build and first solve
+  (torch.cuda.max_memory_allocated).
 
 Nothing here imports JAX.
 """
@@ -95,16 +101,24 @@ def main():
     def emit(**kw):
         print(json.dumps(dict(root=str(root), **kw)), flush=True)
 
+    def wrapper_times(label, x, mv):
+        host, warm = per_call(lambda: mv(x), args.calls)
+        emit(op=f"{label} f32", calls=args.calls, host_ms=host, warm_ms=warm)
+
     for m in (64, 32):
         A = cs.make_problem(m, np.float32, dev)[4].assemble()
-        x = torch.randn(A.shape[0], device=dev)
-        host, warm = per_call(lambda: A.dia.matvec(x), args.calls)
-        emit(op=f"DIAMatrix.matvec {A.dia.vshape} f32 (K2)", calls=args.calls, host_ms=host, warm_ms=warm)
+        wrapper_times(f"DIAMatrix.matvec {A.dia.vshape} (K2)", torch.randn(A.shape[0], device=dev), A.dia.matvec)
+    for m in (64, 32):
+        A = cs.make_elasticity(m, np.float32, dev)[4].assemble()
+        wrapper_times(f"DIAMatrix.matvec {A.dia.vshape} bs=3 (K7)", torch.randn(A.shape[0], device=dev),
+                      A.dia.matvec)
+    A = cs.make_problem(64, np.float32, dev, degree=2)[4].assemble()
+    xb = A.dia._to_blocked(torch.randn(A.shape[0], device=dev)).contiguous()
+    wrapper_times(f"BlockDIAMatrix.matvec_blocked {tuple(xb.shape)} (K6)", xb, A.dia.matvec_blocked)
+    del A, xb
     V, bcs, mpc, a, _ = cs.make_contact(cs.NB_CONTACT, cs.NT_CONTACT, np.float64, dev)
     B = bell_from_scipy(dmt.assemble_matrix(a, mpc, bcs).to_scipy(), dtype=np.float32, device=dev)
-    x = torch.randn(B.shape[1], device=dev)
-    host, warm = per_call(lambda: B.matvec(x), args.calls)
-    emit(op=f"BellMatrix.matvec {B.shape} f32 (K8)", calls=args.calls, host_ms=host, warm_ms=warm)
+    wrapper_times(f"BellMatrix.matvec {B.shape} (K8)", torch.randn(B.shape[1], device=dev), B.matvec)
     del B, V, bcs, mpc, a
 
     # the P1 main path (chip_smoke.main_path's solve, without its checks)
@@ -117,6 +131,13 @@ def main():
     its, ms = solve_ms_per_it(dmt.cg, A.matvec, b, M, args.solves)
     emit(path=f"P1 n={cs.N_MAIN}", its=its, ms_per_it=ms, median_ms_per_it=statistics.median(ms))
     del V, bc, mpc, a, clf, A, b, ops, masks, M
+    for name, build, n in (("bs=3", cs.build_bs3, cs.N_BS3), ("P2", cs.build_p2, cs.N_P2)):
+        built = build(dev, n)
+        A, b, M = built[3], built[4], built[7]
+        mv, rhs = (A.matvec_blocked, A.dia._to_blocked(b)) if name == "P2" else (A.matvec, b)
+        its, ms = solve_ms_per_it(dmt.cg, mv, rhs, M, args.solves)
+        emit(path=f"{name} n={n}", its=its, ms_per_it=ms, median_ms_per_it=statistics.median(ms))
+        del built, A, b, M, mv, rhs
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -349,6 +349,62 @@ def test_k2_matches_plain_on_card_grids(cuda, dtype, tol):
             assert rel <= tol, (len(offs), vshape, rel)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-13)])
+def test_k7_matches_plain_on_card_grids(cuda, dtype, tol):
+    """K7 (the prepared launch DIAMatrix.matvec keeps at bs > 1) against its
+    plain version on the P1 15-offset stencil at bs 2 and 3 over 9^3, 17^3,
+    33^3 and a ragged 7 x 13 x 70 grid, with random planes; one launch per
+    matvec, counted under its grid, and two calls bit-equal."""
+    from dolfinx_mpc_tpu_torch.ops.lattice import DIAMatrix
+
+    offs = _problem((2, 2, 2), np.float64, "cpu")[5].offsets
+    rng = np.random.default_rng(2)
+    for bs in (2, 3):
+        for vshape in ((9, 9, 9), (17, 17, 17), (33, 33, 33), (7, 13, 70)):
+            data = torch.as_tensor(rng.standard_normal((len(offs), bs, bs) + vshape), device=cuda).to(dtype)
+            x = torch.as_tensor(rng.standard_normal(bs * int(np.prod(vshape))), device=cuda).to(dtype)
+            dia = DIAMatrix(data, offs, vshape, bs)
+            n7, g7 = LK.dia_matvec_bs.launches, LK.dia_matvec_bs.launches_by_grid.get(vshape, 0)
+            y = dia.matvec(x)
+            y2 = dia.matvec(x)
+            torch.cuda.synchronize()
+            assert LK.dia_matvec_bs.launches == n7 + 2 and torch.equal(y, y2)
+            assert LK.dia_matvec_bs.launches_by_grid[vshape] == g7 + 2
+            y_ref = LK.dia_matvec_plain(data, offs, vshape, bs, x)
+            rel = float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref))
+            assert rel <= tol, (bs, vshape, rel)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-13)])
+def test_k6_matches_plain_on_card_grids(cuda, dtype, tol):
+    """K6 (the prepared launch BlockDIAMatrix.matvec_blocked keeps) against
+    its plain version with the 230 P2 triples over 8 x 9^3 and 8 x 33^3
+    class grids and on a ragged 8 x 5 x 7 x 70 stack with the body class's
+    triples left out (its output is 0), with random planes; one launch per
+    matvec, two calls bit-equal."""
+    from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix
+
+    trips = _problem((2, 2, 2), np.float64, "cpu", degree=2)[5].trips
+    assert len(trips) == 230
+    rng = np.random.default_rng(3)
+    for cdims, tr in (((9, 9, 9), trips), ((33, 33, 33), trips),
+                      ((5, 7, 70), [t for t in trips if t[0] != (1, 1, 1)])):
+        vshape = tuple(2 * s - 1 for s in cdims)
+        data = torch.as_tensor(rng.standard_normal((len(tr),) + cdims), device=cuda).to(dtype)
+        dia = BlockDIAMatrix(data, tr, vshape, (2, 2, 2))
+        xb = torch.as_tensor(rng.standard_normal((8,) + cdims), device=cuda).to(dtype)
+        n6 = LK.blocked_matvec.launches
+        y = dia.matvec_blocked(xb)
+        y2 = dia.matvec_blocked(xb)
+        torch.cuda.synchronize()
+        assert LK.blocked_matvec.launches == n6 + 2 and torch.equal(y, y2)
+        y_ref = LK.blocked_matvec_plain(data, tr, dia.classes, xb)
+        rel = float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref))
+        assert rel <= tol, (cdims, len(tr), rel)
+        if len(tr) < 230:
+            assert not y[dia.classes.index((1, 1, 1))].any()
+
+
 def test_assemble_matrix_on_card_matches_cpu(cuda):
     """The general assembler on the card against the same assembly on the
     CPU: the same pattern, values within 1e-14 (f64) and 1e-6 (f32)

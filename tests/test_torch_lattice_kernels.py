@@ -1,9 +1,12 @@
-"""The modules holding K1 (fused lean-fold assembler) and K2 (DIA SpMV):
-their plain PyTorch versions against the JAX package's Pallas kernels in
-interpret mode (float32, rel 5e-6 as in tests/test_pallas_lattice.py) and
-against its XLA paths (float64), on the same inputs."""
+"""The modules holding K1 (fused lean-fold assembler), K2 and K7 (DIA
+SpMV) and K6 (blocked SpMV): their plain PyTorch versions against the JAX
+package's Pallas kernels in interpret mode (float32, rel 5e-6 as in
+tests/test_pallas_lattice.py) and against its XLA paths (float64), on the
+same inputs; and the launches the operators prepare for the card (halo,
+parameter blocks, K6's packed triple table), which need no card."""
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ from dolfinx_mpc_tpu.fem.forms import grad as jgrad, inner as jinner
 from dolfinx_mpc_tpu.fem.mesh import create_box as jx_box
 from dolfinx_mpc_tpu.ops.lattice import assemble_matrix_lattice as jx_lattice
 from dolfinx_mpc_tpu.ops.pallas_lattice import make_dia_matvec_pallas, make_lean_fold_pallas
-from dolfinx_mpc_tpu_torch.fem.forms import grad as pgrad, inner as pinner
+from dolfinx_mpc_tpu_torch.fem.forms import conj as pconj, div as pdiv, grad as pgrad, inner as pinner, sym as psym
 from dolfinx_mpc_tpu_torch.fem.mesh import create_box as pt_box
 from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
 from dolfinx_mpc_tpu_torch.ops.lattice import assemble_matrix_lattice as pt_lattice
@@ -281,3 +284,142 @@ def test_k2_prepared_launch_equals_its_dia(degree, dims):
     assert p.w == max(1, max(abs(v) for o in offs for v in o)) and p.li == 1  # a small grid: one plane each
     big = LK.dia_launch_params(offs, (129, 129, 129))
     assert big.li == 4 and -(-129 * 129 // 256) * -(-129 // big.li) >= 16 * 132
+
+
+def _pt_elasticity_clf(dims):
+    """The port's bs=3 elasticity fold form (bench.py's BENCH_BS=3: mu 1,
+    lambda 1.25, periodic in x, Dirichlet on the y-planes) on the CPU."""
+    V = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims), ("Lagrange", 1, (3,)))
+    bc = pt.dirichletbc(np.zeros(3), pt.locate_dofs_geometrical(
+        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)), V)
+    mpc = _new_mpc(pt, V, np.float64)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    a = pt.BilinearForm(V, lambda u, v, c: 2.0 * pinner(psym(pgrad(u)), psym(pgrad(v)))
+                        + 1.25 * pdiv(u) * pconj(pdiv(v)), quad_degree=1)
+    return pt_lattice(a, mpc, bcs=[bc], dtype=np.float64, side_format="fold", device="cpu")
+
+
+def test_k7_halo_covers_every_dia_of_the_elasticity_gmg():
+    """Every bs=3 DIA the elasticity GMG builds, and the absolute-value
+    copies its Chebyshev bounds take, fits K7's halo and parameter block in
+    f32 and f64: the block holds the DIA's offsets in order (plane offset,
+    flat shift dj*n2 + dk, dk), bs 3, the halo width and one x plane per
+    block; an offset of 3 raises."""
+    from dolfinx_mpc_tpu_torch.la.gmg import _abs_dia
+
+    ops, _ = pt.build_gmg_hierarchy(lambda m: _pt_elasticity_clf((m, m, m)), 8, 3, min_n=2)
+    dias = [o.dia for o in ops] + [_abs_dia(o.dia) for o in ops]
+    assert [d.vshape for d in dias[:3]] == [(9, 9, 9), (5, 5, 5), (3, 3, 3)]
+    assert all(d.bs == 3 and d.data.shape[1:3] == (3, 3) for d in dias)
+    for d in dias:
+        n2 = d.vshape[2]
+        for itemsize in (4, 8):
+            p = LK.dia_launch_params(d.offsets, d.vshape, itemsize, 3)
+            assert (p.n, p.bs, p.w, p.li) == (len(d.offsets), 3, LK.k2_halo_width(d.offsets), 1)
+            assert p.w <= LK.K2_MAX_HALO
+            assert [(p.di[i], p.sh[i], p.dk[i]) for i in range(p.n)] == [
+                (di, dj * n2 + dk, dk) for di, dj, dk in d.offsets]
+    with pytest.raises(ValueError, match="halo"):
+        LK.dia_launch_params(list(dias[0].offsets) + [(3, 0, 0)], dias[0].vshape, 4, 3)
+
+
+@pytest.mark.parametrize("n,li", [(65, 1), (33, 1), (17, 1), (129, 4)])
+def test_k7_parameter_block_on_the_path_grids(n, li):
+    """K7's block on the bs=3 path's grids (and 129^3): one x plane per
+    block at 65^3 and below, K2's rule beyond, evict-first data loads where
+    the planes exceed the 50 MB L2 (65^3 and up in f32); bs 2 and 3 take
+    it, bs 4 and a grid whose rows overflow shared memory raise.  K2 never
+    streams."""
+    offs = _pt_form_clf((2, 2, 2), 1, True).offsets
+    for bs in (2, 3):
+        p = LK.dia_launch_params(offs, (n, n, n), 4, bs)
+        assert (p.bs, p.n0, p.n1, p.n2, p.li, p.stream) == (bs, n, n, n, li, int(n >= 65))
+    assert LK.dia_launch_params(offs, (n, n, n), 4, 1).stream == 0
+    with pytest.raises(ValueError, match="bs=4"):
+        LK.dia_launch_params(offs, (n, n, n), 4, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        LK.dia_launch_params(offs, (n, n, 20000), 8, 3)
+
+
+def _decode_k6_table(tab, s2):
+    """K6's packed rows back to (row class, m, column class, di, flat shift,
+    dk, last of its class)."""
+    x, y = tab[:, 0].astype(np.int64), tab[:, 1].astype(np.int64)
+    return [(int(yy >> 16 & 31), int(yy & 0xffff), int(xx >> 24), int((yy >> 22 & 3) - 1),
+             int((xx & 0xffffff) - (s2 + 1)), int((yy >> 24 & 3) - 1), int(yy >> 21 & 1)) for xx, yy in zip(x, y)]
+
+
+@pytest.mark.parametrize("dims", [(2, 3, 4), (3, 3, 3)])
+def test_k6_prepared_table_is_the_plain_sum_order(dims):
+    """K6's device table lists each row class's triples in triple order (the
+    order the plain version sums them), classes in order, each flagged last
+    at its end, with column classes, di, dk and flat shifts dj*s2 + dk that
+    match the triples; the parameter block covers the class grids."""
+    dia = _pt_form_clf(dims, 2, True).assemble().dia
+    trips, classes, cdims = dia.trips, dia.classes, dia.cdims
+    assert len(trips) == 230 and len(classes) == 8
+    s2 = cdims[2]
+    rows = _decode_k6_table(LK.blocked_launch_table(trips, classes, cdims), s2)
+    cid = {c: i for i, c in enumerate(classes)}
+    want = []
+    for ci, c in enumerate(classes):
+        ms = [m for m, (cr, _, _) in enumerate(trips) if cr == c]
+        for k, m in enumerate(ms):
+            _, cc, (di, dj, dk) = trips[m]
+            want.append((ci, m, cid[cc], di, dj * s2 + dk, dk, int(k == len(ms) - 1)))
+    assert rows == want
+    p = LK.blocked_launch_params(trips, classes, cdims)
+    assert (p.n_cls, p.n_trip, p.s0, p.s1, p.s2, p.empty) == (8, 230) + tuple(cdims) + (0,)
+    assert (p.pts, p.li, p.stream) == (512, 1, 0)
+    # a row class without triples is flagged: the kernel writes 0 there
+    part = [t for t in trips if t[0] != classes[7]]
+    assert LK.blocked_launch_params(part, classes, cdims).empty == 1 << 7
+    assert [r[0] for r in _decode_k6_table(LK.blocked_launch_table(part, classes, cdims), s2)] == [
+        r[0] for r in rows if r[0] != 7]
+
+
+def test_k6_launch_rule_and_limits():
+    """K6 takes the fewest x planes per block that keep every block resident
+    in one wave: 3 at 8 x 65^3 in f32 (9 tiles x 65 planes over 264 blocks),
+    1 at 8 x 33^3, with evict-first data loads only where the planes exceed
+    the L2; coarse offsets beyond ±1, more than 32 classes and rows
+    beyond one block's shared memory raise."""
+    trips = _pt_form_clf((2, 2, 2), 2, True).trips
+    classes = tuple(itertools.product((0, 1), repeat=3))
+    p65, p33 = (LK.blocked_launch_params(trips, classes, (n, n, n)) for n in (65, 33))
+    assert (p65.li, p65.stream, p33.li, p33.stream) == (3, 1, 1, 0)  # 253 MB streams, 33 MB stays in L2
+    assert LK.blocked_launch_params(trips, classes, (65, 65, 65), 8).li == 5  # one f64 block per SM
+    with pytest.raises(ValueError, match="±1"):
+        LK.blocked_launch_table(list(trips) + [(classes[0], classes[1], (2, 0, 0))], classes, (5, 5, 5))
+    with pytest.raises(ValueError, match="classes"):
+        LK.blocked_launch_params(trips, classes * 5, (5, 5, 5))
+    with pytest.raises(ValueError, match="shared memory"):
+        LK.blocked_launch_params(trips, classes, (5, 5, 4000), 8)
+
+
+def test_prepared_launches_refuse_cpu_data_and_cpu_operators_launch_nothing():
+    """The prepared launches are for CUDA data only (CPU data raises, as
+    does K7 at bs 1); a DIAMatrix at bs=3 or a BlockDIAMatrix on the CPU
+    prepares none, runs the plain version and counts no launch."""
+    from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix, DIAMatrix
+
+    clf = _pt_elasticity_clf((2, 2, 2))
+    d = clf.assemble().dia
+    with pytest.raises(RuntimeError):
+        LK.DiaBsMatvecLaunch(d.data, d.offsets, d.vshape, 3)
+    with pytest.raises(ValueError, match="bs=1"):
+        LK.DiaBsMatvecLaunch(d.data, d.offsets, d.vshape, 1)
+    b = _pt_form_clf((2, 2, 2), 2, True).assemble().dia
+    with pytest.raises(RuntimeError):
+        LK.BlockedMatvecLaunch(b.data, b.trips, b.classes)
+    n7, n6 = LK.dia_matvec_bs.launches, LK.blocked_matvec.launches
+    d2 = DIAMatrix(d.data, d.offsets, d.vshape, 3)
+    x = torch.ones(d2.shape[0], dtype=d.data.dtype)
+    assert torch.equal(d2.matvec(x), LK.dia_matvec_plain(d.data, d.offsets, d.vshape, 3, x))
+    b2 = BlockDIAMatrix(b.data, b.trips, b.vshape, b.r3)
+    xb = torch.ones((8,) + b.cdims, dtype=b.data.dtype)
+    assert torch.equal(b2.matvec_blocked(xb), LK.blocked_matvec_plain(b.data, b.trips, b.classes, xb))
+    assert d2._launch is None and b2._launch is None
+    assert (LK.dia_matvec_bs.launches, LK.blocked_matvec.launches) == (n7, n6)
