@@ -18,6 +18,10 @@ each (or a few), any failure exits non-zero:
    its BlockDIAMatrix prepares, with the same four times and, at 8 x 65^3,
    a sweep of its launch shape), K3 on P1 65^3 and P2 n=64 with a
    non-separable Dirichlet set (the y-planes and a ball on the y=0 face);
+   the assemblers K1, K3 and K4 through the launch their table prepares,
+   with the same four times, the share of the bound, a 16-byte fill of the
+   same output as the write yardstick and a sweep of the launch shape (row
+   groups, evict-first stores);
    K1 at bs=3 (135 x 65^3), K7 on the bs=3 grids 65^3, 33^3 and 17^3
    (through DIAMatrix's prepared launch, the same four times, x planes per
    block swept at 65^3 and 33^3), and K5 on the raw bs=3 grid table
@@ -29,7 +33,9 @@ each (or a few), any failure exits non-zero:
    through the port's entry points: assemble_matrix_lattice (fold) ->
    assemble_vector + set_bc -> 4-level GMG (Chebyshev smoother) -> cg ->
    backsubstitution, with the kernel launch counters reset just before and
-   read just after;
+   read just after; then bench.py's constrained-assembly metric on its
+   operator (the whole lean fold assembly call, in MDoF/s and GB/s of
+   operator data written), as for the P2 and bs=3 paths at n=64;
 4b. the P2 main path: bench.py's degree-2 problem (P2 tets, n=64, 2,146,689
    dofs, same constraints, quad_degree=2), float32:
    assemble_matrix_lattice (K4) -> manufactured b = A u0 -> the six-level
@@ -313,11 +319,13 @@ def host_ms(fn, calls=1000):
     return 1e3 * t / calls
 
 
-def spmv_times(fn, kernel, reps):
-    """The SpMV table of one kernel: warm event time, cold-L2 event time,
-    profiler device time per launch and the wrapper's host time."""
+def kernel_times(fn, kernel, reps, calls=1000):
+    """The four times of one kernel: warm event time, cold-L2 event time,
+    profiler device time per launch and the wrapper's host time (over
+    `calls` calls: fewer for the assemblers, whose launches outlast their
+    host cost, so that the launch queue never fills)."""
     return dict(warm_ms=cuda_ms(fn, reps), cold_ms=cold_ms(fn, max(reps // 4, 10)),
-                prof_ms=profiler_ms(fn, 50, kernel), host_ms=host_ms(fn))
+                prof_ms=profiler_ms(fn, 50, kernel), host_ms=host_ms(fn, calls))
 
 
 def fmt_times(t):
@@ -506,16 +514,92 @@ def bound(nbytes, ops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fold_bound(tab, out):
+def fold_bound(tab, out, masks):
     """Bound of an assembler launch on table `tab` with output `out`: the
-    output written once plus the table and masks read once; operations are
+    output written once plus the table and the masks the kernel reads
+    (`masks`: "factored" the factor rows, "masked" the keep stack as bytes
+    and the bc multiplicity stack, "raw" none) read once; operations are
     one addition per (table entry, window point) and the mask products
     (three per output value)."""
     nx, ny, nz = tab.dims
-    inputs = [tab.planes, tab.ent, tab.coef] + [t for t in (tab.fac, tab.keep, tab.bc_ind) if t is not None]
+    inputs = [tab.planes, tab.ent, tab.coef] + {"factored": [tab.fac], "masked": [tab.bc_ind], "raw": []}[masks]
     nbytes = sum(t.numel() * t.element_size() for t in [out] + inputs)
+    if masks == "masked":
+        nbytes += tab.keep.numel()  # K3 reads the 0 / 1 keep stack as bytes
     ops = tab.ent.shape[0] * nx * ny * nz + 3 * out.numel()
     return bound(nbytes, ops)
+
+
+FOLD_KERNEL = {"factored": "fold_assemble_kernel", "masked": "fold_assemble_masked_kernel"}
+
+
+def fold_timing(tab, masks, fn, plain_fn, got, err, reps, sweep=False):
+    """The f32 numbers of an assembler call fn() on table `tab` (its
+    launch's `masks`, "factored" for K1 / K4, "masked" for K3): warm,
+    cold-L2, profiler device and wrapper host times, the plain version's
+    time, the bound and the shares of it, the device time of torch's fill_
+    of an output of the same size (what a plain 16-byte write stream
+    takes); with `sweep`, the device time of the table's prepared launch
+    at other shapes (row groups, evict-first stores).  Returns (text, the
+    kernels line's numbers)."""
+    import torch
+
+    t = kernel_times(fn, FOLD_KERNEL[masks], reps, calls=200)
+    plain_ms = cuda_ms(plain_fn, 2, 1)
+    bms, by = fold_bound(tab, got, masks)
+    buf = torch.empty_like(got)
+    fill = profiler_ms(lambda: buf.fill_(1.0), 20, "")
+    del buf
+    launch = tab.launch(masks) if masks == "masked" else tab.launch(masks, tab.blocked)  # the wrapper's launch
+    p = launch.params
+    dev_share = bms / (t["prof_ms"] or float("inf"))
+    text = (f", kernel ({p.g} x {p.kw} of {p.threads} threads, evict-first stores "
+            f"{p.stream}, keep planes staged {p.stage}) {fmt_times(t)}, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}); device {dev_share:.0%}, warm {bms / t['warm_ms']:.0%}, cold {bms / t['cold_ms']:.0%} of the "
+            f"bound; torch fill_ of the same output (a write yardstick) "
+            f"{'not measured' if fill is None else f'{fill:.4f} ms device'}")
+    if sweep:
+        shape0 = (p.g, p.threads, p.stream)
+        res = []
+        for g in (g for g in (1, 2, 3, 4, 6) if g * p.kw <= 512):
+            for stream in (shape0[2], 1 - shape0[2]):
+                p.g, p.threads, p.stream = g, -(-g * p.kw // 32) * 32, stream
+                prof = profiler_ms(lambda: launch(0.013, 1.0), 20, FOLD_KERNEL[masks])
+                res.append(f"{g}/{stream}: {'not measured' if prof is None else f'{prof:.4f}'}")
+        p.g, p.threads, p.stream = shape0
+        text += f"\n  by row groups / evict-first stores (device ms): {'; '.join(res)}"
+    return text, dict(max_abs_err=err, ms=t["warm_ms"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=None)
+
+
+def assembly_rate(clf, reps=20):
+    """bench.py's constrained-assembly metric (bench.py:416-434, 486-495) on
+    the port: the time per call of the whole lean fold assembly
+    clf._assemble_fold_lean_kernel(jitter, 1.0), the jitter perturbed on
+    every call, from the host clock of `reps` and of 1 back-to-back calls
+    ending in synchronize, (T(reps) - T(1)) / (reps - 1).  Returns (ms per
+    assembly, bytes of the operator's data it writes)."""
+    import torch
+
+    def run(k, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(k):
+            A = clf._assemble_fold_lean_kernel(seed * 1e-6 + 1e-7 * i, 1.0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, A
+
+    run(2, 0.0)
+    t1, _ = run(1, 1.0)
+    tk, A = run(reps, 2.0)
+    return 1e3 * (tk - t1) / (reps - 1), A.dia.data.numel() * A.dia.data.element_size()
+
+
+def rate_text(label, dofs, ms, nbytes):
+    """bench.py's line for the assembly metric: MDoF/s and the output's
+    effective write rate."""
+    return (f"{label} assembly (bench.py's metric): {ms:.4f} ms per call, {dofs / ms / 1e3:.1f} MDoF/s "
+            f"({dofs} dofs), {nbytes / ms / 1e6:.1f} GB/s of operator data written ({nbytes / 1e6:.1f} MB)")
 
 
 def spmv_bound(stored, x, y, index_bytes=0):
@@ -562,13 +646,12 @@ def compare_kernels(dev, gen):
             rel = err / float(ref.abs().max())
             line = f"K1 {str(dt)[6:]} {tuple(got.shape)}: max|d|/max|ref| {rel:.3e} (tol {tol:g})"
             if dt == torch.float32:
-                ms = cuda_ms(lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0), 50)
-                plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 5, 1)
-                bms, by = fold_bound(tab, got)
+                text, nums = fold_timing(tab, "factored", lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0),
+                                         lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), got, err,
+                                         50, sweep=True)
                 if m == N_MAIN:
-                    out["K1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                                     library_ms=None)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+                    out["K1"] = nums
+                line += text
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K1 disagrees with its plain version in {dt} at {tab.vshape}: {rel:.3e} > {tol:g}")
@@ -584,7 +667,7 @@ def compare_kernels(dev, gen):
             rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
             line = f"K2 {str(dt)[6:]} {dia.vshape}: rel L2 {rel:.3e} (tol {tol:g})"
             if dt == torch.float32:
-                t = spmv_times(lambda: op.matvec(x), "dia_matvec_kernel", 200)
+                t = kernel_times(lambda: op.matvec(x), "dia_matvec_kernel", 200)
                 plain_ms = cuda_ms(lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 1, x), 20)
                 lib_ms, y_lib = csr_library_ms(dia.to_scipy(), x, 200)
                 bms, by = spmv_bound(data.numel(), x, got)
@@ -635,11 +718,10 @@ def compare_blocked_kernels(dev, gen):
         line = (f"K4 {str(dt)[6:]} {tuple(got.shape)}: max|d|/max|ref| {rel:.3e} (tol {tol:g}), "
                 f"nonzero padded slots {pad_nz}")
         if dt == torch.float32:
-            ms = cuda_ms(lambda: LK.assemble_fold_lean_blocked(tab, 0.013, 1.0), 20)
-            plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 2, 1)
-            bms, by = fold_bound(tab, got)
-            out["K4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+            text, out["K4"] = fold_timing(tab, "factored", lambda: LK.assemble_fold_lean_blocked(tab, 0.013, 1.0),
+                                          lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), got, err,
+                                          20, sweep=True)
+            line += text
         print(line, flush=True)
         if not rel <= tol or pad_nz:
             fail(f"K4 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g} or {pad_nz} padded values")
@@ -659,13 +741,12 @@ def compare_blocked_kernels(dev, gen):
             rel = err / float(ref.abs().max())
             line = f"K3 P{degree} {str(dt)[6:]} {tuple(got.shape)}: max|d|/max|ref| {rel:.3e} (tol {tol:g})"
             if dt == torch.float32:
-                ms = cuda_ms(lambda: LK.assemble_fold_lean_masked(tab, 0.013, 1.0), 20)
-                plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_masked_plain(tab, 0.013, 1.0), 2, 1)
-                bms, by = fold_bound(tab, got)
+                text, nums = fold_timing(tab, "masked", lambda: LK.assemble_fold_lean_masked(tab, 0.013, 1.0),
+                                         lambda: LK.assemble_fold_lean_masked_plain(tab, 0.013, 1.0), got, err,
+                                         20, sweep=True)
                 if degree == 2:
-                    out["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                                     library_ms=None)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+                    out["K3"] = nums
+                line += text
             print(line, flush=True)
             if not rel <= tol:
                 fail(f"K3 disagrees with its plain version in {dt} at degree {degree}: {rel:.3e} > {tol:g}")
@@ -697,7 +778,7 @@ def compare_k6(dev, gen, dia, main):
         line = f"K6 {str(dt)[6:]} {tuple(xb.shape)}: rel L2 {rel:.3e} (tol {tol:g})"
         if dt == torch.float32:
             p = op._launch.params
-            t = spmv_times(lambda: op.matvec_blocked(xb), "blocked_matvec_kernel", 100)
+            t = kernel_times(lambda: op.matvec_blocked(xb), "blocked_matvec_kernel", 100)
             plain_ms = cuda_ms(lambda: LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb), 10)
             bms, by = spmv_bound(data.numel(), xb, got, 8 * len(dia.trips))
             line += (f", kernel ({p.pts} points, {p.li} x planes per block, evict-first loads {p.stream}) "
@@ -747,13 +828,14 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
         tab = clf.table.on(dev, dt)
         got = LK.assemble_fold_lean_factored(tab, 0.013, 1.0)
         ref = LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0)
-        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
         line = f"K1 bs=3 {str(dt)[6:]} {tuple(got.shape)}: max|d|/max|ref| {rel:.3e} (tol {tol:g})"
         if dt == torch.float32:
-            ms = cuda_ms(lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0), 20)
-            plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), 2, 1)
-            bms, by = fold_bound(tab, got)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+            text, _ = fold_timing(tab, "factored", lambda: LK.assemble_fold_lean_factored(tab, 0.013, 1.0),
+                                  lambda: LK.assemble_fold_lean_factored_plain(tab, 0.013, 1.0), got, err, 20,
+                                  sweep=True)
+            line += text
         print(line, flush=True)
         if not rel <= tol:
             fail(f"K1 at bs=3 disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
@@ -769,7 +851,7 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
             rel = _rel_l2(got, ref)
             line = f"K7 {str(dt)[6:]} {dia.vshape} bs=3: rel L2 {rel:.3e} (tol {tol:g})"
             if dt == torch.float32:
-                t = spmv_times(lambda: op.matvec(x), "dia_matvec_kernel", 200)
+                t = kernel_times(lambda: op.matvec(x), "dia_matvec_kernel", 200)
                 plain_ms = cuda_ms(lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 3, x), 10)
                 bms, by = spmv_bound(data.numel(), x, got)
                 line += (f", kernel {fmt_times(t)}, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); cold "
@@ -825,7 +907,7 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
             if dt == torch.float32:
                 ms = cuda_ms(lambda: LK.assemble_fold_lean_raw(tab, 0.013), 20)
                 plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_raw_plain(tab, 0.013), 2, 1)
-                bms, by = fold_bound(tab, got)
+                bms, by = fold_bound(tab, got, "raw")
                 line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
                 if name == "P2 blocked":
                     out["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -899,6 +981,7 @@ def elasticity_path(dev, n, measure=True):
         # phase breakdown on the built objects (launches here are not counted)
         xr = b / torch.linalg.vector_norm(b)
         summary["asm_ms"] = cuda_ms(lambda: clf.assemble(), 20)
+        summary["asm_rate"] = assembly_rate(clf)
         summary["spmv_ms"] = cuda_ms(lambda: A.matvec(xr), 100)
         summary["vcycle_ms"] = cuda_ms(lambda: M(xr), 10)
         reset_counts()
@@ -983,6 +1066,7 @@ def p2_path(dev, n, measure=True):
         # phase breakdown on the built objects (launches here are not counted)
         xr = bb / torch.linalg.vector_norm(bb)
         summary["asm_ms"] = cuda_ms(lambda: clf.assemble(), 10)
+        summary["asm_rate"] = assembly_rate(clf)
         summary["spmv_ms"] = cuda_ms(lambda: A.matvec_blocked(xr), 50)
         summary["vcycle_ms"] = cuda_ms(lambda: M(xr), 5)
         t0 = time.time()  # a second, warm solve
@@ -1032,6 +1116,7 @@ def main_path(dev, n=N_MAIN):
     # phase breakdown on the built objects (launches here are not counted)
     xr = b / torch.linalg.vector_norm(b)
     ms_asm = cuda_ms(lambda: clf.assemble(), 20)
+    asm_rate = assembly_rate(clf)
     ms_mv = cuda_ms(lambda: A.matvec(xr), 100)
     ms_vc = cuda_ms(lambda: M(xr), 10)
     t0 = time.time()  # a second, warm solve: the first pays one-time CUDA/cuBLAS set-up
@@ -1040,7 +1125,8 @@ def main_path(dev, n=N_MAIN):
     t_cg_warm = time.time() - t0
     summary = dict(n=n, dofs=V.num_dofs, setup_s=t_setup, build_s=t_build, its=its, rnorm=rnorm,
                    bnorm=float(torch.linalg.vector_norm(b)), cg_s=t_cg, ms_per_it=1e3 * t_cg_warm / max(its, 1),
-                   rel_res=rel_res, eta=eta, fwd=fwd, its_ref=its_ref, asm_ms=ms_asm, spmv_ms=ms_mv, vcycle_ms=ms_vc,
+                   rel_res=rel_res, eta=eta, fwd=fwd, its_ref=its_ref, asm_ms=ms_asm, asm_rate=asm_rate, spmv_ms=ms_mv,
+                   vcycle_ms=ms_vc,
                    levels=[o.dia.vshape for o in ops], bounds=M._bounds)
     return counts, summary
 
@@ -1219,7 +1305,7 @@ def compare_bell_kernel(dev, gen, B, As):
         tiles = BL.bell_matvec_plain(Bd.data, Bd.cols, x, n_rows).index_add_(
             0, Bd.rem_rows, Bd.rem_data * x[Bd.rem_cols])
         rel, rel_tiles = _rel_l2(got, ref), _rel_l2(got, tiles)
-        t = spmv_times(lambda: Bd.matvec(x), "bell_csr_matvec_kernel", 200)
+        t = kernel_times(lambda: Bd.matvec(x), "bell_csr_matvec_kernel", 200)
         lib_ms, y_lib = csr_library_ms(S, x, 200)
         plain_ms = cuda_ms(lambda: BL.bell_packed_matvec_plain(P, x), 20, 2)
         bms, by = spmv_bound(P.nnz, x, got, P.nnz * 4 + P.row_ptr.numel() * 4)
@@ -1354,6 +1440,7 @@ def main():
           f"{s['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s['fwd']:.3e} "
           f"(gate {FORWARD_ERROR_GATE:g}, f64 Jacobi-CG {s['its_ref']} its); launches {counts}",
           flush=True)
+    print(rate_text(f"P1 n={s['n']}", s["dofs"], *s["asm_rate"]), flush=True)
     if min(counts.values()) <= 0:
         fail(f"main path did not go through every kernel: {counts}")
     if not s["eta"] <= BACKWARD_ERROR_GATE:
@@ -1376,6 +1463,8 @@ def main():
               f"(|b| {s2['bnorm']:.3e}); recomputed in f64: |b-Ax|/|b| {s2['rel_res']:.3e}, backward "
               f"error {s2['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s2['fwd']:.3e} "
               f"(gate {FORWARD_ERROR_GATE:g}, f64 GMG-CG {s2['its_ref']} its); launches {c2}", flush=True)
+        if n == N_P2:
+            print(rate_text(f"P2 n={n}", s2["dofs"], *s2["asm_rate"]), flush=True)
         if min(c2.values()) <= 0:
             fail(f"P2 path n={n} did not go through every kernel: {c2}")
         if not s2["eta"] <= BACKWARD_ERROR_GATE:
@@ -1401,6 +1490,8 @@ def main():
               f"error {s4['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s4['fwd']:.3e} "
               f"(gate {FORWARD_ERROR_GATE:g}, f64 GMG-CG {s4['its_ref']} its); launches {c4}, K7 by grid "
               f"{s4['k7_by_grid']}", flush=True)
+        if n == N_BS3:
+            print(rate_text(f"bs=3 n={n}", s4["dofs"], *s4["asm_rate"]), flush=True)
         if c4["K1"] <= 0 or c4["K7"] <= 0 or c4["K2"] != 0:
             fail(f"bs=3 path n={n}: K1 and K7 must launch and K2 must not: {c4}")
         if not s4["eta"] <= BACKWARD_ERROR_GATE:

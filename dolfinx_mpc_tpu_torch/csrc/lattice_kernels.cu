@@ -41,13 +41,24 @@ inline unsigned int n_blocks(long long total) {
 // the stack rows are the 8 parity classes — the same arithmetic, which is
 // why the JAX package runs K1's Pallas code over a _BlockedView for K4.
 //
-// One thread per output element (mi, p, j, k), k fastest, so the single
-// store per thread is coalesced.  The kernels are bound by that write
-// (16.5 MB per P1 assembly at n=64 in f32, 253 MB for the 230 P2 triples
-// at n=64); the table (a few KB) stays in L1/L2, and the per-entry window
-// test is a handful of integer compares, so there is no tiling to do.  The
-// TPU kernels' VMEM offset splitting, transposed j-factor layout and SMEM
-// x-factor tables answered TPU memory limits and have no counterpart here.
+// What bounds K1, K3 and K4 is their single write of the output (16.5 MB
+// per P1 assembly at n=64 in f32, 253 MB for the 230 P2 triples at n=64),
+// but only if the work per output value is a few instructions.  The first
+// design (one thread per value, its index split by three 64-bit div/mod
+// pairs, then a walk over the plane's whole entry table with three index
+// loads and six compares per entry) ran at 11-19 % of that bound on the
+// H100: it was bound by integer instructions, not by the write.  The
+// redesign rests on the windows' shape: every window is [da, da + n) on an
+// axis, so the segment starts ("edges") {0} U {da} U {da + n} inside the
+// grid split each axis into at most 4 segments (3 at r = 1 on an unpadded
+// grid), and the window sum is constant on each of the <= 64 classes
+// (segment x segment x segment).  A block computes its plane's class
+// values once, with window_sum itself at each class's first point (the
+// same entries in the same order, so the values are bit for bit the
+// per-point ones), then writes its x planes with a lookup and the mask
+// products per value.  The TPU kernels' VMEM offset splitting, transposed
+// j-factor layout and SMEM x-factor tables answered TPU memory limits and
+// have no counterpart here.
 // ---------------------------------------------------------------------------
 struct PlanePoint {
   int mi, p, j, k;
@@ -82,6 +93,111 @@ __device__ __forceinline__ T window_sum(const PlanePoint& q, int e0, int e1, int
   return acc;
 }
 
+// The launch shape and the class edges of K1 / K4 / K3, built once per
+// table by the wrapper (ops/lattice_kernels.py:fold_launch_params, FoldLaunch)
+// and read by the launcher by pointer.
+constexpr int kFoldMaxEdges = 4;  // segments per axis
+constexpr int kFoldMaxClasses = kFoldMaxEdges * kFoldMaxEdges * kFoldMaxEdges;
+constexpr int kFoldMaxEntries = 8;  // entries per plane: one per window corner, (r + 1)^3 at r = 1
+constexpr int kFoldMaxThreads = 512;
+
+struct FoldParams {
+  int n_pl, n0, n1, n2;        // planes and the grid
+  int nx, ny, nz;              // window extents
+  int n_stack;                 // factor rows (K1 / K4)
+  int ne[3];                   // segments per axis, 1 .. kFoldMaxEdges
+  int edge[3][kFoldMaxEdges];  // their starts: 0 = edge[a][0] < edge[a][1] < ... < n_a
+  int g;                       // row groups per block: thread u takes rows u / kw + g t
+  int kw;                      // columns per row group (thread u takes k = u % kw + kw t)
+  int threads;                 // g * kw rounded up to whole warps
+  int stream;                  // evict-first stores (the output exceeds the L2)
+  int stage;                   // K3: keep planes staged in shared memory
+};
+
+// The segment of x on axis a: the number of edges <= x, less one.
+__device__ __forceinline__ int fold_segment(const FoldParams& p, int a, int x) {
+  int c = 0;
+#pragma unroll
+  for (int b = 1; b < kFoldMaxEdges; ++b) c += (b < p.ne[a] && x >= p.edge[a][b]) ? 1 : 0;
+  return c;
+}
+
+struct FoldPlane {
+  int ri, ci, di, dj, dk, is_diag, e0, e1;
+};
+
+__device__ __forceinline__ FoldPlane fold_plane(const int* __restrict__ planes, int mi) {
+  const int* pl = planes + 8 * mi;
+  return FoldPlane{__ldg(pl + 0), __ldg(pl + 1), __ldg(pl + 2), __ldg(pl + 3),
+                   __ldg(pl + 4), __ldg(pl + 5), __ldg(pl + 6), __ldg(pl + 7)};
+}
+
+// A block's shared memory: the plane's entries, staged once, and its class
+// values; after them the kernel's per-row tables.
+template <typename T>
+struct FoldShared {
+  T coef[3 * kFoldMaxEntries];
+  T cls[kFoldMaxClasses];
+  int ent[3 * kFoldMaxEntries];
+};
+
+// Stage the plane's <= kFoldMaxEntries entries (one load per value, the
+// block's threads at once).  Published by the barrier that follows.
+template <typename T>
+__device__ __forceinline__ void fold_stage_entries(FoldShared<T>& sh, const FoldPlane& f,
+                                                   const int* __restrict__ ent, const T* __restrict__ coef) {
+  for (int t = threadIdx.x; t < 3 * (f.e1 - f.e0); t += blockDim.x) {
+    sh.ent[t] = __ldg(ent + 3 * f.e0 + t);
+    sh.coef[t] = __ldg(coef + 3 * f.e0 + t);
+  }
+}
+
+// The plane's class values into sh.cls[(c0 * ne1 + c1) * ne2 + c2], each at
+// the class's first point (edge[0][c0], edge[1][c1], edge[2][c2]): the sum
+// of the entries whose window holds it, in table order, with window_sum's
+// own expression, so every value is bit for bit window_sum's at any point
+// of the class (and K5's there).  The entry loop is unrolled to the
+// kFoldMaxEntries bound so that its shared-memory reads are issued
+// together.
+template <typename T>
+__device__ __forceinline__ void fold_class_values(FoldShared<T>& sh, const FoldParams& p, int n_ent, T s) {
+  const T s2 = s * s, s3 = s2 * s;
+  const int n12 = p.ne[1] * p.ne[2];
+  for (int c = threadIdx.x; c < p.ne[0] * n12; c += blockDim.x) {
+    const int x = p.edge[0][c / n12], y = p.edge[1][(c / p.ne[2]) % p.ne[1]], z = p.edge[2][c % p.ne[2]];
+    T acc = T(0);
+#pragma unroll
+    for (int e = 0; e < kFoldMaxEntries; ++e) {
+      if (e < n_ent) {
+        const int dax = sh.ent[3 * e], day = sh.ent[3 * e + 1], daz = sh.ent[3 * e + 2];
+        if (x >= dax && x < dax + p.nx && y >= day && y < day + p.ny && z >= daz && z < daz + p.nz) {
+          acc += sh.coef[3 * e] * s3 + sh.coef[3 * e + 1] * s2 + sh.coef[3 * e + 2] * s;
+        }
+      }
+    }
+    sh.cls[c] = acc;
+  }
+}
+
+// K1's / K4's per-row record in shared memory, read with one vector load:
+// kj[ri, j], kj[ci, j + dj], pj[ri, j] and the segment of j times ne[2].
+template <typename T>
+struct __align__(16) FoldRow {
+  T r, c, p;
+  int cls;
+};
+
+// An output store: plain, or evict-first (st.global.cs) for an output
+// larger than the L2, which is written once and read by a later kernel.
+template <bool STREAM, typename T>
+__device__ __forceinline__ void st_out(T* q, T v) {
+  if constexpr (STREAM) {
+    __stcs(q, v);
+  } else {
+    *q = v;
+  }
+}
+
 // K1 (and K4): separable masks.  Replaces dolfinx_mpc_tpu/ops/
 // pallas_lattice.py:_make_lean_fold_pallas_group (kernel_factored) and,
 // launched on the blocked table, make_lean_blocked_pallas.  The masks are
@@ -89,86 +205,191 @@ __device__ __forceinline__ T window_sum(const PlanePoint& q, int e0, int e1, int
 // diagval * (pad - keep), with pad the real-slot indicator.  On the blocked
 // layout pad is 0 on the padded slots, where keep is 0 too, so every padded
 // slot comes out an exact 0 (the blocked SpMV and the fold rely on that).
-template <typename T>
-__global__ void fold_assemble_kernel(T* __restrict__ out, int n_pl, int n0, int n1, int n2,
-                                     int nx, int ny, int nz,
-                                     const int* __restrict__ planes,
-                                     const int* __restrict__ ent,
-                                     const T* __restrict__ coef,
-                                     const T* __restrict__ fac, int n_stack, T s, T dv) {
-  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const PlanePoint q = split_index(idx, n0, n1, n2);
-  const int p = q.p, j = q.j, k = q.k;
-  const int* pl = planes + 8 * q.mi;
-  const int ri = __ldg(pl + 0), ci = __ldg(pl + 1);
-  const int di = __ldg(pl + 2), dj = __ldg(pl + 3), dk = __ldg(pl + 4);
-  const int is_diag = __ldg(pl + 5);
-  const int e0 = __ldg(pl + 6), e1 = __ldg(pl + 7);
-  if (e0 == e1) {  // a plane no move reaches stays zero (as in the TPU kernel)
-    out[idx] = T(0);
+//
+// A block takes plane blockIdx.y, x plane blockIdx.x.  Its threads form g
+// row groups of kw columns: thread u keeps column k = u % kw
+// (its k factors in registers) and writes rows j = u / kw, + g, ...; the
+// rows' factors and segments are staged in shared memory once (a 16-byte
+// FoldRow each, one vector load per value), beside the entries and the
+// class values, and the x factors are uniform over the block.  Everything
+// the set-up loads is issued before its first barrier, so a block waits about
+// two load latencies before it writes.  A warp's stores run along k, 4 B
+// (8 B in f64) per thread, coalesced; the row loop is unrolled so that
+// several rows' reads are in flight.  Odd row lengths (2^m + 1) leave the
+// rows unaligned; staging chunks of rows in shared memory to write them
+// with aligned 16-byte stores ran no faster on the H100 (its per-chunk
+// barriers cost what the stores saved).  A plane with no entry writes
+// zeros and reads nothing.  The products keep the first design's order,
+// acc * row * col and dv * (pad - row), with row = (ki kj) kk.  32-bit
+// index arithmetic inside a plane.
+template <typename T, bool STREAM>
+__global__ void __launch_bounds__(kFoldMaxThreads)
+fold_assemble_kernel(T* __restrict__ out, const int* __restrict__ planes, const int* __restrict__ ent,
+                     const T* __restrict__ coef, const T* __restrict__ fac, const FoldParams p, T s, T dv) {
+  extern __shared__ __align__(16) unsigned char fold_smem[];
+  const int mi = blockIdx.y, i = blockIdx.x;
+  T* const o = out + (static_cast<long long>(mi) * p.n0 + i) * p.n1 * p.n2;
+  const FoldPlane f = fold_plane(planes, mi);
+  if (f.e0 == f.e1) {  // a plane no move reaches stays zero (as in the TPU kernel)
+    for (int t = threadIdx.x; t < p.n1 * p.n2; t += blockDim.x) st_out<STREAM>(o + t, T(0));
     return;
   }
-  const T acc = window_sum(q, e0, e1, nx, ny, nz, ent, coef, s);
   // halo-padded factor rows: [ki | pi] (n_stack, n0+2), [kj | pj] (n_stack,
   // n1+2), [kk | pk] (n_stack, n2+2); index +1 skips the halo
-  const int L0 = n0 + 2, L1 = n1 + 2, L2 = n2 + 2;
+  const int L0 = p.n0 + 2, L1 = p.n1 + 2, L2 = p.n2 + 2;
   const T* ki = fac;
-  const T* pi = ki + n_stack * L0;
-  const T* kj = pi + n_stack * L0;
-  const T* pj = kj + n_stack * L1;
-  const T* kk = pj + n_stack * L1;
-  const T* pk = kk + n_stack * L2;
-  const T row = __ldg(ki + ri * L0 + p + 1) * __ldg(kj + ri * L1 + j + 1) * __ldg(kk + ri * L2 + k + 1);
-  const T col = __ldg(ki + ci * L0 + p + 1 + di) * __ldg(kj + ci * L1 + j + 1 + dj) *
-                __ldg(kk + ci * L2 + k + 1 + dk);
-  T res = acc * row * col;
-  if (is_diag) {
-    const T pad = __ldg(pi + ri * L0 + p + 1) * __ldg(pj + ri * L1 + j + 1) * __ldg(pk + ri * L2 + k + 1);
-    res += dv * (pad - row);
+  const T* pi = ki + p.n_stack * L0;
+  const T* kj = pi + p.n_stack * L0;
+  const T* pj = kj + p.n_stack * L1;
+  const T* kk = pj + p.n_stack * L1;
+  const T* pk = kk + p.n_stack * L2;
+  FoldShared<T>& sh = *reinterpret_cast<FoldShared<T>*>(fold_smem);
+  FoldRow<T>* rows = reinterpret_cast<FoldRow<T>*>(fold_smem + sizeof(FoldShared<T>));
+  fold_stage_entries(sh, f, ent, coef);
+  for (int j = threadIdx.x; j < p.n1; j += blockDim.x) {
+    rows[j] = FoldRow<T>{__ldg(kj + f.ri * L1 + j + 1), __ldg(kj + f.ci * L1 + j + 1 + f.dj),
+                         __ldg(pj + f.ri * L1 + j + 1), fold_segment(p, 1, j) * p.ne[2]};
   }
-  out[idx] = res;
+  const int jg = threadIdx.x / p.kw;
+  int k = threadIdx.x - jg * p.kw;
+  const T ir = __ldg(ki + f.ri * L0 + i + 1), ic = __ldg(ki + f.ci * L0 + i + 1 + f.di);
+  const T ip = __ldg(pi + f.ri * L0 + i + 1);
+  T kr = T(0), kc = T(0), kp = T(0);
+  if (k < p.n2) {
+    kr = __ldg(kk + f.ri * L2 + k + 1);
+    kc = __ldg(kk + f.ci * L2 + k + 1 + f.dk);
+    kp = __ldg(pk + f.ri * L2 + k + 1);
+  }
+  __syncthreads();
+  fold_class_values(sh, p, f.e1 - f.e0, s);
+  __syncthreads();
+  if (jg >= p.g) return;
+  const T* ci = sh.cls + fold_segment(p, 0, i) * p.ne[1] * p.ne[2];
+  const int step = p.g * p.n2;
+  for (; k < p.n2; k += p.kw) {
+    if (k >= p.kw) {
+      kr = __ldg(kk + f.ri * L2 + k + 1);
+      kc = __ldg(kk + f.ci * L2 + k + 1 + f.dk);
+      kp = __ldg(pk + f.ri * L2 + k + 1);
+    }
+    const T* cv = ci + fold_segment(p, 2, k);
+    T* q = o + jg * p.n2 + k;
+    if (f.is_diag) {
+#pragma unroll 4
+      for (int j = jg; j < p.n1; j += p.g, q += step) {
+        const FoldRow<T> w = rows[j];
+        const T row = ir * w.r * kr;
+        const T res = cv[w.cls] * row * (ic * w.c * kc);
+        const T pad = ip * w.p * kp;
+        st_out<STREAM>(q, res + dv * (pad - row));
+      }
+    } else {
+#pragma unroll 4
+      for (int j = jg; j < p.n1; j += p.g, q += step) {
+        const FoldRow<T> w = rows[j];
+        const T row = ir * w.r * kr;
+        st_out<STREAM>(q, cv[w.cls] * row * (ic * w.c * kc));
+      }
+    }
+  }
+}
+
+// K3's keep reads: from the staged planes in shared memory, or from the L2.
+template <bool STAGE>
+__device__ __forceinline__ unsigned char ld_keep(const unsigned char* q) {
+  if constexpr (STAGE) {
+    return *q;
+  } else {
+    return __ldg(q);
+  }
+}
+
+template <typename T, bool STREAM, bool STAGE>
+__device__ __forceinline__ void fold_masked_rows(T* q, const T* cv, const int* jcls, const unsigned char* kr,
+                                                 const unsigned char* kc, const T* id, int jg, int n1, int g,
+                                                 int step, int kstep, bool diag, T dv) {
+  if (diag) {
+#pragma unroll 4
+    for (int j = jg; j < n1; j += g, q += step, kr += kstep, kc += kstep, id += step)
+      st_out<STREAM>(q, cv[jcls[j]] * T(ld_keep<STAGE>(kr)) * T(ld_keep<STAGE>(kc)) + dv * __ldg(id));
+  } else {
+#pragma unroll 4
+    for (int j = jg; j < n1; j += g, q += step, kr += kstep, kc += kstep)
+      st_out<STREAM>(q, cv[jcls[j]] * T(ld_keep<STAGE>(kr)) * T(ld_keep<STAGE>(kc)));
+  }
 }
 
 // K3: masks read from memory.  Replaces dolfinx_mpc_tpu/ops/
 // pallas_lattice.py:kernel_masked (fuse mode "2d"), on either layout.  keep
 // is the halo-padded keep stack (n_stack, n0+2, n1+2, n2+2), so the shifted
 // column read (|d| <= 1) never leaves it; ind is the bc multiplicity stack
-// (n_stack, n0, n1, n2), added times diagval on the diagonal planes.  Two
-// or three extra reads per output value, served mostly by L1/L2 (the keep
-// stack is 4 % of the output's size on the blocked layout); no VMEM budget
-// means no size limit, unlike the TPU kernel.
-template <typename T>
-__global__ void fold_assemble_masked_kernel(T* __restrict__ out, int n_pl, int n0, int n1, int n2,
-                                            int nx, int ny, int nz,
-                                            const int* __restrict__ planes,
-                                            const int* __restrict__ ent,
-                                            const T* __restrict__ coef,
-                                            const T* __restrict__ keep,
-                                            const T* __restrict__ ind, T s, T dv) {
-  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const PlanePoint q = split_index(idx, n0, n1, n2);
-  const int* pl = planes + 8 * q.mi;
-  const int ri = __ldg(pl + 0), ci = __ldg(pl + 1);
-  const int di = __ldg(pl + 2), dj = __ldg(pl + 3), dk = __ldg(pl + 4);
-  const int is_diag = __ldg(pl + 5);
-  const int e0 = __ldg(pl + 6), e1 = __ldg(pl + 7);
-  if (e0 == e1) {
-    out[idx] = T(0);
+// (n_stack, n0, n1, n2), added times diagval on the diagonal planes (and
+// read only there).  K1's block and thread layout, set-up and class values.
+// The keep stack holds only 0 and 1, so the kernel reads it as bytes (a
+// copy the wrapper makes once per table, 2.4 MB at P2 n=64 instead of 9.6).
+// Per value it needs the row plane keep[ri, i] and the shifted column
+// plane keep[ci, i + di] at (j, k): with STAGE a block first copies both
+// halo planes (4.5 KB each at 65^2) into shared memory with 4-byte loads,
+// so the row loop reads shared memory only (read from the L2 value by
+// value, bytes or not, the loads' latency kept K3 P2 well behind K4 on the
+// H100).  Without STAGE (planes beyond a block's shared memory)
+// the reads go to the L2, coalesced along k.  The stores are K1's.  No
+// VMEM budget means no size limit, unlike the TPU kernel.
+template <typename T, bool STREAM, bool STAGE>
+__global__ void __launch_bounds__(kFoldMaxThreads)
+fold_assemble_masked_kernel(T* __restrict__ out, const int* __restrict__ planes, const int* __restrict__ ent,
+                            const T* __restrict__ coef, const unsigned char* __restrict__ keep,
+                            const T* __restrict__ ind, const FoldParams p, T s, T dv) {
+  extern __shared__ __align__(16) unsigned char fold_smem[];
+  const int mi = blockIdx.y, i = blockIdx.x;
+  const int P = p.n1 * p.n2;
+  T* const o = out + (static_cast<long long>(mi) * p.n0 + i) * P;
+  const FoldPlane f = fold_plane(planes, mi);
+  if (f.e0 == f.e1) {
+    for (int t = threadIdx.x; t < P; t += blockDim.x) st_out<STREAM>(o + t, T(0));
     return;
   }
-  const T acc = window_sum(q, e0, e1, nx, ny, nz, ent, coef, s);
-  const long long L0 = n0 + 2, L1 = n1 + 2, L2 = n2 + 2;
-  const T row = __ldg(keep + ((ri * L0 + q.p + 1) * L1 + q.j + 1) * L2 + q.k + 1);
-  const T col = __ldg(keep + ((ci * L0 + q.p + 1 + di) * L1 + q.j + 1 + dj) * L2 + q.k + 1 + dk);
-  T res = acc * row * col;
-  if (is_diag) {
-    res += dv * __ldg(ind + ((static_cast<long long>(ri) * n0 + q.p) * n1 + q.j) * n2 + q.k);
+  FoldShared<T>& sh = *reinterpret_cast<FoldShared<T>*>(fold_smem);
+  int* jcls = reinterpret_cast<int*>(fold_smem + sizeof(FoldShared<T>));  // segment of j times ne[2]
+  unsigned int* kst = reinterpret_cast<unsigned int*>(jcls + p.n1);      // STAGE: the two keep planes
+  const int L2 = p.n2 + 2;
+  const int L12 = (p.n1 + 2) * L2;
+  const int words = L12 / 4 + 2;  // a staged halo plane, from its start rounded down to 4 bytes
+  const long long L0 = p.n0 + 2;
+  const unsigned char* kr0 = keep + (f.ri * L0 + i + 1) * L12;  // halo plane of the row mask
+  const unsigned char* kc0 = keep + (f.ci * L0 + i + 1 + f.di) * L12;
+  const unsigned char* rb;  // the two planes as the row loop reads them
+  const unsigned char* cb;
+  fold_stage_entries(sh, f, ent, coef);
+  for (int j = threadIdx.x; j < p.n1; j += blockDim.x) jcls[j] = fold_segment(p, 1, j) * p.ne[2];
+  if constexpr (STAGE) {
+    const int ar = static_cast<int>(reinterpret_cast<size_t>(kr0) & 3);
+    const int ac = static_cast<int>(reinterpret_cast<size_t>(kc0) & 3);
+    const unsigned int* wr = reinterpret_cast<const unsigned int*>(kr0 - ar);
+    const unsigned int* wc = reinterpret_cast<const unsigned int*>(kc0 - ac);
+    for (int w = threadIdx.x; w < words; w += blockDim.x) {
+      kst[w] = __ldg(wr + w);
+      kst[words + w] = __ldg(wc + w);
+    }
+    rb = reinterpret_cast<const unsigned char*>(kst) + ar;
+    cb = reinterpret_cast<const unsigned char*>(kst + words) + ac;
+  } else {
+    rb = kr0;
+    cb = kc0;
   }
-  out[idx] = res;
+  __syncthreads();
+  fold_class_values(sh, p, f.e1 - f.e0, s);
+  __syncthreads();
+  const int jg = threadIdx.x / p.kw;
+  if (jg >= p.g) return;
+  const T* ci = sh.cls + fold_segment(p, 0, i) * p.ne[1] * p.ne[2];
+  const int step = p.g * p.n2, kstep = p.g * L2;
+  for (int k = threadIdx.x - jg * p.kw; k < p.n2; k += p.kw) {
+    const int r0 = (jg + 1) * L2 + k + 1, c0 = (jg + 1 + f.dj) * L2 + k + 1 + f.dk;
+    const T* id = ind + (static_cast<long long>(f.ri) * p.n0 + i) * P + jg * p.n2 + k;
+    fold_masked_rows<T, STREAM, STAGE>(o + jg * p.n2 + k, ci + fold_segment(p, 2, k), jcls, rb + r0, cb + c0, id,
+                                       jg, p.n1, p.g, step, kstep, f.is_diag, dv);
+  }
 }
 
 // Unmasked value on the r-refined grid (r = R > 1): entry e's box q lands
@@ -197,9 +418,11 @@ __device__ __forceinline__ T window_sum_strided(const PlanePoint& q, int e0, int
 // kernel (fuse_mode None), which the JAX package runs for a form without
 // Dirichlet dofs, where every mask is the identity: on the vertex grid (any
 // bs) and on the blocked class grids (degree 2) at R = 1, and on the
-// refined degree-2 grid at R = 2.  K1's thread layout and the same bound,
-// the single coalesced write; at R = 1 the value is window_sum itself, so
-// the result equals K1's with unit factors bit for bit.  At R = 2 a point
+// refined degree-2 grid at R = 2.  One thread per value, the same bound,
+// the single coalesced write; at R = 1
+// the value is window_sum itself, the sum K1's class values take in the
+// same order, so the result equals K1's with unit factors bit for bit.  At
+// R = 2 a point
 // meets only the entries whose corner shares its parity, and the window
 // ends at the last box (R (n - 1) + d <= n1 - 1: the TPU kernel's clip at
 // n1 - day never cuts a written value).
@@ -709,26 +932,82 @@ int launch_fold_assemble_raw(T* out, int n_pl, int n0, int n1, int n2, int nx, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of an assembler block: the entries and class values, per
+// row j the segment and (K1 / K4) the three factor rows, and (K3 with
+// stage) the two keep planes.
 template <typename T>
-int launch_fold_assemble(T* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
-                         const int* planes, const int* ent, const T* coef, const T* fac,
-                         int n_stack, T s, T dv, void* stream) {
-  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
-  if (total == 0) return 0;
-  fold_assemble_kernel<T><<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, fac, n_stack, s, dv);
+size_t fold_smem_bytes(const FoldParams& p, bool masked) {
+  if (!masked) return sizeof(FoldShared<T>) + static_cast<size_t>(p.n1) * sizeof(FoldRow<T>);
+  const size_t words = static_cast<size_t>(p.n1 + 2) * (p.n2 + 2) / 4 + 2;
+  return sizeof(FoldShared<T>) + sizeof(int) * static_cast<size_t>(p.n1) + (p.stage ? 8 * words : 0);
+}
+
+inline bool fold_params_ok(const FoldParams& p) {
+  if (p.g < 1 || p.kw < 1 || p.threads < 32 || p.threads > kFoldMaxThreads || p.threads % 32 != 0 ||
+      p.g * p.kw > p.threads || p.n_pl > 65535)
+    return false;
+  for (int a = 0; a < 3; ++a)
+    if (p.ne[a] < 1 || p.ne[a] > kFoldMaxEdges || p.edge[a][0] != 0) return false;
+  return true;
+}
+
+template <typename T, bool STREAM>
+int launch_fold_assemble_s(T* out, const int* planes, const int* ent, const T* coef, const T* fac,
+                           const FoldParams& p, T s, T dv, cudaStream_t st) {
+  static size_t granted[kMaxDevices] = {};
+  const size_t smem = fold_smem_bytes<T>(p, false);
+  const int e = smem_opt_in(reinterpret_cast<const void*>(fold_assemble_kernel<T, STREAM>), smem, granted);
+  if (e != 0) return e;
+  const dim3 grid(static_cast<unsigned int>(p.n0), static_cast<unsigned int>(p.n_pl));
+  fold_assemble_kernel<T, STREAM><<<grid, p.threads, smem, st>>>(out, planes, ent, coef, fac, p, s, dv);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1's and K4's launcher; params: the FoldParams block the wrapper built
+// once per table (ops/lattice_kernels.py:FoldLaunch).
 template <typename T>
-int launch_fold_assemble_masked(T* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
-                                const int* planes, const int* ent, const T* coef, const T* keep,
-                                const T* ind, T s, T dv, void* stream) {
-  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
-  if (total == 0) return 0;
-  fold_assemble_masked_kernel<T><<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, keep, ind, s, dv);
+int launch_fold_assemble(T* out, const int* planes, const int* ent, const T* coef, const T* fac,
+                         const FoldParams* p, T s, T dv, void* stream) {
+  if (!fold_params_ok(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(p->n_pl) * p->n0 * p->n1 * p->n2 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return p->stream ? launch_fold_assemble_s<T, true>(out, planes, ent, coef, fac, *p, s, dv, st)
+                   : launch_fold_assemble_s<T, false>(out, planes, ent, coef, fac, *p, s, dv, st);
+}
+
+template <typename T, bool STREAM, bool STAGE>
+int launch_fold_assemble_masked_s(T* out, const int* planes, const int* ent, const T* coef,
+                                  const unsigned char* keep, const T* ind, const FoldParams& p, T s, T dv,
+                                  cudaStream_t st) {
+  static size_t granted[kMaxDevices] = {};
+  const size_t smem = fold_smem_bytes<T>(p, true);
+  const int e = smem_opt_in(reinterpret_cast<const void*>(fold_assemble_masked_kernel<T, STREAM, STAGE>), smem,
+                            granted);
+  if (e != 0) return e;
+  const dim3 grid(static_cast<unsigned int>(p.n0), static_cast<unsigned int>(p.n_pl));
+  fold_assemble_masked_kernel<T, STREAM, STAGE><<<grid, p.threads, smem, st>>>(out, planes, ent, coef, keep,
+                                                                               ind, p, s, dv);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool STREAM>
+int launch_fold_assemble_masked_t(T* out, const int* planes, const int* ent, const T* coef,
+                                  const unsigned char* keep, const T* ind, const FoldParams& p, T s, T dv,
+                                  cudaStream_t st) {
+  return p.stage ? launch_fold_assemble_masked_s<T, STREAM, true>(out, planes, ent, coef, keep, ind, p, s, dv, st)
+                 : launch_fold_assemble_masked_s<T, STREAM, false>(out, planes, ent, coef, keep, ind, p, s, dv, st);
+}
+
+// K3's launcher, on the same parameter block.
+template <typename T>
+int launch_fold_assemble_masked(T* out, const int* planes, const int* ent, const T* coef,
+                                const unsigned char* keep, const T* ind, const FoldParams* p, T s, T dv,
+                                void* stream) {
+  if (!fold_params_ok(*p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(p->n_pl) * p->n0 * p->n1 * p->n2 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return p->stream ? launch_fold_assemble_masked_t<T, true>(out, planes, ent, coef, keep, ind, *p, s, dv, st)
+                   : launch_fold_assemble_masked_t<T, false>(out, planes, ent, coef, keep, ind, *p, s, dv, st);
 }
 
 }  // namespace
@@ -772,34 +1051,35 @@ int dmt_fold_assemble_raw_f64(double* out, int n_pl, int n0, int n1, int n2, int
                                           s, stream);
 }
 
-int dmt_fold_assemble_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
-                          const int* planes, const int* ent, const float* coef, const float* fac,
-                          int n_stack, float s, float dv, void* stream) {
-  return launch_fold_assemble<float>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, fac,
-                                     n_stack, s, dv, stream);
+// params: a FoldParams block (K1 / K4 and K3), built by the wrapper once per
+// table
+int dmt_fold_assemble_f32(float* out, const int* planes, const int* ent, const float* coef, const float* fac,
+                          const void* params, float s, float dv, void* stream) {
+  return launch_fold_assemble<float>(out, planes, ent, coef, fac, static_cast<const FoldParams*>(params), s, dv,
+                                     stream);
 }
 
-int dmt_fold_assemble_f64(double* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
-                          const int* planes, const int* ent, const double* coef,
-                          const double* fac, int n_stack, double s, double dv, void* stream) {
-  return launch_fold_assemble<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, fac,
-                                      n_stack, s, dv, stream);
+int dmt_fold_assemble_f64(double* out, const int* planes, const int* ent, const double* coef,
+                          const double* fac, const void* params, double s, double dv, void* stream) {
+  return launch_fold_assemble<double>(out, planes, ent, coef, fac, static_cast<const FoldParams*>(params), s, dv,
+                                      stream);
 }
 
-int dmt_fold_assemble_masked_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny,
-                                 int nz, const int* planes, const int* ent, const float* coef,
-                                 const float* keep, const float* ind, float s, float dv,
-                                 void* stream) {
-  return launch_fold_assemble_masked<float>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef,
-                                            keep, ind, s, dv, stream);
+// keep: the keep stack as bytes (0 / 1), made by the wrapper once per table,
+// with 8 bytes or more after its end (a staged halo plane of L bytes is read
+// as L / 4 + 2 words from its start rounded down to 4 bytes)
+int dmt_fold_assemble_masked_f32(float* out, const int* planes, const int* ent, const float* coef,
+                                 const unsigned char* keep, const float* ind, const void* params, float s,
+                                 float dv, void* stream) {
+  return launch_fold_assemble_masked<float>(out, planes, ent, coef, keep, ind,
+                                            static_cast<const FoldParams*>(params), s, dv, stream);
 }
 
-int dmt_fold_assemble_masked_f64(double* out, int n_pl, int n0, int n1, int n2, int nx, int ny,
-                                 int nz, const int* planes, const int* ent, const double* coef,
-                                 const double* keep, const double* ind, double s, double dv,
-                                 void* stream) {
-  return launch_fold_assemble_masked<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef,
-                                             keep, ind, s, dv, stream);
+int dmt_fold_assemble_masked_f64(double* out, const int* planes, const int* ent, const double* coef,
+                                 const unsigned char* keep, const double* ind, const void* params, double s,
+                                 double dv, void* stream) {
+  return launch_fold_assemble_masked<double>(out, planes, ent, coef, keep, ind,
+                                             static_cast<const FoldParams*>(params), s, dv, stream);
 }
 
 }  // extern "C"

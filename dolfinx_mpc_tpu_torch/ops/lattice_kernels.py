@@ -5,7 +5,8 @@ Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
 
 - **K1** ``assemble_fold_lean_factored`` replaces the factored-mask fused
   lean-fold assembler (``_make_lean_fold_pallas_group`` -> ``kernel_factored``,
-  entry ``make_lean_fold_pallas(fuse_mask=True)``) on the vertex grid.
+  entry ``make_lean_fold_pallas(fuse_mask=True)``) on the vertex grid;
+  ``FoldLaunch`` is its launch (and K3's and K4's) prepared once per table.
 - **K2** ``dia_matvec`` replaces the scalar DIA SpMV
   (``_make_dia_matvec_group``, entry ``make_dia_matvec_pallas``);
   ``DiaMatvecLaunch`` is its launch prepared once per operator.
@@ -51,6 +52,7 @@ from .._dtypes import numpy_dtype
 from .._launch import launch_check, on_device
 
 __all__ = [
+    "FoldLaunch",
     "FoldTable",
     "assemble_fold_lean_blocked",
     "assemble_fold_lean_factored",
@@ -72,11 +74,16 @@ __all__ = [
     "dia_matvec",
     "dia_matvec_bs",
     "dia_matvec_plain",
+    "fold_edges",
     "fold_kernel_supported",
+    "fold_launch_params",
     "k2_halo_width",
 ]
 
 _FLOATS = (torch.float32, torch.float64)
+_SMEM_MAX = 232448  # shared memory one block may use on the H100
+_SMS = 132
+_L2_BYTES = 50 * 2 ** 20  # outputs and operators beyond the L2 stream evict-first
 
 
 def declare_signatures(lib: ctypes.CDLL) -> None:
@@ -87,10 +94,10 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
         mv.argtypes = [P, P, P, P, P]
         mv.restype = I
         fa = getattr(lib, f"dmt_fold_assemble_{suf}")
-        fa.argtypes = [P, I, I, I, I, I, I, I, P, P, P, P, I, F, F, P]
+        fa.argtypes = [P, P, P, P, P, P, F, F, P]
         fa.restype = I
         fm = getattr(lib, f"dmt_fold_assemble_masked_{suf}")
-        fm.argtypes = [P, I, I, I, I, I, I, I, P, P, P, P, P, F, F, P]
+        fm.argtypes = [P, P, P, P, P, P, P, F, F, P]
         fm.restype = I
         bm = getattr(lib, f"dmt_blocked_matvec_{suf}")
         bm.argtypes = [P, P, P, P, P, P]
@@ -245,12 +252,17 @@ class FoldTableDevice:
     """FoldTable tensors on one device: int32 planes/entries, coefficients
     and the masks in the working dtype — the packed factor buffer
     [ki | pi | kj | pj | kk | pk] (factored), the keep and bc stacks
-    (masked), or none (raw)."""
+    (masked), or none (raw) — and the class edges of the windows (at
+    refine 1).  On a CUDA device the assemblers' launches are prepared once
+    per table (``launch``)."""
 
     def __init__(self, table: FoldTable, device, dtype):
         self.vshape, self.dims = table.vshape, table.dims
         self.n_planes = table.n_planes
         self.blocked, self.refine = table.blocked, table.refine
+        self.edges = fold_edges(table.vshape, table.dims, table.ent) if table.refine == 1 else None
+        self.n_entries = int((table.planes[:, 7] - table.planes[:, 6]).max(initial=0))
+        self._launches = {}
         self.dtype = dtype
         self.planes = torch.as_tensor(table.planes, dtype=torch.int32, device=device).contiguous()
         self.ent = torch.as_tensor(table.ent, dtype=torch.int32, device=device).contiguous()
@@ -273,6 +285,17 @@ class FoldTableDevice:
     @property
     def device(self):
         return self.coef.device
+
+    def launch(self, masks, blocked=None) -> "FoldLaunch":
+        """The prepared K1 / K4 ("factored") or K3 ("masked") launch on this
+        table, made at the first call; raises for a table off the card, or
+        for one not on the `blocked` layout where that is given (K1 False,
+        K4 True)."""
+        key = (masks, blocked)
+        got = self._launches.get(key)
+        if got is None:
+            got = self._launches[key] = FoldLaunch(self, masks, blocked)
+        return got
 
 
 def build_fold_table(clf, factors=None, keep=None, bc_ind=None, _refined=False) -> FoldTable:
@@ -490,28 +513,153 @@ def _check_table(tab, name, masks, blocked=None):
         raise ValueError(f"{name}: the table is {'' if tab.blocked else 'not '}on the blocked layout")
 
 
+# K1's, K4's and K3's launch limits (csrc/lattice_kernels.cu)
+_FOLD_MAX_EDGES = 4  # kFoldMaxEdges: segments per axis
+_FOLD_MAX_CLASSES = _FOLD_MAX_EDGES ** 3
+_FOLD_MAX_ENTRIES = 8  # kFoldMaxEntries: entries per plane
+_FOLD_MAX_THREADS = 512  # kFoldMaxThreads
+
+
+class FoldParams(ctypes.Structure):
+    """The parameter block of K1 / K4 and K3 (struct FoldParams of
+    csrc/lattice_kernels.cu), built once per table: planes and grid, window
+    extents, factor rows, the class edges per axis, and the launch shape
+    (row groups x columns per row group, threads, evict-first stores, K3's
+    keep planes staged in shared memory)."""
+
+    _fields_ = [("n_pl", ctypes.c_int), ("n0", ctypes.c_int), ("n1", ctypes.c_int), ("n2", ctypes.c_int),
+                ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int), ("n_stack", ctypes.c_int),
+                ("ne", ctypes.c_int * 3), ("edge", (ctypes.c_int * _FOLD_MAX_EDGES) * 3), ("g", ctypes.c_int), ("kw", ctypes.c_int), ("threads", ctypes.c_int), ("stream", ctypes.c_int),
+                ("stage", ctypes.c_int)]
+
+
+def fold_edges(vshape, dims, ent) -> tuple:
+    """The class edges of a refine-1 fold table: per axis the sorted segment
+    starts {0} ∪ {da} ∪ {da + n} over every entry's window [da, da + n),
+    those inside the grid.  Between two edges every point lies in the same
+    windows, so each plane's window sum is constant on the classes (one
+    segment per axis), at most 4 x 4 x 4 of them (3 per axis on the
+    unpadded grids: {0}, [1, n), {n})."""
+    ent = np.asarray(ent).reshape(-1, 3)
+    out = []
+    for a in range(3):
+        da = {int(v) for v in ent[:, a]}
+        starts = {0} | da | {d + int(dims[a]) for d in da}
+        out.append(tuple(v for v in sorted(starts) if 0 <= v < int(vshape[a])))
+    return tuple(out)
+
+
+def _fold_row_groups(n1, kw):
+    """Row groups of kw columns per block: three where they fit (224
+    threads at 65 columns, 416 at 129), which on the H100 beat one, two and
+    six at 65^3 and 129^3 (chip_smoke.py's sweep)."""
+    return max(1, min(3, _FOLD_MAX_THREADS // kw, n1))
+
+
+def fold_smem_bytes(n1, n2, itemsize, masked, stage) -> int:
+    """Shared memory of a K1 / K4 or K3 block (fold_smem_bytes of
+    csrc/lattice_kernels.cu): the staged entries and class values, per row
+    a FoldRow (K1 / K4) or a segment (K3), and K3's two staged keep
+    planes."""
+    shared = (3 * _FOLD_MAX_ENTRIES + _FOLD_MAX_CLASSES) * itemsize + 3 * _FOLD_MAX_ENTRIES * 4
+    if not masked:
+        return shared + n1 * 4 * itemsize
+    return shared + 4 * n1 + (8 * ((n1 + 2) * (n2 + 2) // 4 + 2) if stage else 0)
+
+
+def fold_launch_params(vshape, dims, edges, n_planes, n_stack=0, itemsize=4, masked=False,
+                       n_entries=8) -> FoldParams:
+    """The parameter block of K1 / K4 (masked=False) or K3 for a table of
+    `n_planes` planes on the (n0, n1, n2) grid with windows of `dims` and
+    class `edges` (fold_edges), whose planes hold at most `n_entries`
+    entries.  One block per (plane, x plane): two x planes per block were
+    slower for K1 and K4 at every path shape on the H100 and within a few %
+    for K3.  Threads: g row groups (_fold_row_groups) of kw = min(n2, 512)
+    columns; evict-first stores where the output exceeds the 50 MB L2; K3
+    stages its two keep planes in shared memory where they fit in what a
+    block may use (planes up to 337 x 337 points; 35 KB at 129 x 129),
+    else reads them from the L2.  Raises where the kernel cannot take the
+    table: more than 4 segments on an axis, more than 8 entries on a plane,
+    more than 65,535 planes, planes of 2^31 values or more, or rows beyond
+    one block's shared memory."""
+    n0, n1, n2 = (int(v) for v in vshape)
+    name = "assemble_fold_lean_masked" if masked else "assemble_fold_lean_factored"
+    if len(edges) != 3 or any(not 1 <= len(e) <= _FOLD_MAX_EDGES or e[0] != 0 for e in edges):
+        raise ValueError(f"{name}: class edges {edges} (1 to {_FOLD_MAX_EDGES} per axis, from 0)")
+    if not 1 <= n_planes <= 65535:
+        raise ValueError(f"{name}: {n_planes} planes (the kernel takes 1 to 65535)")
+    if n_entries > _FOLD_MAX_ENTRIES:
+        raise ValueError(f"{name}: a plane holds {n_entries} entries (the kernel takes {_FOLD_MAX_ENTRIES})")
+    kw = min(n2, _FOLD_MAX_THREADS)
+    g = _fold_row_groups(n1, kw)
+    if fold_smem_bytes(n1, n2, itemsize, masked, False) > _SMEM_MAX:
+        raise ValueError(f"{name}: {n1} rows need more shared memory than a block has")
+    if n1 * n2 >= 2 ** 31:
+        raise ValueError(f"{name}: planes of {n1} x {n2} values hold 2^31 values or more")
+    p = FoldParams(n_pl=n_planes, n0=n0, n1=n1, n2=n2, nx=int(dims[0]), ny=int(dims[1]), nz=int(dims[2]),
+                   n_stack=n_stack, g=g, kw=kw, threads=-(-g * kw // 32) * 32,
+                   stream=int(n_planes * n0 * n1 * n2 * itemsize > _L2_BYTES),
+                   stage=int(masked and fold_smem_bytes(n1, n2, itemsize, True, True) <= _SMEM_MAX))
+    for a, e in enumerate(edges):
+        p.ne[a] = len(e)
+        for b, v in enumerate(e):
+            p.edge[a][b] = v
+    return p
+
+
+class FoldLaunch:
+    """K1 / K4 (masks "factored") or K3 ("masked") prepared once per table
+    on the card (FoldTableDevice.launch): the device checks, the parameter
+    block, the ctypes function of the dtype and the table's pointers.  A
+    call allocates the output, reads the current stream and makes one
+    ctypes call with s = 1 + jitter and diagval."""
+
+    def __init__(self, tab: FoldTableDevice, masks, blocked=None):
+        name = ("assemble_fold_lean_masked" if masks == "masked" else
+                "assemble_fold_lean_blocked" if blocked else "assemble_fold_lean_factored")
+        _check_table(tab, name, masks, blocked)
+        from .._build import load_kernels
+
+        self.name = name
+        itemsize = torch.empty((), dtype=tab.dtype).element_size()
+        self.params = fold_launch_params(tab.vshape, tab.dims, tab.edges, tab.n_planes, tab.n_stack, itemsize,
+                                         masks == "masked", tab.n_entries)
+        self.shape = (tab.n_planes,) + tuple(tab.vshape)
+        self.tab = tab  # keeps the pointers valid
+        self.device, self.dtype = tab.device, tab.dtype
+        self.index = tab.device.index if tab.device.index is not None else torch.cuda.current_device()
+        self.F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
+        lib = load_kernels()
+        if masks == "factored":
+            masks_ptrs = (tab.fac.data_ptr(),)
+        else:
+            # K3 reads the 0 / 1 keep stack as bytes, a copy kept here with
+            # 16 bytes after its end (staged planes are read in 4-byte words)
+            n = tab.keep.numel()
+            self.keep8 = torch.zeros(n + 16, dtype=torch.uint8, device=tab.device)
+            self.keep8[:n] = tab.keep.reshape(-1).to(torch.uint8)
+            if not torch.equal(self.keep8[:n].to(tab.dtype), tab.keep.reshape(-1)):
+                raise ValueError(f"{name}: the keep stack holds values other than 0 and 1")
+            masks_ptrs = (self.keep8.data_ptr(), tab.bc_ind.data_ptr())
+        self.fn = getattr(lib, f"dmt_fold_assemble{'_masked' if masks == 'masked' else ''}_{_suffix(tab.dtype)}")
+        self.args = (tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), *masks_ptrs,
+                     ctypes.addressof(self.params))
+
+    def __call__(self, jitter, diagval):
+        out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        op, args = out.data_ptr(), self.args
+        s, dv = self.F(1.0 + float(jitter)), self.F(float(diagval))
+        launch_check(on_device(self.index, lambda st: self.fn(op, *args, s, dv, st)), self.name)
+        return out
+
+
 def _fold_factored(wrapper, blocked, tab: FoldTableDevice, jitter, diagval):
     """The body of K1's and K4's wrappers: the plain version on a CPU table,
-    else one launch of fold_assemble_kernel, counted on `wrapper`."""
+    else one launch of fold_assemble_kernel through the table's prepared
+    launch, counted on `wrapper`."""
     if tab.device.type == "cpu":
         return assemble_fold_lean_factored_plain(tab, jitter, diagval)
-    name = wrapper.__name__
-    _check_table(tab, name, "factored", blocked=blocked)
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    dev = tab.device
-    n0, n1, n2 = tab.vshape
-    nx, ny, nz = tab.dims
-    out = torch.empty((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=dev)
-    F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
-    with torch.cuda.device(dev):
-        rc = getattr(lib, f"dmt_fold_assemble_{_suffix(tab.dtype)}")(
-            out.data_ptr(), tab.n_planes, n0, n1, n2, nx, ny, nz,
-            tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), tab.fac.data_ptr(),
-            tab.n_stack, F(1.0 + float(jitter)), F(float(diagval)),
-            torch.cuda.current_stream(dev).cuda_stream)
-    launch_check(rc, name)
+    out = tab.launch("factored", blocked)(jitter, diagval)
     wrapper.launches += 1
     return out
 
@@ -523,9 +671,12 @@ def assemble_fold_lean_factored(tab: FoldTableDevice, jitter, diagval):
     Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
     _make_lean_fold_pallas_group -> kernel_factored.  On the card it is
     bound by its single write of the output (16.5 MB per fine-level assembly
-    at n=64 in f32): one thread per output value, k fastest for coalesced
-    stores, the ~10^2-entry table and the factor rows read through the
-    read-only cache.  CPU tables run the plain version."""
+    at n=64 in f32): a block per (plane, x plane) computes the
+    plane's window sums once per class of points (fold_edges: at most 64,
+    27 on the vertex grid) and writes each value as a lookup times the
+    separable row and column mask factors, k fastest for coalesced stores.
+    The launch is prepared once per table (FoldTableDevice.launch).  CPU
+    tables run the plain version."""
     return _fold_factored(assemble_fold_lean_factored, False, tab, jitter, diagval)
 
 
@@ -542,7 +693,8 @@ def assemble_fold_lean_blocked(tab: FoldTableDevice, jitter, diagval):
     here too it launches K1's device code, on the blocked table (8 classes,
     230 triples for P2 tets, per-class pad factors so that every padded
     slot comes out an exact 0).  Bound by the write: 230 x 65^3 values,
-    253 MB at n=64 in f32.  CPU tables run the plain version."""
+    253 MB at n=64 in f32, stored evict-first (beyond the L2).  CPU tables
+    run the plain version."""
     return _fold_factored(assemble_fold_lean_blocked, True, tab, jitter, diagval)
 
 
@@ -554,30 +706,17 @@ def assemble_fold_lean_masked(tab: FoldTableDevice, jitter, diagval):
     layout (DIA planes on the vertex grid, triples on the class grids).
 
     Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
-    kernel_masked (fuse mode "2d").  K1's thread layout; the masks are two
-    reads of the halo-padded keep stack (row and shifted column) and, on
-    the diagonal planes, one of the bc multiplicity stack, all from device
-    memory.  Bound by the write plus those reads; there is no VMEM budget,
-    so the JAX package's "2d" size limit is not carried.  CPU tables run
+    kernel_masked (fuse mode "2d").  K1's block layout and class values;
+    the masks are two reads of the halo-padded keep stack (row and shifted
+    column, coalesced along k, as bytes from a copy the prepared launch
+    keeps: L2-resident) and, on the diagonal planes only, one of the bc
+    multiplicity stack.  Bound by the write plus those
+    reads; there is no VMEM budget, so the JAX package's "2d" size limit is
+    not carried.  The launch is prepared once per table.  CPU tables run
     the plain version."""
     if tab.device.type == "cpu":
         return assemble_fold_lean_masked_plain(tab, jitter, diagval)
-    _check_table(tab, "assemble_fold_lean_masked", "masked")
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    dev = tab.device
-    n0, n1, n2 = tab.vshape
-    nx, ny, nz = tab.dims
-    out = torch.empty((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=dev)
-    F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
-    with torch.cuda.device(dev):
-        rc = getattr(lib, f"dmt_fold_assemble_masked_{_suffix(tab.dtype)}")(
-            out.data_ptr(), tab.n_planes, n0, n1, n2, nx, ny, nz,
-            tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(),
-            tab.keep.data_ptr(), tab.bc_ind.data_ptr(), F(1.0 + float(jitter)), F(float(diagval)),
-            torch.cuda.current_stream(dev).cuda_stream)
-    launch_check(rc, "assemble_fold_lean_masked")
+    out = tab.launch("masked")(jitter, diagval)
     assemble_fold_lean_masked.launches += 1
     return out
 
@@ -659,9 +798,6 @@ def dia_matvec_plain(data, offsets, vshape, bs, x):
 K2_MAX_HALO = 2
 K2_MAX_OFFSETS = 128
 _K2_POINTS = 256  # plane points per block (kDiaPoints)
-_SMEM_MAX = 232448  # shared memory one block may use on the H100
-_SMS = 132
-_L2_BYTES = 50 * 2 ** 20  # operators beyond the L2 stream their data planes evict-first
 
 
 class DiaParams(ctypes.Structure):

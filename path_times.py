@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Host cost per call of the port's SpMV wrappers (K2's and K7's
+"""Host cost per call of the port's kernel wrappers (K2's and K7's
 DIAMatrix.matvec, K6's BlockDIAMatrix.matvec_blocked, K8's
-BellMatrix.matvec) and the warm CG time per iteration of the P1, bs=3, P2
-and contact paths, on one NVIDIA card.
+BellMatrix.matvec, the assemblers K1, K4 and K3), bench.py's assembly
+throughput and the warm CG time per iteration of the P1, bs=3, P2 and
+contact paths, on one NVIDIA card.
 
-    python3 path_times.py [--root DIR] [--calls 1000] [--solves 5]
+    python3 path_times.py [--root DIR] [--items spmv,asm,paths] [--calls 1000] [--solves 5]
 
 DIR is a checkout of the repository (default: the one holding this
-script); its package and its chip_smoke.py build everything, so the same
-script measures two commits alike (unpack the other one with `git archive`
-into a git-ignored directory, and alternate the two in one call: parent,
-change, change, parent).  It prints one JSON line per item; the first line
-is the card's nvidia-smi name and power limit.
+script); its package builds and runs everything, with the problem set-up
+of the chip_smoke.py beside this script, so the same script measures two
+commits alike (unpack the other one with `git archive` into a git-ignored
+directory, and alternate the two in one call: parent, change, change,
+parent).  It prints one JSON line per item; the first line is the card's
+nvidia-smi name and power limit.
 
-- SpMV wrappers: the P1 fold operator of chip_smoke.make_problem at n=64
+- spmv: the P1 fold operator of chip_smoke.make_problem at n=64
   and n=32 (65^3 and 33^3, float32, K2), the bs=3 operator of
   chip_smoke.make_elasticity at n=64 and n=32 (K7), the P2 operator at
   n=64 on its class stack (8 x 65^3, K6) and the BELL operator of the
@@ -21,7 +23,15 @@ is the card's nvidia-smi name and power limit.
   `calls` back-to-back matvecs with no synchronize (the wrapper's own cost
   while the card keeps up) and the warm CUDA-event time per call over the
   same calls.
-- Paths: chip_smoke's P1 main path at n=64 (4-level GMG, Chebyshev 2+2),
+- asm: the assemblers' wrappers on the n=64 tables, float32 (K1 on P1
+  15 x 65^3 and on bs=3 135 x 65^3, K4 on P2 230 x 65^3, K3 on P1 and P2
+  with chip_smoke.blob's non-separable set), the same two times over 200
+  calls (their launches outlast their host cost, so fewer calls keep the
+  launch queue from filling); then bench.py's constrained-assembly metric
+  for the P1, P2 and bs=3 problems at n=64 (chip_smoke.assembly_rate: ms
+  per whole clf._assemble_fold_lean_kernel call, MDoF/s, GB/s of operator
+  data written).
+- paths: chip_smoke's P1 main path at n=64 (4-level GMG, Chebyshev 2+2),
   its bs=3 path at n=64 (chip_smoke.build_bs3: 4-level GMG, Chebyshev
   3+3), its P2 path at n=64 (chip_smoke.build_p2: blocked_io GMG over the
   p-coarsened levels, CG on the class stack) and its contact path
@@ -37,6 +47,7 @@ Nothing here imports JAX.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import statistics
 import sys
@@ -79,17 +90,20 @@ def solve_ms_per_it(cg, A, b, M, solves):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--items", default="spmv,asm,paths")
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--solves", type=int, default=5)
     args = ap.parse_args()
     root = Path(args.root).resolve()
+    items = set(args.items.split(","))
     sys.path.insert(0, str(root))
-    import numpy as np
     import torch
 
-    import chip_smoke as cs
+    # the problem set-up beside this script, over DIR's package
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     import dolfinx_mpc_tpu_torch as dmt
-    from dolfinx_mpc_tpu_torch.la.bell import bell_from_scipy
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: these times are taken on a card")
@@ -101,9 +115,23 @@ def main():
     def emit(**kw):
         print(json.dumps(dict(root=str(root), **kw)), flush=True)
 
-    def wrapper_times(label, x, mv):
-        host, warm = per_call(lambda: mv(x), args.calls)
-        emit(op=f"{label} f32", calls=args.calls, host_ms=host, warm_ms=warm)
+    def wrapper_times(label, x, mv, calls=args.calls):
+        host, warm = per_call(lambda: mv(x), calls)
+        emit(op=f"{label} f32", calls=calls, host_ms=host, warm_ms=warm)
+
+    if "spmv" in items:
+        spmv_wrappers(cs, dmt, dev, wrapper_times)
+    if "asm" in items:
+        asm_times(cs, dev, wrapper_times, emit)
+    if "paths" in items:
+        path_solves(cs, dmt, dev, args, emit)
+
+
+def spmv_wrappers(cs, dmt, dev, wrapper_times):
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.la.bell import bell_from_scipy
 
     for m in (64, 32):
         A = cs.make_problem(m, np.float32, dev)[4].assemble()
@@ -120,6 +148,37 @@ def main():
     B = bell_from_scipy(dmt.assemble_matrix(a, mpc, bcs).to_scipy(), dtype=np.float32, device=dev)
     wrapper_times(f"BellMatrix.matvec {B.shape} (K8)", torch.randn(B.shape[1], device=dev), B.matvec)
     del B, V, bcs, mpc, a
+
+
+def asm_times(cs, dev, wrapper_times, emit, n=64):
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+
+    for label, make, kernel in (
+            ("K1 P1", lambda: cs.make_problem(n, np.float32, dev)[4], LK.assemble_fold_lean_factored),
+            ("K1 bs=3", lambda: cs.make_elasticity(n, np.float32, dev)[4], LK.assemble_fold_lean_factored),
+            ("K4 P2", lambda: cs.make_problem(n, np.float32, dev, degree=2)[4], LK.assemble_fold_lean_blocked),
+            ("K3 P1", lambda: cs.make_problem(n, np.float32, dev, marker=cs.blob)[4], LK.assemble_fold_lean_masked),
+            ("K3 P2", lambda: cs.make_problem(n, np.float32, dev, degree=2, marker=cs.blob)[4],
+             LK.assemble_fold_lean_masked)):
+        clf = make()
+        tab = clf.table.on(dev, torch.float32)
+        wrapper_times(f"{kernel.__name__} {label[3:]} {(tab.n_planes,) + tuple(tab.vshape)} ({label[:2]})", 0.013,
+                      lambda j: kernel(tab, j, 1.0), calls=200)
+        if label[:2] != "K3":
+            ms, nbytes = cs.assembly_rate(clf)
+            dofs = clf.V.num_dofs
+            emit(path=f"{label[3:]} n={n}", assembly_ms=ms, mdof_s=dofs / ms / 1e3, gb_s=nbytes / ms / 1e6,
+                 dofs=dofs, bytes=nbytes)
+        del clf, tab
+        torch.cuda.empty_cache()
+
+
+def path_solves(cs, dmt, dev, args, emit):
+    import numpy as np
+    import torch
 
     # the P1 main path (chip_smoke.main_path's solve, without its checks)
     V, bc, mpc, a, clf = cs.make_problem(cs.N_MAIN, np.float32, dev)

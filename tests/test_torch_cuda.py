@@ -12,6 +12,7 @@ import dolfinx_mpc_tpu_torch as pt
 from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
 from dolfinx_mpc_tpu_torch.fem.mesh import create_box
 from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+from torch_fold_tables import padded_table
 
 pytestmark = pytest.mark.cuda
 
@@ -455,3 +456,42 @@ def test_contact_f64_on_card_meets_oracle(cuda):
     ug = prob.solve().x.array
     assert ug.device.type == "cuda" and BL.bell_matvec.launches == n8
     assert np.abs(ug.cpu().numpy() - u_ref).max() < 1e-8
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_fold_assemblers_match_plain_on_card_odd_extents(cuda, dtype, tol):
+    """K1 (P1 and bs=3), K4 (P2, also on class grids padded beyond n + 1)
+    and K3 (P1 and P2 with the non-separable set, P2 also padded) against
+    their plain versions at odd, unequal extents, through the tables'
+    prepared launches with plain and with evict-first stores (K3 also with
+    its keep planes read from the L2 instead of staged): one launch per
+    call, two calls bit-equal, every padded slot an exact 0."""
+    p2 = _problem((3, 4, 5), np.float64, "cpu", degree=2)[5].table
+    b2 = _problem((3, 4, 5), np.float64, "cpu", degree=2, marker=_blob)[5].table
+    cases = [(LK.assemble_fold_lean_factored, _problem((7, 9, 11), np.float64, "cpu")[5].table),
+             (LK.assemble_fold_lean_factored, _elasticity_problem((5, 6, 7), np.float64, "cpu")[5].table),
+             (LK.assemble_fold_lean_blocked, p2), (LK.assemble_fold_lean_blocked, padded_table(p2, (2, 1, 0))),
+             (LK.assemble_fold_lean_masked, _problem((5, 6, 7), np.float64, "cpu", marker=_blob)[5].table),
+             (LK.assemble_fold_lean_masked, b2), (LK.assemble_fold_lean_masked, padded_table(b2, (0, 2, 1)))]
+    for kernel, table in cases:
+        masked = kernel is LK.assemble_fold_lean_masked
+        tab = table.on(cuda, dtype)
+        plain = LK.assemble_fold_lean_masked_plain if masked else LK.assemble_fold_lean_factored_plain
+        ref = plain(tab, 0.02, 1.3)
+        params = (tab.launch("masked") if masked else tab.launch("factored", table.blocked)).params
+        for stream, stage in ((0, params.stage), (1, params.stage)) + (((1, 0),) if masked else ()):
+            params.stream, params.stage = stream, stage
+            n = kernel.launches
+            got, again = kernel(tab, 0.02, 1.3), kernel(tab, 0.02, 1.3)
+            torch.cuda.synchronize()
+            assert kernel.launches == n + 2 and torch.equal(got, again)
+            assert float((got - ref).abs().max() / ref.abs().max()) <= tol, (kernel.__name__, table.vshape, stream,
+                                                                            stage)
+        if table.blocked:
+            rows = torch.as_tensor(table.planes[:, 0], device=cuda).long()
+            if masked:
+                real = torch.as_tensor(table.keep[:, 1:-1, 1:-1, 1:-1] + table.bc_ind, device=cuda)[rows] != 0
+            else:
+                pi, pj, pk = (torch.as_tensor(f[:, 1:-1], device=cuda) for f in table.factors[3:])
+                real = (pi[:, :, None, None] * pj[:, None, :, None] * pk[:, None, None, :])[rows] != 0
+            assert not got[~real].any()

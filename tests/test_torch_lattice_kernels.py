@@ -23,6 +23,7 @@ from dolfinx_mpc_tpu_torch.fem.mesh import create_box as pt_box
 from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
 from dolfinx_mpc_tpu_torch.ops.lattice import assemble_matrix_lattice as pt_lattice
 from dolfinx_mpc_tpu_torch.utils.interop import dia_from_numpy, fold_operator_from_numpy
+from torch_fold_tables import padded_table
 
 DIMS = [(4, 4, 4), (3, 4, 5)]
 
@@ -423,3 +424,155 @@ def test_prepared_launches_refuse_cpu_data_and_cpu_operators_launch_nothing():
     assert torch.equal(b2.matvec_blocked(xb), LK.blocked_matvec_plain(b.data, b.trips, b.classes, xb))
     assert d2._launch is None and b2._launch is None
     assert (LK.dia_matvec_bs.launches, LK.blocked_matvec.launches) == (n7, n6)
+
+
+def _class_ids(edges, n):
+    """The segment of every point 0 .. n-1 of an axis with these edges."""
+    return np.searchsorted(np.asarray(edges), np.arange(n), side="right") - 1
+
+
+def _blob_clf(dims, degree):
+    """A non-separable Dirichlet set (the y-planes and a ball on the y=0
+    face): the port's K3 table on the CPU."""
+    V = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), dims), ("Lagrange", degree))
+    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
+        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)
+        | ((x[0] - 0.5) ** 2 + x[1] ** 2 + (x[2] - 0.5) ** 2 < 0.35 ** 2)), V)
+    mpc = _new_mpc(pt, V, np.float64)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    a = pt.BilinearForm(V, lambda u, v, c: pinner(pgrad(u), pgrad(v)), quad_degree=degree)
+    clf = pt_lattice(a, mpc, bcs=[bc], dtype=np.float64, side_format="fold", device="cpu")
+    assert clf.table.factors is None and clf.table.keep is not None
+    return clf
+
+
+FOLD_CASES = ["P1", "bs=3", "P2 blocked", "P1 padded", "P2 blocked padded", "P2 blocked masked padded"]
+
+
+def _fold_case_table(case):
+    """The host table of one K1 / K4 / K3 case (odd and unequal extents)."""
+    if case.startswith("P1"):
+        table = _pt_form_clf((3, 4, 5), 1, True).table
+    elif case == "bs=3":
+        table = _pt_elasticity_clf((2, 3, 3)).table
+    elif "masked" in case:
+        table = _blob_clf((2, 3, 4), 2).table
+    else:
+        table = _pt_form_clf((2, 3, 4), 2, True).table
+    return padded_table(table, (1, 2, 0)) if case.endswith("padded") else table
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_fold_classes_hold_the_same_entries(case):
+    """At every point of every plane, the entries whose window holds the
+    point are the entries whose window holds its class's first point (the
+    point at which the kernels compute the class value): each axis splits
+    at the edges fold_edges gives, 3 segments on the unpadded grids and 4
+    where the grid runs beyond n + 1."""
+    table = _fold_case_table(case)
+    edges = LK.fold_edges(table.vshape, table.dims, table.ent)
+    padded = case.endswith("padded")
+    assert [len(e) for e in edges] == ([4, 4, 3] if padded else [3, 3, 3])
+    assert all(e[:2] == (0, 1) for e in edges)
+    pts = np.meshgrid(*[np.arange(n) for n in table.vshape], indexing="ij")
+    reps = [np.asarray(e)[_class_ids(e, n)][x] for e, n, x in zip(edges, table.vshape, pts)]
+    for _, _, _, _, _, _, e0, e1 in table.planes:
+        for e in range(e0, e1):
+            def inside(xs):
+                return np.logical_and.reduce([(x >= table.ent[e, a]) & (x < table.ent[e, a] + table.dims[a])
+                                              for a, x in enumerate(xs)])
+            assert np.array_equal(inside(pts), inside(reps))
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fold_class_values_equal_window_sums_bit_for_bit(case, dtype):
+    """The kernels' arithmetic emulated per class: each plane's class values
+    by the entry-ordered loop at the class's first point, then broadcast
+    over the classes' points, equal the plain version's window slice-adds
+    (_window_sums) bit for bit."""
+    tab = _fold_case_table(case).on("cpu", dtype)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    jitter = 0.013
+    s = np_dt(1.0 + jitter)
+    s2 = s * s
+    s3 = s2 * s
+    ref, rows = LK._window_sums(tab, jitter)
+    coef, ent = tab.coef.numpy(), tab.ent.numpy()
+    ids = [_class_ids(e, n) for e, n in zip(tab.edges, tab.vshape)]
+    got = np.empty(tuple(ref.shape), np_dt)
+    for mi, (*_, e0, e1) in enumerate(rows):
+        cls = np.empty([len(e) for e in tab.edges], np_dt)
+        for c in np.ndindex(cls.shape):
+            rep = [tab.edges[a][c[a]] for a in range(3)]
+            acc = np_dt(0.0)
+            for e in range(e0, e1):
+                if all(ent[e, a] <= rep[a] < ent[e, a] + tab.dims[a] for a in range(3)):
+                    c0, c1, c2 = coef[e]
+                    acc = np_dt(acc + np_dt(c0 * s3 + c1 * s2 + c2 * s))
+            cls[c] = acc
+        got[mi] = cls[np.ix_(*ids)]
+    assert torch.equal(torch.as_tensor(got), ref)
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_fold_launch_params_match_the_table(case):
+    """The parameter block K1 / K4 / K3 launch with holds the table's planes,
+    grid, window extents and class edges, and a thread layout that covers
+    every column of every row once; a CPU table prepares no launch, its
+    wrappers run the plain versions and count nothing, and preparing one
+    for it raises."""
+    table = _fold_case_table(case)
+    masked = "masked" in case
+    tab = table.on("cpu", torch.float32)
+    n0, n1, n2 = table.vshape
+    p = LK.fold_launch_params(table.vshape, table.dims, tab.edges, table.n_planes, tab.n_stack, 4, masked)
+    assert (p.n_pl, p.n0, p.n1, p.n2, p.nx, p.ny, p.nz) == (table.n_planes, n0, n1, n2) + tuple(table.dims)
+    assert [tuple(p.edge[a][:p.ne[a]]) for a in range(3)] == list(tab.edges)
+    assert p.kw == n2 and p.g == min(3, n1) and p.threads == -(-p.g * n2 // 32) * 32
+    assert (p.stream, p.stage) == (0, int(masked))  # a small output: plain stores
+    cover = np.zeros((n1, n2), int)
+    for u in range(p.g * p.kw):  # thread u: rows u // kw + g t, columns u % kw + kw t
+        cover[u // p.kw::p.g, u % p.kw::p.kw] += 1
+    assert (cover == 1).all()
+    counts = [f.launches for f in (LK.assemble_fold_lean_factored, LK.assemble_fold_lean_blocked,
+                                   LK.assemble_fold_lean_masked)]
+    if masked:
+        out = LK.assemble_fold_lean_masked(tab, 0.01, 1.0)
+        assert torch.equal(out, LK.assemble_fold_lean_masked_plain(tab, 0.01, 1.0))
+    else:
+        k = LK.assemble_fold_lean_blocked if table.blocked else LK.assemble_fold_lean_factored
+        assert torch.equal(k(tab, 0.01, 1.0), LK.assemble_fold_lean_factored_plain(tab, 0.01, 1.0))
+    assert tab._launches == {}
+    assert counts == [f.launches for f in (LK.assemble_fold_lean_factored, LK.assemble_fold_lean_blocked,
+                                           LK.assemble_fold_lean_masked)]
+    with pytest.raises(RuntimeError):
+        LK.FoldLaunch(tab, "masked" if masked else "factored")
+
+
+@pytest.mark.parametrize("planes,n,threads,stream", [(15, 65, 224, 0), (15, 129, 416, 1), (135, 65, 224, 1),
+                                                     (230, 65, 224, 1)])
+def test_fold_launch_params_on_the_path_shapes(planes, n, threads, stream):
+    """The block K1 (P1 at 65^3 and 129^3, bs=3 at 65^3), K4 and K3 (P2, 230
+    triples on the 65^3 class grids) take at n=64: edges (0, 1, n - 1) on
+    each axis, three row groups in whole warps, evict-first stores where
+    the output exceeds the 50 MB L2, and K3's keep planes staged in shared
+    memory; more than 4 edges, more than 8 entries on a plane, 65,536
+    planes and rows beyond shared memory raise."""
+    edges = ((0, 1, n - 1),) * 3
+    for masked in (False, True):
+        p = LK.fold_launch_params((n, n, n), (n - 1,) * 3, edges, planes, 8, 4, masked)
+        assert (p.g, p.kw, p.threads, p.stream, p.stage) == (3, n, threads, stream, int(masked))
+    # K3's keep planes leave shared memory only where they do not fit in it: beyond 337 x 337 points
+    assert LK.fold_launch_params((n, 337, 337), (n - 1,) * 3, edges, planes, 8, 4, True).stage == 1
+    assert LK.fold_launch_params((n, 338, 338), (n - 1,) * 3, edges, planes, 8, 4, True).stage == 0
+    with pytest.raises(ValueError, match="edges"):
+        LK.fold_launch_params((n, n, n), (n - 1,) * 3, ((0, 1, 2, 3, 4),) + edges[1:], planes, 8, 4)
+    with pytest.raises(ValueError, match="entries"):
+        LK.fold_launch_params((n, n, n), (n - 1,) * 3, edges, planes, 8, 4, n_entries=9)
+    with pytest.raises(ValueError, match="planes"):
+        LK.fold_launch_params((n, n, n), (n - 1,) * 3, edges, 65536, 8, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        LK.fold_launch_params((n, 20000, n), (n - 1,) * 3, edges, planes, 8, 8)
