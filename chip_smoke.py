@@ -27,7 +27,9 @@ each (or a few), any failure exits non-zero:
    block swept at 65^3 and 33^3), and K5 on the raw bs=3 grid table
    (135 x 65^3), the raw blocked P2 n=64 table (230 x 65^3) and the refined
    r=2 P2 n=64 table (65 x 129^3), where K5 must also equal K1 / K4 with
-   unit mask factors bit for bit;
+   unit mask factors bit for bit, each through the launch its table
+   prepares with the assemblers' four times, share of the bound, fill_
+   yardstick and launch-shape sweep;
 4. the P1 main path: the default problem of bench.py (P1 tets, n=64,
    274,625 dofs, periodic in x, Dirichlet at y=0/1), float32 on the card,
    through the port's entry points: assemble_matrix_lattice (fold) ->
@@ -519,29 +521,30 @@ def fold_bound(tab, out, masks):
     output written once plus the table and the masks the kernel reads
     (`masks`: "factored" the factor rows, "masked" the keep stack as bytes
     and the bc multiplicity stack, "raw" none) read once; operations are
-    one addition per (table entry, window point) and the mask products
-    (three per output value)."""
+    one addition per (table entry, window point) and, but for K5, the mask
+    products (three per output value)."""
     nx, ny, nz = tab.dims
     inputs = [tab.planes, tab.ent, tab.coef] + {"factored": [tab.fac], "masked": [tab.bc_ind], "raw": []}[masks]
     nbytes = sum(t.numel() * t.element_size() for t in [out] + inputs)
     if masks == "masked":
         nbytes += tab.keep.numel()  # K3 reads the 0 / 1 keep stack as bytes
-    ops = tab.ent.shape[0] * nx * ny * nz + 3 * out.numel()
+    ops = tab.ent.shape[0] * nx * ny * nz + (0 if masks == "raw" else 3 * out.numel())
     return bound(nbytes, ops)
 
 
-FOLD_KERNEL = {"factored": "fold_assemble_kernel", "masked": "fold_assemble_masked_kernel"}
+FOLD_KERNEL = {"factored": "fold_assemble_kernel", "masked": "fold_assemble_masked_kernel",
+               "raw": "fold_assemble_raw_kernel"}
 
 
 def fold_timing(tab, masks, fn, plain_fn, got, err, reps, sweep=False):
     """The f32 numbers of an assembler call fn() on table `tab` (its
-    launch's `masks`, "factored" for K1 / K4, "masked" for K3): warm,
-    cold-L2, profiler device and wrapper host times, the plain version's
-    time, the bound and the shares of it, the device time of torch's fill_
-    of an output of the same size (what a plain 16-byte write stream
-    takes); with `sweep`, the device time of the table's prepared launch
-    at other shapes (row groups, evict-first stores).  Returns (text, the
-    kernels line's numbers)."""
+    launch's `masks`, "factored" for K1 / K4, "masked" for K3, "raw" for
+    K5): warm, cold-L2, profiler device and wrapper host times, the plain
+    version's time, the bound and the shares of it, the device time of
+    torch's fill_ of an output of the same size (what a plain 16-byte
+    write stream takes); with `sweep`, the device time of the table's
+    prepared launch at other shapes (row groups, evict-first stores).
+    Returns (text, the kernels line's numbers)."""
     import torch
 
     t = kernel_times(fn, FOLD_KERNEL[masks], reps, calls=200)
@@ -550,11 +553,12 @@ def fold_timing(tab, masks, fn, plain_fn, got, err, reps, sweep=False):
     buf = torch.empty_like(got)
     fill = profiler_ms(lambda: buf.fill_(1.0), 20, "")
     del buf
-    launch = tab.launch(masks) if masks == "masked" else tab.launch(masks, tab.blocked)  # the wrapper's launch
+    launch = tab.launch(masks, tab.blocked if masks == "factored" else None)  # the wrapper's launch
     p = launch.params
     dev_share = bms / (t["prof_ms"] or float("inf"))
     text = (f", kernel ({p.g} x {p.kw} of {p.threads} threads, evict-first stores "
-            f"{p.stream}, keep planes staged {p.stage}) {fmt_times(t)}, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"{p.stream}, keep planes staged {p.stage}, window stride {tab.refine}) {fmt_times(t)}, plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms "
             f"({by}); device {dev_share:.0%}, warm {bms / t['warm_ms']:.0%}, cold {bms / t['cold_ms']:.0%} of the "
             f"bound; torch fill_ of the same output (a write yardstick) "
             f"{'not measured' if fill is None else f'{fill:.4f} ms device'}")
@@ -568,8 +572,8 @@ def fold_timing(tab, masks, fn, plain_fn, got, err, reps, sweep=False):
                 res.append(f"{g}/{stream}: {'not measured' if prof is None else f'{prof:.4f}'}")
         p.g, p.threads, p.stream = shape0
         text += f"\n  by row groups / evict-first stores (device ms): {'; '.join(res)}"
-    return text, dict(max_abs_err=err, ms=t["warm_ms"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=None)
+    return text, dict(max_abs_err=err, ms=t["warm_ms"], device_ms=t["prof_ms"], plain_ms=plain_ms, bound_ms=bms,
+                      bound_by=by, library_ms=None)
 
 
 def assembly_rate(clf, reps=20):
@@ -892,6 +896,7 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
                              keep2, 0 * keep2)),
         ("P2 refined r=2", LK.build_fold_table(p2, _refined=True), None, None),
     )
+    by_table = {}
     for name, raw, unit_kernel, unit in tables:
         for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-12)):
             tab = raw.on(dev, dt)
@@ -905,19 +910,20 @@ def compare_elasticity_kernels(dev, gen, n=N_BS3, n_p2=N_P2):
                 same = torch.equal(got, unit_kernel(unit.on(dev, dt), 0.013, 1.0))
                 line += f", equal to {unit_kernel.__name__} with unit factors: {same}"
             if dt == torch.float32:
-                ms = cuda_ms(lambda: LK.assemble_fold_lean_raw(tab, 0.013), 20)
-                plain_ms = cuda_ms(lambda: LK.assemble_fold_lean_raw_plain(tab, 0.013), 2, 1)
-                bms, by = fold_bound(tab, got, "raw")
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+                text, nums = fold_timing(tab, "raw", lambda: LK.assemble_fold_lean_raw(tab, 0.013),
+                                         lambda: LK.assemble_fold_lean_raw_plain(tab, 0.013), got, err, 20,
+                                         sweep=True)
+                line += text
+                by_table[f"{name} {tuple(got.shape)}"] = dict(device_ms=nums["device_ms"], bound_ms=nums["bound_ms"])
                 if name == "P2 blocked":
-                    out["K5"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                                     library_ms=None)
+                    out["K5"] = nums
             print(line, flush=True)
             if not rel <= tol or not same:
                 fail(f"K5 on the {name} table in {dt}: {rel:.3e} > {tol:g} or not equal to the unit-factor "
                      f"assembler")
             del got, ref
         raw._on.clear()
+    out["K5"]["tables"] = by_table
     return out
 
 
@@ -1569,7 +1575,8 @@ def main():
         dict(name="K4 assemble_fold_lean_blocked (P2 main path; error and times at 230 x 65^3 f32)",
              route="cuda", source=src, replaces=f"{pl}:708", launches=counts2["K4"], **cmp["K4"]),
         dict(name="K5 assemble_fold_lean_raw (launches: f64 oracle, Dirichlet-free P2 n=3, 230 x 4^3; error "
-                  "and times: the raw blocked P2 n=64 table, 230 x 65^3 f32)", route="cuda", source=src,
+                  "and times: the raw blocked P2 n=64 table, 230 x 65^3 f32; device time and bound of each of "
+                  "its three n=64 tables under 'tables')", route="cuda", source=src,
              replaces=f"{pl}:611", launches=counts5["K5"], **cmp["K5"]),
         dict(name="K6 blocked_matvec (P2 main path; error and times at 8 x 65^3 f32)", route="cuda", source=src,
              replaces=f"{pl}:916", launches=counts2["K6"], **cmp["K6"]),

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) kernels of the lattice fast path: the fused lean-fold
-// assemblers (K1, its blocked use K4, and the masked K3), the unmasked
-// assembler (K5), the scalar DIA SpMV (K2), the vector (bs > 1) DIA SpMV
-// (K7) and the parity-blocked SpMV (K6).
+// assemblers (K1, its blocked use K4, the masked K3 and the unmasked K5,
+// one block design over per-class window sums, K5 also at window stride 2),
+// the scalar DIA SpMV (K2), the vector (bs > 1) DIA SpMV (K7) and the
+// parity-blocked SpMV (K6).
 //
 // Built by dolfinx_mpc_tpu_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -16,14 +17,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-inline unsigned int n_blocks(long long total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-}
-
 // ---------------------------------------------------------------------------
-// K1 / K4 / K3: fused lean-fold assemblers.
+// K1 / K4 / K3 and K5: fused lean-fold assemblers.
 //
 // The host reduction (ops/lattice_kernels.py:build_fold_table) has already
 // collapsed every element tensor entry of the uniform lattice into a short
@@ -32,94 +27,103 @@ inline unsigned int n_blocks(long long total) {
 //   ent[3*e .. 3*e+2]      = (dax, day, daz)   for e in [e_begin, e_end)
 //   coef[3*e .. 3*e+2]     = (c0, c1, c2)      value c0 s^3 + c1 s^2 + c2 s
 // Entry e covers the box window p in [dax, dax+nx), j in [day, day+ny),
-// k in [daz, daz+nz).  The result is masked by the keep mask of the row
-// (stack row ri at p, j, k) and of the column (stack row ci at p+di, j+dj,
-// k+dk), and the diagonal planes get diagval on the bc rows.  On the grid
-// layout (degree 1) a plane is a DIA offset and the stack rows are dof
-// components; on the parity-blocked layout (degree 2) a plane is a triple
-// (row class, column class, coarse offset) over the padded class grids and
-// the stack rows are the 8 parity classes — the same arithmetic, which is
-// why the JAX package runs K1's Pallas code over a _BlockedView for K4.
+// k in [daz, daz+nz) (on the refined degree-2 grid, K5 only, the points
+// da + R q of the boxes q: stride R = 2).  K1, K4 and K3 mask the result by
+// the keep mask of the row (stack row ri at p, j, k) and of the column
+// (stack row ci at p+di, j+dj, k+dk), and the diagonal planes get diagval
+// on the bc rows; K5 writes it unmasked.  On the grid layout (degree 1) a
+// plane is a DIA offset and the stack rows are dof components; on the
+// parity-blocked layout (degree 2) a plane is a triple (row class, column
+// class, coarse offset) over the padded class grids and the stack rows are
+// the 8 parity classes — the same arithmetic, which is why the JAX package
+// runs K1's Pallas code over a _BlockedView for K4.
 //
-// What bounds K1, K3 and K4 is their single write of the output (16.5 MB
-// per P1 assembly at n=64 in f32, 253 MB for the 230 P2 triples at n=64),
-// but only if the work per output value is a few instructions.  The first
-// design (one thread per value, its index split by three 64-bit div/mod
-// pairs, then a walk over the plane's whole entry table with three index
-// loads and six compares per entry) ran at 11-19 % of that bound on the
-// H100: it was bound by integer instructions, not by the write.  The
-// redesign rests on the windows' shape: every window is [da, da + n) on an
-// axis, so the segment starts ("edges") {0} U {da} U {da + n} inside the
-// grid split each axis into at most 4 segments (3 at r = 1 on an unpadded
-// grid), and the window sum is constant on each of the <= 64 classes
-// (segment x segment x segment).  A block computes its plane's class
-// values once, with window_sum itself at each class's first point (the
-// same entries in the same order, so the values are bit for bit the
-// per-point ones), then writes its x planes with a lookup and the mask
-// products per value.  The TPU kernels' VMEM offset splitting, transposed
-// j-factor layout and SMEM x-factor tables answered TPU memory limits and
-// have no counterpart here.
+// What bounds them is their single write of the output (16.5 MB per P1
+// assembly at n=64 in f32, 253 MB for the 230 P2 triples at n=64, 558 MB
+// for K5's 65 refined planes at 129^3), but only if the work per output
+// value is a few instructions.  The first designs (one thread per value,
+// its index split by three 64-bit div/mod pairs, then a walk over the
+// plane's whole entry table with three index loads and six compares per
+// entry) ran at 11-19 % of that bound on the H100: they were bound by
+// integer instructions, not by the write.  The redesign rests on the
+// windows' shape: every window spans [da, da + R n) on an axis, so the
+// segment starts ("edges") {0} U {da} U {da + R n} inside the grid split
+// each axis into at most 4 segments at R = 1 (3 on an unpadded grid), and
+// inside a segment the windows that hold a point depend only on its parity
+// mod R; the window sum is therefore constant on the classes (segment,
+// parity) of each axis: <= 64 per plane at R = 1, <= 512 at R = 2 (125 on
+// the refined grid, classes (0, 1, 2, 3, 2n) per axis).  A block computes
+// its plane's class values once, with one expression at each class's
+// first point (the same entries in the same order at every launch, so K5
+// at R = 1 equals K1 / K4 with unit factors bit for bit), then writes its
+// x plane with a lookup per value (and K1's / K3's mask products).  The TPU
+// kernels' VMEM offset splitting, transposed j-factor layout, SMEM x-factor
+// tables and pltpu.repeat upsampling answered TPU memory limits and have
+// no counterpart here.
 // ---------------------------------------------------------------------------
-struct PlanePoint {
-  int mi, p, j, k;
+
+// The limits of a launch at window stride R: a plane holds one entry per
+// window corner, at most (R + 1)^3 (8 for K1, K4, K3 and K5 at R = 1, 27 for
+// K5 on the refined grid), and an axis holds at most 4 R classes.
+template <int R>
+struct FoldLimits {
+  static constexpr int entries = (R + 1) * (R + 1) * (R + 1);
+  static constexpr int edges = 4 * R;
+  static constexpr int classes = edges * edges * edges;
 };
-
-__device__ __forceinline__ PlanePoint split_index(long long idx, int n0, int n1, int n2) {
-  PlanePoint q;
-  q.k = static_cast<int>(idx % n2);
-  long long r = idx / n2;
-  q.j = static_cast<int>(r % n1);
-  r /= n1;
-  q.p = static_cast<int>(r % n0);
-  q.mi = static_cast<int>(r / n0);
-  return q;
-}
-
-// Unmasked value of the output element: the sum of the table entries whose
-// window holds (p, j, k).
-template <typename T>
-__device__ __forceinline__ T window_sum(const PlanePoint& q, int e0, int e1, int nx, int ny, int nz,
-                                        const int* __restrict__ ent, const T* __restrict__ coef,
-                                        T s) {
-  const T s2 = s * s, s3 = s2 * s;
-  T acc = T(0);
-  for (int e = e0; e < e1; ++e) {
-    const int dax = __ldg(ent + 3 * e), day = __ldg(ent + 3 * e + 1), daz = __ldg(ent + 3 * e + 2);
-    if (q.p >= dax && q.p < dax + nx && q.j >= day && q.j < day + ny && q.k >= daz &&
-        q.k < daz + nz) {
-      acc += __ldg(coef + 3 * e) * s3 + __ldg(coef + 3 * e + 1) * s2 + __ldg(coef + 3 * e + 2) * s;
-    }
-  }
-  return acc;
-}
-
-// The launch shape and the class edges of K1 / K4 / K3, built once per
-// table by the wrapper (ops/lattice_kernels.py:fold_launch_params, FoldLaunch)
-// and read by the launcher by pointer.
-constexpr int kFoldMaxEdges = 4;  // segments per axis
-constexpr int kFoldMaxClasses = kFoldMaxEdges * kFoldMaxEdges * kFoldMaxEdges;
-constexpr int kFoldMaxEntries = 8;  // entries per plane: one per window corner, (r + 1)^3 at r = 1
 constexpr int kFoldMaxThreads = 512;
 
-struct FoldParams {
-  int n_pl, n0, n1, n2;        // planes and the grid
-  int nx, ny, nz;              // window extents
-  int n_stack;                 // factor rows (K1 / K4)
-  int ne[3];                   // segments per axis, 1 .. kFoldMaxEdges
-  int edge[3][kFoldMaxEdges];  // their starts: 0 = edge[a][0] < edge[a][1] < ... < n_a
-  int g;                       // row groups per block: thread u takes rows u / kw + g t
-  int kw;                      // columns per row group (thread u takes k = u % kw + kw t)
-  int threads;                 // g * kw rounded up to whole warps
-  int stream;                  // evict-first stores (the output exceeds the L2)
-  int stage;                   // K3: keep planes staged in shared memory
+// The launch shape and the classes of a launch at stride R, built once per
+// table by the wrapper (ops/lattice_kernels.py:fold_launch_params,
+// FoldLaunch) and read by the launcher by pointer: FoldParams (R = 1) for
+// K1 / K4, K3 and K5, FoldParamsR<2> for K5 on the refined grid.  The
+// stride-1 block keeps room for 4 classes per axis only: with room for 8
+// K1 ran 4-10 % slower on the H100 (its class set-up then read the block
+// by a computed index).
+template <int E>
+struct FoldParamsT {
+  int n_pl, n0, n1, n2;  // planes and the grid
+  int nx, ny, nz;        // window extents (boxes)
+  int n_stack;           // factor rows (K1 / K4)
+  int ne[3];             // classes per axis, 1 .. E
+  int edge[3][E];        // their first points: 0 = edge[a][0] < edge[a][1] < ... < n_a
+  int g;                 // row groups per block: thread u takes rows u / kw + g t
+  int kw;                // columns per row group (thread u takes k = u % kw + kw t)
+  int threads;           // g * kw rounded up to whole warps
+  int stream;            // evict-first stores (the output exceeds the L2)
+  int stage;             // K3: keep planes staged in shared memory
 };
+template <int R>
+using FoldParamsR = FoldParamsT<FoldLimits<R>::edges>;
+using FoldParams = FoldParamsR<1>;
 
-// The segment of x on axis a: the number of edges <= x, less one.
-__device__ __forceinline__ int fold_segment(const FoldParams& p, int a, int x) {
+// The class of x on axis a.  At R = 1 its segment: the number of edges
+// <= x, less one.  At R > 1 the last class whose first point is <= x and
+// shares x's parity: the first point of x's own class, since a class's
+// points are those of its parity in its segment.
+template <int R = 1>
+__device__ __forceinline__ int fold_segment(const FoldParamsR<R>& p, int a, int x) {
   int c = 0;
 #pragma unroll
-  for (int b = 1; b < kFoldMaxEdges; ++b) c += (b < p.ne[a] && x >= p.edge[a][b]) ? 1 : 0;
+  for (int b = 1; b < FoldLimits<R>::edges; ++b) {
+    if constexpr (R == 1) {
+      c += (b < p.ne[a] && x >= p.edge[a][b]) ? 1 : 0;
+    } else {
+      c = (b < p.ne[a] && x >= p.edge[a][b] && (x - p.edge[a][b]) % R == 0) ? b : c;
+    }
+  }
   return c;
+}
+
+// Whether the window of corner da and n boxes holds x on one axis.
+template <int R>
+__device__ __forceinline__ bool fold_holds(int x, int da, int n) {
+  if constexpr (R == 1) {
+    return x >= da && x < da + n;
+  } else {
+    const int u = x - da;
+    return u >= 0 && u < R * n && u % R == 0;
+  }
 }
 
 struct FoldPlane {
@@ -134,17 +138,17 @@ __device__ __forceinline__ FoldPlane fold_plane(const int* __restrict__ planes, 
 
 // A block's shared memory: the plane's entries, staged once, and its class
 // values; after them the kernel's per-row tables.
-template <typename T>
+template <typename T, int R = 1>
 struct FoldShared {
-  T coef[3 * kFoldMaxEntries];
-  T cls[kFoldMaxClasses];
-  int ent[3 * kFoldMaxEntries];
+  T coef[3 * FoldLimits<R>::entries];
+  T cls[FoldLimits<R>::classes];
+  int ent[3 * FoldLimits<R>::entries];
 };
 
-// Stage the plane's <= kFoldMaxEntries entries (one load per value, the
-// block's threads at once).  Published by the barrier that follows.
-template <typename T>
-__device__ __forceinline__ void fold_stage_entries(FoldShared<T>& sh, const FoldPlane& f,
+// Stage the plane's <= FoldLimits<R>::entries entries (one load per value,
+// the block's threads at once).  Published by the barrier that follows.
+template <typename T, int R>
+__device__ __forceinline__ void fold_stage_entries(FoldShared<T, R>& sh, const FoldPlane& f,
                                                    const int* __restrict__ ent, const T* __restrict__ coef) {
   for (int t = threadIdx.x; t < 3 * (f.e1 - f.e0); t += blockDim.x) {
     sh.ent[t] = __ldg(ent + 3 * f.e0 + t);
@@ -152,25 +156,38 @@ __device__ __forceinline__ void fold_stage_entries(FoldShared<T>& sh, const Fold
   }
 }
 
+// The first point of class c on axis a (edge[a][0] is 0), picked by an
+// unrolled select: an indexed read of the parameter block was slower for
+// K1 and K4 on the H100.
+template <int R>
+__device__ __forceinline__ int fold_first(const FoldParamsR<R>& p, int a, int c) {
+  int v = 0;
+#pragma unroll
+  for (int b = 1; b < FoldLimits<R>::edges; ++b) v = (b == c) ? p.edge[a][b] : v;
+  return v;
+}
+
 // The plane's class values into sh.cls[(c0 * ne1 + c1) * ne2 + c2], each at
 // the class's first point (edge[0][c0], edge[1][c1], edge[2][c2]): the sum
-// of the entries whose window holds it, in table order, with window_sum's
-// own expression, so every value is bit for bit window_sum's at any point
-// of the class (and K5's there).  The entry loop is unrolled to the
-// kFoldMaxEntries bound so that its shared-memory reads are issued
+// of the entries whose window holds it, in table order, with one
+// expression, so that K5 at R = 1 and K1 / K4 (the same instantiation)
+// agree bit for bit, and every value is the plain version's sum of the
+// same terms in the same order.  The entry loop is unrolled to the
+// FoldLimits<R>::entries bound so that its shared-memory reads are issued
 // together.
-template <typename T>
-__device__ __forceinline__ void fold_class_values(FoldShared<T>& sh, const FoldParams& p, int n_ent, T s) {
+template <typename T, int R>
+__device__ __forceinline__ void fold_class_values(FoldShared<T, R>& sh, const FoldParamsR<R>& p, int n_ent, T s) {
   const T s2 = s * s, s3 = s2 * s;
   const int n12 = p.ne[1] * p.ne[2];
   for (int c = threadIdx.x; c < p.ne[0] * n12; c += blockDim.x) {
-    const int x = p.edge[0][c / n12], y = p.edge[1][(c / p.ne[2]) % p.ne[1]], z = p.edge[2][c % p.ne[2]];
+    const int x = fold_first<R>(p, 0, c / n12), y = fold_first<R>(p, 1, (c / p.ne[2]) % p.ne[1]),
+              z = fold_first<R>(p, 2, c % p.ne[2]);
     T acc = T(0);
 #pragma unroll
-    for (int e = 0; e < kFoldMaxEntries; ++e) {
+    for (int e = 0; e < FoldLimits<R>::entries; ++e) {
       if (e < n_ent) {
         const int dax = sh.ent[3 * e], day = sh.ent[3 * e + 1], daz = sh.ent[3 * e + 2];
-        if (x >= dax && x < dax + p.nx && y >= day && y < day + p.ny && z >= daz && z < daz + p.nz) {
+        if (fold_holds<R>(x, dax, p.nx) && fold_holds<R>(y, day, p.ny) && fold_holds<R>(z, daz, p.nz)) {
           acc += sh.coef[3 * e] * s3 + sh.coef[3 * e + 1] * s2 + sh.coef[3 * e + 2] * s;
         }
       }
@@ -196,6 +213,15 @@ __device__ __forceinline__ void st_out(T* q, T v) {
   } else {
     *q = v;
   }
+}
+
+// A plane no move reaches stays zero (as in the TPU kernel): its blocks
+// write zeros and read nothing more.  Returns whether the plane is empty.
+template <bool STREAM, typename T>
+__device__ __forceinline__ bool fold_empty_plane(T* o, const FoldPlane& f, int P) {
+  if (f.e0 != f.e1) return false;
+  for (int t = threadIdx.x; t < P; t += blockDim.x) st_out<STREAM>(o + t, T(0));
+  return true;
 }
 
 // K1 (and K4): separable masks.  Replaces dolfinx_mpc_tpu/ops/
@@ -230,10 +256,7 @@ fold_assemble_kernel(T* __restrict__ out, const int* __restrict__ planes, const 
   const int mi = blockIdx.y, i = blockIdx.x;
   T* const o = out + (static_cast<long long>(mi) * p.n0 + i) * p.n1 * p.n2;
   const FoldPlane f = fold_plane(planes, mi);
-  if (f.e0 == f.e1) {  // a plane no move reaches stays zero (as in the TPU kernel)
-    for (int t = threadIdx.x; t < p.n1 * p.n2; t += blockDim.x) st_out<STREAM>(o + t, T(0));
-    return;
-  }
+  if (fold_empty_plane<STREAM>(o, f, p.n1 * p.n2)) return;
   // halo-padded factor rows: [ki | pi] (n_stack, n0+2), [kj | pj] (n_stack,
   // n1+2), [kk | pk] (n_stack, n2+2); index +1 skips the halo
   const int L0 = p.n0 + 2, L1 = p.n1 + 2, L2 = p.n2 + 2;
@@ -345,10 +368,7 @@ fold_assemble_masked_kernel(T* __restrict__ out, const int* __restrict__ planes,
   const int P = p.n1 * p.n2;
   T* const o = out + (static_cast<long long>(mi) * p.n0 + i) * P;
   const FoldPlane f = fold_plane(planes, mi);
-  if (f.e0 == f.e1) {
-    for (int t = threadIdx.x; t < P; t += blockDim.x) st_out<STREAM>(o + t, T(0));
-    return;
-  }
+  if (fold_empty_plane<STREAM>(o, f, P)) return;
   FoldShared<T>& sh = *reinterpret_cast<FoldShared<T>*>(fold_smem);
   int* jcls = reinterpret_cast<int*>(fold_smem + sizeof(FoldShared<T>));  // segment of j times ne[2]
   unsigned int* kst = reinterpret_cast<unsigned int*>(jcls + p.n1);      // STAGE: the two keep planes
@@ -392,55 +412,53 @@ fold_assemble_masked_kernel(T* __restrict__ out, const int* __restrict__ planes,
   }
 }
 
-// Unmasked value on the r-refined grid (r = R > 1): entry e's box q lands
-// on the refined point (dax + R qx, day + R qy, daz + R qz), q inside the
-// box grid — the stride-R form of the TPU kernel's pltpu.repeat upsampling
-// times its even-parity mask and the x-plane weight (p - dax) % R == 0.
-template <typename T, int R>
-__device__ __forceinline__ T window_sum_strided(const PlanePoint& q, int e0, int e1, int nx, int ny,
-                                                int nz, const int* __restrict__ ent,
-                                                const T* __restrict__ coef, T s) {
-  const T s2 = s * s, s3 = s2 * s;
-  T acc = T(0);
-  for (int e = e0; e < e1; ++e) {
-    const int u = q.p - __ldg(ent + 3 * e), v = q.j - __ldg(ent + 3 * e + 1),
-              w = q.k - __ldg(ent + 3 * e + 2);
-    if (u >= 0 && u < R * nx && u % R == 0 && v >= 0 && v < R * ny && v % R == 0 && w >= 0 &&
-        w < R * nz && w % R == 0) {
-      acc += __ldg(coef + 3 * e) * s3 + __ldg(coef + 3 * e + 1) * s2 + __ldg(coef + 3 * e + 2) * s;
-    }
-  }
-  return acc;
-}
-
 // K5: the unmasked planes, no mask factors and no diagval term.  Replaces
 // dolfinx_mpc_tpu/ops/pallas_lattice.py:_make_lean_fold_pallas_group ->
 // kernel (fuse_mode None), which the JAX package runs for a form without
 // Dirichlet dofs, where every mask is the identity: on the vertex grid (any
 // bs) and on the blocked class grids (degree 2) at R = 1, and on the
-// refined degree-2 grid at R = 2.  One thread per value, the same bound,
-// the single coalesced write; at R = 1
-// the value is window_sum itself, the sum K1's class values take in the
-// same order, so the result equals K1's with unit factors bit for bit.  At
-// R = 2 a point
-// meets only the entries whose corner shares its parity, and the window
-// ends at the last box (R (n - 1) + d <= n1 - 1: the TPU kernel's clip at
-// n1 - day never cuts a written value).
-template <typename T, int R>
-__global__ void fold_assemble_raw_kernel(T* __restrict__ out, int n_pl, int n0, int n1, int n2,
-                                         int nx, int ny, int nz, const int* __restrict__ planes,
-                                         const int* __restrict__ ent, const T* __restrict__ coef,
-                                         T s) {
-  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const PlanePoint q = split_index(idx, n0, n1, n2);
-  const int* pl = planes + 8 * q.mi;
-  const int e0 = __ldg(pl + 6), e1 = __ldg(pl + 7);
-  if constexpr (R == 1) {
-    out[idx] = window_sum(q, e0, e1, nx, ny, nz, ent, coef, s);
-  } else {
-    out[idx] = window_sum_strided<T, R>(q, e0, e1, nx, ny, nz, ent, coef, s);
+// refined degree-2 grid at R = 2, where an entry adds only at the points
+// of its corner's parity (the stride-R form of the TPU kernel's
+// pltpu.repeat upsampling times its parity mask and x-plane weight).  The
+// window ends at the last box (R (n - 1) + d <= n1 - 1: the TPU kernel's
+// clip at n1 - day never cuts a written value).
+//
+// K1's design without the masks: one block per (plane, x plane), the
+// plane's entries staged and its class values computed once
+// (fold_class_values: at R = 1 K1's own instantiation, so the values equal
+// unit-factor K1 / K4 bit for bit; at R = 2 with the parity classes,
+// up to 27 entries per plane), each row's class times ne[2] in shared
+// memory (as K3's jcls), each thread's column class in a register.  The
+// store loop is K1's: g row groups of kw columns, stores coalesced along
+// k and evict-first beyond the L2; per value one shared-memory lookup
+// (jcls[j] is a broadcast within a row) and one store.  Bound by the
+// write: 253 MB for the 230 blocked P2 triples at n=64, 148 MB for the 135
+// bs=3 planes, 558 MB for the 65 refined planes (129^3) in f32.
+template <typename T, int R, bool STREAM>
+__global__ void __launch_bounds__(kFoldMaxThreads)
+fold_assemble_raw_kernel(T* __restrict__ out, const int* __restrict__ planes, const int* __restrict__ ent,
+                         const T* __restrict__ coef, const FoldParamsR<R> p, T s) {
+  extern __shared__ __align__(16) unsigned char fold_smem[];
+  const int mi = blockIdx.y, i = blockIdx.x;
+  T* const o = out + (static_cast<long long>(mi) * p.n0 + i) * p.n1 * p.n2;
+  const FoldPlane f = fold_plane(planes, mi);
+  if (fold_empty_plane<STREAM>(o, f, p.n1 * p.n2)) return;
+  FoldShared<T, R>& sh = *reinterpret_cast<FoldShared<T, R>*>(fold_smem);
+  int* jcls = reinterpret_cast<int*>(fold_smem + sizeof(FoldShared<T, R>));  // class of j times ne[2]
+  fold_stage_entries(sh, f, ent, coef);
+  for (int j = threadIdx.x; j < p.n1; j += blockDim.x) jcls[j] = fold_segment<R>(p, 1, j) * p.ne[2];
+  __syncthreads();
+  fold_class_values(sh, p, f.e1 - f.e0, s);
+  __syncthreads();
+  const int jg = threadIdx.x / p.kw;
+  if (jg >= p.g) return;
+  const T* ci = sh.cls + fold_segment<R>(p, 0, i) * p.ne[1] * p.ne[2];
+  const int step = p.g * p.n2;
+  for (int k = threadIdx.x - jg * p.kw; k < p.n2; k += p.kw) {
+    const T* cv = ci + fold_segment<R>(p, 2, k);
+    T* q = o + jg * p.n2 + k;
+#pragma unroll 4
+    for (int j = jg; j < p.n1; j += p.g, q += step) st_out<STREAM>(q, cv[jcls[j]]);
   }
 }
 
@@ -910,44 +928,27 @@ int launch_blocked_matvec(const T* data, const T* x, T* y, const int* tab, const
                    : launch_blocked_matvec_s<T, false>(data, x, y, t2, *p, st);
 }
 
-template <typename T>
-int launch_fold_assemble_raw(T* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
-                             const int* planes, const int* ent, const T* coef, int r, T s,
-                             void* stream) {
-  const long long total = static_cast<long long>(n_pl) * n0 * n1 * n2;
-  if (total == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1:
-      fold_assemble_raw_kernel<T, 1><<<n_blocks(total), kThreads, 0, st>>>(
-          out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, s);
-      break;
-    case 2:
-      fold_assemble_raw_kernel<T, 2><<<n_blocks(total), kThreads, 0, st>>>(
-          out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Shared memory of an assembler block: the entries and class values, per
-// row j the segment and (K1 / K4) the three factor rows, and (K3 with
+// row j the class and (K1 / K4) the three factor rows, and (K3 with
 // stage) the two keep planes.
-template <typename T>
-size_t fold_smem_bytes(const FoldParams& p, bool masked) {
-  if (!masked) return sizeof(FoldShared<T>) + static_cast<size_t>(p.n1) * sizeof(FoldRow<T>);
+enum FoldKind { kFoldFactored, kFoldMasked, kFoldRaw };
+
+template <typename T, int R = 1>
+size_t fold_smem_bytes(const FoldParamsR<R>& p, FoldKind kind) {
+  if (kind == kFoldFactored) return sizeof(FoldShared<T>) + static_cast<size_t>(p.n1) * sizeof(FoldRow<T>);
+  const size_t rows = sizeof(FoldShared<T, R>) + sizeof(int) * static_cast<size_t>(p.n1);
+  if (kind == kFoldRaw || !p.stage) return rows;
   const size_t words = static_cast<size_t>(p.n1 + 2) * (p.n2 + 2) / 4 + 2;
-  return sizeof(FoldShared<T>) + sizeof(int) * static_cast<size_t>(p.n1) + (p.stage ? 8 * words : 0);
+  return rows + 8 * words;
 }
 
-inline bool fold_params_ok(const FoldParams& p) {
+template <int R = 1>
+bool fold_params_ok(const FoldParamsR<R>& p) {
   if (p.g < 1 || p.kw < 1 || p.threads < 32 || p.threads > kFoldMaxThreads || p.threads % 32 != 0 ||
       p.g * p.kw > p.threads || p.n_pl > 65535)
     return false;
   for (int a = 0; a < 3; ++a)
-    if (p.ne[a] < 1 || p.ne[a] > kFoldMaxEdges || p.edge[a][0] != 0) return false;
+    if (p.ne[a] < 1 || p.ne[a] > FoldLimits<R>::edges || p.edge[a][0] != 0) return false;
   return true;
 }
 
@@ -955,7 +956,7 @@ template <typename T, bool STREAM>
 int launch_fold_assemble_s(T* out, const int* planes, const int* ent, const T* coef, const T* fac,
                            const FoldParams& p, T s, T dv, cudaStream_t st) {
   static size_t granted[kMaxDevices] = {};
-  const size_t smem = fold_smem_bytes<T>(p, false);
+  const size_t smem = fold_smem_bytes<T>(p, kFoldFactored);
   const int e = smem_opt_in(reinterpret_cast<const void*>(fold_assemble_kernel<T, STREAM>), smem, granted);
   if (e != 0) return e;
   const dim3 grid(static_cast<unsigned int>(p.n0), static_cast<unsigned int>(p.n_pl));
@@ -980,7 +981,7 @@ int launch_fold_assemble_masked_s(T* out, const int* planes, const int* ent, con
                                   const unsigned char* keep, const T* ind, const FoldParams& p, T s, T dv,
                                   cudaStream_t st) {
   static size_t granted[kMaxDevices] = {};
-  const size_t smem = fold_smem_bytes<T>(p, true);
+  const size_t smem = fold_smem_bytes<T>(p, kFoldMasked);
   const int e = smem_opt_in(reinterpret_cast<const void*>(fold_assemble_masked_kernel<T, STREAM, STAGE>), smem,
                             granted);
   if (e != 0) return e;
@@ -1010,6 +1011,44 @@ int launch_fold_assemble_masked(T* out, const int* planes, const int* ent, const
                    : launch_fold_assemble_masked_t<T, false>(out, planes, ent, coef, keep, ind, *p, s, dv, st);
 }
 
+template <typename T, int R, bool STREAM>
+int launch_fold_assemble_raw_s(T* out, const int* planes, const int* ent, const T* coef, const FoldParamsR<R>& p,
+                               T s, cudaStream_t st) {
+  static size_t granted[kMaxDevices] = {};
+  const size_t smem = fold_smem_bytes<T, R>(p, kFoldRaw);
+  const int e = smem_opt_in(reinterpret_cast<const void*>(fold_assemble_raw_kernel<T, R, STREAM>), smem, granted);
+  if (e != 0) return e;
+  const dim3 grid(static_cast<unsigned int>(p.n0), static_cast<unsigned int>(p.n_pl));
+  fold_assemble_raw_kernel<T, R, STREAM><<<grid, p.threads, smem, st>>>(out, planes, ent, coef, p, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int R>
+int launch_fold_assemble_raw_r(T* out, const int* planes, const int* ent, const T* coef, const void* params, T s,
+                               void* stream) {
+  const FoldParamsR<R>& p = *static_cast<const FoldParamsR<R>*>(params);
+  if (!fold_params_ok<R>(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(p.n_pl) * p.n0 * p.n1 * p.n2 == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return p.stream ? launch_fold_assemble_raw_s<T, R, true>(out, planes, ent, coef, p, s, st)
+                  : launch_fold_assemble_raw_s<T, R, false>(out, planes, ent, coef, p, s, st);
+}
+
+// K5's launcher: params is a FoldParams block at stride r = 1 and a
+// FoldParamsR<2> block at r = 2.
+template <typename T>
+int launch_fold_assemble_raw(T* out, const int* planes, const int* ent, const T* coef, const void* params, int r,
+                             T s, void* stream) {
+  switch (r) {
+    case 1:
+      return launch_fold_assemble_raw_r<T, 1>(out, planes, ent, coef, params, s, stream);
+    case 2:
+      return launch_fold_assemble_raw_r<T, 2>(out, planes, ent, coef, params, s, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1035,20 +1074,6 @@ int dmt_blocked_matvec_f32(const float* data, const float* x, float* y, const in
 int dmt_blocked_matvec_f64(const double* data, const double* x, double* y, const int* tab,
                            const void* params, void* stream) {
   return launch_blocked_matvec<double>(data, x, y, tab, static_cast<const BlockedParams*>(params), stream);
-}
-
-int dmt_fold_assemble_raw_f32(float* out, int n_pl, int n0, int n1, int n2, int nx, int ny, int nz,
-                              const int* planes, const int* ent, const float* coef, int r, float s,
-                              void* stream) {
-  return launch_fold_assemble_raw<float>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, r, s,
-                                         stream);
-}
-
-int dmt_fold_assemble_raw_f64(double* out, int n_pl, int n0, int n1, int n2, int nx, int ny,
-                              int nz, const int* planes, const int* ent, const double* coef, int r,
-                              double s, void* stream) {
-  return launch_fold_assemble_raw<double>(out, n_pl, n0, n1, n2, nx, ny, nz, planes, ent, coef, r,
-                                          s, stream);
 }
 
 // params: a FoldParams block (K1 / K4 and K3), built by the wrapper once per
@@ -1080,6 +1105,17 @@ int dmt_fold_assemble_masked_f64(double* out, const int* planes, const int* ent,
                                  double dv, void* stream) {
   return launch_fold_assemble_masked<double>(out, planes, ent, coef, keep, ind,
                                              static_cast<const FoldParams*>(params), s, dv, stream);
+}
+
+// r: K5's window stride, 1 (params a FoldParams block) or 2 (FoldParamsR<2>)
+int dmt_fold_assemble_raw_f32(float* out, const int* planes, const int* ent, const float* coef,
+                              const void* params, int r, float s, void* stream) {
+  return launch_fold_assemble_raw<float>(out, planes, ent, coef, params, r, s, stream);
+}
+
+int dmt_fold_assemble_raw_f64(double* out, const int* planes, const int* ent, const double* coef,
+                              const void* params, int r, double s, void* stream) {
+  return launch_fold_assemble_raw<double>(out, planes, ent, coef, params, r, s, stream);
 }
 
 }  // extern "C"

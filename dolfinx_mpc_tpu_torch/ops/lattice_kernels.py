@@ -17,7 +17,8 @@ Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
   it launches K1's device code on the blocked table.
 - **K5** ``assemble_fold_lean_raw`` replaces the unmasked assembler
   (``kernel``, fuse mode None) of forms without Dirichlet dofs, on the
-  vertex grid, the blocked class grids and the refined degree-2 grid.
+  vertex grid, the blocked class grids and the refined degree-2 grid
+  (window stride 2); K1's block design, its launch a ``FoldLaunch`` too.
 - **K6** ``blocked_matvec`` replaces the parity-blocked SpMV
   (``make_blocked_matvec_pallas``); ``BlockedMatvecLaunch`` is its launch
   prepared once per operator.
@@ -103,7 +104,7 @@ def declare_signatures(lib: ctypes.CDLL) -> None:
         bm.argtypes = [P, P, P, P, P, P]
         bm.restype = I
         fr = getattr(lib, f"dmt_fold_assemble_raw_{suf}")
-        fr.argtypes = [P, I, I, I, I, I, I, I, P, P, P, I, F, P]
+        fr.argtypes = [P, P, P, P, P, I, F, P]
         fr.restype = I
 
 
@@ -252,15 +253,15 @@ class FoldTableDevice:
     """FoldTable tensors on one device: int32 planes/entries, coefficients
     and the masks in the working dtype — the packed factor buffer
     [ki | pi | kj | pj | kk | pk] (factored), the keep and bc stacks
-    (masked), or none (raw) — and the class edges of the windows (at
-    refine 1).  On a CUDA device the assemblers' launches are prepared once
-    per table (``launch``)."""
+    (masked), or none (raw) — and the classes of the windows' points
+    (``fold_edges``, by parity too at refine 2).  On a CUDA device the
+    assemblers' launches are prepared once per table (``launch``)."""
 
     def __init__(self, table: FoldTable, device, dtype):
         self.vshape, self.dims = table.vshape, table.dims
         self.n_planes = table.n_planes
         self.blocked, self.refine = table.blocked, table.refine
-        self.edges = fold_edges(table.vshape, table.dims, table.ent) if table.refine == 1 else None
+        self.edges = fold_edges(table.vshape, table.dims, table.ent, table.refine)
         self.n_entries = int((table.planes[:, 7] - table.planes[:, 6]).max(initial=0))
         self._launches = {}
         self.dtype = dtype
@@ -287,10 +288,10 @@ class FoldTableDevice:
         return self.coef.device
 
     def launch(self, masks, blocked=None) -> "FoldLaunch":
-        """The prepared K1 / K4 ("factored") or K3 ("masked") launch on this
-        table, made at the first call; raises for a table off the card, or
-        for one not on the `blocked` layout where that is given (K1 False,
-        K4 True)."""
+        """The prepared K1 / K4 ("factored"), K3 ("masked") or K5 ("raw")
+        launch on this table, made at the first call; raises for a table off
+        the card, or for one not on the `blocked` layout where that is given
+        (K1 False, K4 True)."""
         key = (masks, blocked)
         got = self._launches.get(key)
         if got is None:
@@ -513,93 +514,129 @@ def _check_table(tab, name, masks, blocked=None):
         raise ValueError(f"{name}: the table is {'' if tab.blocked else 'not '}on the blocked layout")
 
 
-# K1's, K4's and K3's launch limits (csrc/lattice_kernels.cu)
-_FOLD_MAX_EDGES = 4  # kFoldMaxEdges: segments per axis
-_FOLD_MAX_CLASSES = _FOLD_MAX_EDGES ** 3
-_FOLD_MAX_ENTRIES = 8  # kFoldMaxEntries: entries per plane
+# The assemblers' launch limits (csrc/lattice_kernels.cu): at window stride
+# r a plane holds at most (r + 1)^3 entries (FoldLimits<r>::entries) and an
+# axis at most 4 r classes (FoldLimits<r>::edges)
 _FOLD_MAX_THREADS = 512  # kFoldMaxThreads
+_FOLD_NAMES = {"factored": "assemble_fold_lean_factored", "masked": "assemble_fold_lean_masked",
+               "raw": "assemble_fold_lean_raw"}
 
 
-class FoldParams(ctypes.Structure):
-    """The parameter block of K1 / K4 and K3 (struct FoldParams of
-    csrc/lattice_kernels.cu), built once per table: planes and grid, window
-    extents, factor rows, the class edges per axis, and the launch shape
-    (row groups x columns per row group, threads, evict-first stores, K3's
-    keep planes staged in shared memory)."""
-
-    _fields_ = [("n_pl", ctypes.c_int), ("n0", ctypes.c_int), ("n1", ctypes.c_int), ("n2", ctypes.c_int),
-                ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int), ("n_stack", ctypes.c_int),
-                ("ne", ctypes.c_int * 3), ("edge", (ctypes.c_int * _FOLD_MAX_EDGES) * 3), ("g", ctypes.c_int), ("kw", ctypes.c_int), ("threads", ctypes.c_int), ("stream", ctypes.c_int),
-                ("stage", ctypes.c_int)]
+def _fold_limits(r):
+    """(entries per plane, classes per axis) a launch at stride r takes."""
+    return (r + 1) ** 3, 4 * r
 
 
-def fold_edges(vshape, dims, ent) -> tuple:
-    """The class edges of a refine-1 fold table: per axis the sorted segment
-    starts {0} ∪ {da} ∪ {da + n} over every entry's window [da, da + n),
-    those inside the grid.  Between two edges every point lies in the same
-    windows, so each plane's window sum is constant on the classes (one
-    segment per axis), at most 4 x 4 x 4 of them (3 per axis on the
-    unpadded grids: {0}, [1, n), {n})."""
+def _fold_params_type(edges):
+    fields = [("n_pl", ctypes.c_int), ("n0", ctypes.c_int), ("n1", ctypes.c_int), ("n2", ctypes.c_int),
+              ("nx", ctypes.c_int), ("ny", ctypes.c_int), ("nz", ctypes.c_int), ("n_stack", ctypes.c_int),
+              ("ne", ctypes.c_int * 3), ("edge", (ctypes.c_int * edges) * 3), ("g", ctypes.c_int),
+              ("kw", ctypes.c_int), ("threads", ctypes.c_int), ("stream", ctypes.c_int), ("stage", ctypes.c_int)]
+    return type(f"FoldParams{edges}", (ctypes.Structure,), {"_fields_": fields})
+
+
+class FoldParams(_fold_params_type(4)):
+    """The parameter block of K1 / K4, K3 and K5 at window stride 1 (struct
+    FoldParams of csrc/lattice_kernels.cu), built once per table: planes
+    and grid, window extents, factor rows, the classes per axis (their
+    first points, at most 4), and the launch shape (row groups x columns
+    per row group, threads, evict-first stores, K3's keep planes staged in
+    shared memory)."""
+
+
+class FoldParamsR2(_fold_params_type(8)):
+    """FoldParams with room for the 8 classes per axis of K5 on the refined
+    grid (window stride 2; FoldParamsR<2> of csrc/lattice_kernels.cu)."""
+
+
+_FOLD_PARAMS = {1: FoldParams, 2: FoldParamsR2}
+
+
+def fold_edges(vshape, dims, ent, r=1) -> tuple:
+    """The classes of a fold table's points: per axis the first point of
+    each class, ascending.  Entry e's window on an axis is the points
+    da + r q of its boxes q in [0, n): the segment starts {0} ∪ {da} ∪
+    {da + r n} over every entry, those inside the grid, split the axis into
+    segments on which every point lies inside or outside each window's
+    span, and inside a segment a point's parity (mod r) decides which
+    strided windows hold it.  So each plane's window sum is constant on the
+    classes (segment, parity).  At r = 1 they are the segments, at most 4
+    per axis (3 on the unpadded grids: {0}, [1, n), {n}); on the refined
+    degree-2 grid (r = 2, 2n + 1 points) the 5 classes (0, 1, 2, 3, 2n)."""
     ent = np.asarray(ent).reshape(-1, 3)
     out = []
     for a in range(3):
+        n_a = int(vshape[a])
         da = {int(v) for v in ent[:, a]}
-        starts = {0} | da | {d + int(dims[a]) for d in da}
-        out.append(tuple(v for v in sorted(starts) if 0 <= v < int(vshape[a])))
+        starts = sorted(v for v in {0} | da | {d + r * int(dims[a]) for d in da} if 0 <= v < n_a)
+        ends = starts[1:] + [n_a]
+        out.append(tuple(x for e, end in zip(starts, ends) for x in range(e, min(e + r, end))))
     return tuple(out)
 
 
-def _fold_row_groups(n1, kw):
-    """Row groups of kw columns per block: three where they fit (224
-    threads at 65 columns, 416 at 129), which on the H100 beat one, two and
-    six at 65^3 and 129^3 (chip_smoke.py's sweep)."""
-    return max(1, min(3, _FOLD_MAX_THREADS // kw, n1))
+def _fold_row_groups(n1, kw, most=3):
+    """Row groups of kw columns per block, `most` where they fit: three for
+    K1, K4 and K3 (224 threads at 65 columns, 416 at 129), which on the H100
+    beat one, two and six at 65^3 and 129^3, four for K5 (288 threads at 65
+    columns, 5-6 % faster than three there; three at 129) (chip_smoke.py's
+    sweeps)."""
+    return max(1, min(most, _FOLD_MAX_THREADS // kw, n1))
 
 
-def fold_smem_bytes(n1, n2, itemsize, masked, stage) -> int:
-    """Shared memory of a K1 / K4 or K3 block (fold_smem_bytes of
-    csrc/lattice_kernels.cu): the staged entries and class values, per row
-    a FoldRow (K1 / K4) or a segment (K3), and K3's two staged keep
-    planes."""
-    shared = (3 * _FOLD_MAX_ENTRIES + _FOLD_MAX_CLASSES) * itemsize + 3 * _FOLD_MAX_ENTRIES * 4
-    if not masked:
+def fold_smem_bytes(n1, n2, itemsize, masks, stage, r=1) -> int:
+    """Shared memory of an assembler block (fold_smem_bytes of
+    csrc/lattice_kernels.cu): the staged entries and class values at stride
+    r (struct FoldShared, padded to the item size), per row a FoldRow
+    (K1 / K4, masks "factored") or a class (K3 "masked", K5 "raw"), and K3's
+    two staged keep planes."""
+    entries, edges = _fold_limits(r)
+    shared = -(-((3 * entries + edges ** 3) * itemsize + 3 * entries * 4) // itemsize) * itemsize
+    if masks == "factored":
         return shared + n1 * 4 * itemsize
-    return shared + 4 * n1 + (8 * ((n1 + 2) * (n2 + 2) // 4 + 2) if stage else 0)
+    return shared + 4 * n1 + (8 * ((n1 + 2) * (n2 + 2) // 4 + 2) if masks == "masked" and stage else 0)
 
 
-def fold_launch_params(vshape, dims, edges, n_planes, n_stack=0, itemsize=4, masked=False,
-                       n_entries=8) -> FoldParams:
-    """The parameter block of K1 / K4 (masked=False) or K3 for a table of
-    `n_planes` planes on the (n0, n1, n2) grid with windows of `dims` and
-    class `edges` (fold_edges), whose planes hold at most `n_entries`
-    entries.  One block per (plane, x plane): two x planes per block were
-    slower for K1 and K4 at every path shape on the H100 and within a few %
-    for K3.  Threads: g row groups (_fold_row_groups) of kw = min(n2, 512)
-    columns; evict-first stores where the output exceeds the 50 MB L2; K3
-    stages its two keep planes in shared memory where they fit in what a
-    block may use (planes up to 337 x 337 points; 35 KB at 129 x 129),
-    else reads them from the L2.  Raises where the kernel cannot take the
-    table: more than 4 segments on an axis, more than 8 entries on a plane,
-    more than 65,535 planes, planes of 2^31 values or more, or rows beyond
-    one block's shared memory."""
+def fold_launch_params(vshape, dims, edges, n_planes, n_stack=0, itemsize=4, masks="factored",
+                       n_entries=8, r=1):
+    """The parameter block of K1 / K4 (`masks` "factored"), K3 ("masked")
+    or K5 ("raw") for a table of `n_planes` planes on the (n0, n1, n2) grid
+    with windows of `dims` boxes at stride `r` (2 only for K5, on the
+    refined degree-2 grid) and classes `edges` (fold_edges), whose planes
+    hold at most `n_entries` entries.  One block per (plane, x plane): two
+    x planes per block were slower for K1 and K4 at every path shape on the
+    H100 and within a few % for K3.  Threads: g row groups
+    (_fold_row_groups) of kw = min(n2, 512) columns; evict-first stores
+    where the output exceeds the 50 MB L2; K3 stages its two keep planes in
+    shared memory where they fit in what a block may use (planes up to
+    337 x 337 points; 35 KB at 129 x 129), else reads them from the L2.
+    Raises where the kernel cannot take the table: more than 4 r classes
+    on an axis, more than (r + 1)^3 entries on a plane (8 at r = 1, 27 at
+    r = 2), a stride other than 1 (K1, K4, K3) or 1 and 2 (K5), more than
+    65,535 planes, planes of 2^31 values or more, or rows beyond one
+    block's shared memory.  A FoldParams block at stride 1, a FoldParamsR2
+    at stride 2."""
     n0, n1, n2 = (int(v) for v in vshape)
-    name = "assemble_fold_lean_masked" if masked else "assemble_fold_lean_factored"
-    if len(edges) != 3 or any(not 1 <= len(e) <= _FOLD_MAX_EDGES or e[0] != 0 for e in edges):
-        raise ValueError(f"{name}: class edges {edges} (1 to {_FOLD_MAX_EDGES} per axis, from 0)")
+    name = _FOLD_NAMES[masks]
+    if r not in ((1, 2) if masks == "raw" else (1,)):
+        raise ValueError(f"{name}: window stride {r}")
+    max_entries, max_edges = _fold_limits(r)
+    if len(edges) != 3 or any(not 1 <= len(e) <= max_edges or e[0] != 0 for e in edges):
+        raise ValueError(f"{name}: class edges {edges} (1 to {max_edges} per axis at stride {r}, from 0)")
     if not 1 <= n_planes <= 65535:
         raise ValueError(f"{name}: {n_planes} planes (the kernel takes 1 to 65535)")
-    if n_entries > _FOLD_MAX_ENTRIES:
-        raise ValueError(f"{name}: a plane holds {n_entries} entries (the kernel takes {_FOLD_MAX_ENTRIES})")
+    if n_entries > max_entries:
+        raise ValueError(f"{name}: a plane holds {n_entries} entries (the kernel takes {max_entries} at "
+                         f"stride {r})")
     kw = min(n2, _FOLD_MAX_THREADS)
-    g = _fold_row_groups(n1, kw)
-    if fold_smem_bytes(n1, n2, itemsize, masked, False) > _SMEM_MAX:
+    g = _fold_row_groups(n1, kw, 4 if masks == "raw" else 3)
+    if fold_smem_bytes(n1, n2, itemsize, masks, False, r) > _SMEM_MAX:
         raise ValueError(f"{name}: {n1} rows need more shared memory than a block has")
     if n1 * n2 >= 2 ** 31:
         raise ValueError(f"{name}: planes of {n1} x {n2} values hold 2^31 values or more")
-    p = FoldParams(n_pl=n_planes, n0=n0, n1=n1, n2=n2, nx=int(dims[0]), ny=int(dims[1]), nz=int(dims[2]),
-                   n_stack=n_stack, g=g, kw=kw, threads=-(-g * kw // 32) * 32,
-                   stream=int(n_planes * n0 * n1 * n2 * itemsize > _L2_BYTES),
-                   stage=int(masked and fold_smem_bytes(n1, n2, itemsize, True, True) <= _SMEM_MAX))
+    p = _FOLD_PARAMS[r](n_pl=n_planes, n0=n0, n1=n1, n2=n2, nx=int(dims[0]), ny=int(dims[1]), nz=int(dims[2]),
+                        n_stack=n_stack, g=g, kw=kw, threads=-(-g * kw // 32) * 32,
+                        stream=int(n_planes * n0 * n1 * n2 * itemsize > _L2_BYTES),
+                        stage=int(masks == "masked" and fold_smem_bytes(n1, n2, itemsize, masks, True) <= _SMEM_MAX))
     for a, e in enumerate(edges):
         p.ne[a] = len(e)
         for b, v in enumerate(e):
@@ -608,31 +645,31 @@ def fold_launch_params(vshape, dims, edges, n_planes, n_stack=0, itemsize=4, mas
 
 
 class FoldLaunch:
-    """K1 / K4 (masks "factored") or K3 ("masked") prepared once per table
-    on the card (FoldTableDevice.launch): the device checks, the parameter
-    block, the ctypes function of the dtype and the table's pointers.  A
-    call allocates the output, reads the current stream and makes one
-    ctypes call with s = 1 + jitter and diagval."""
+    """K1 / K4 (masks "factored"), K3 ("masked") or K5 ("raw") prepared
+    once per table on the card (FoldTableDevice.launch): the device checks,
+    the parameter block, the ctypes function of the dtype and the table's
+    pointers.  A call allocates the output, reads the current stream and
+    makes one ctypes call with s = 1 + jitter and (not K5) diagval."""
 
     def __init__(self, tab: FoldTableDevice, masks, blocked=None):
-        name = ("assemble_fold_lean_masked" if masks == "masked" else
-                "assemble_fold_lean_blocked" if blocked else "assemble_fold_lean_factored")
+        name = "assemble_fold_lean_blocked" if masks == "factored" and blocked else _FOLD_NAMES[masks]
         _check_table(tab, name, masks, blocked)
         from .._build import load_kernels
 
         self.name = name
         itemsize = torch.empty((), dtype=tab.dtype).element_size()
         self.params = fold_launch_params(tab.vshape, tab.dims, tab.edges, tab.n_planes, tab.n_stack, itemsize,
-                                         masks == "masked", tab.n_entries)
+                                         masks, tab.n_entries, tab.refine)
         self.shape = (tab.n_planes,) + tuple(tab.vshape)
         self.tab = tab  # keeps the pointers valid
         self.device, self.dtype = tab.device, tab.dtype
         self.index = tab.device.index if tab.device.index is not None else torch.cuda.current_device()
         self.F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
+        self.raw = masks == "raw"
         lib = load_kernels()
         if masks == "factored":
             masks_ptrs = (tab.fac.data_ptr(),)
-        else:
+        elif masks == "masked":
             # K3 reads the 0 / 1 keep stack as bytes, a copy kept here with
             # 16 bytes after its end (staged planes are read in 4-byte words)
             n = tab.keep.numel()
@@ -641,15 +678,20 @@ class FoldLaunch:
             if not torch.equal(self.keep8[:n].to(tab.dtype), tab.keep.reshape(-1)):
                 raise ValueError(f"{name}: the keep stack holds values other than 0 and 1")
             masks_ptrs = (self.keep8.data_ptr(), tab.bc_ind.data_ptr())
-        self.fn = getattr(lib, f"dmt_fold_assemble{'_masked' if masks == 'masked' else ''}_{_suffix(tab.dtype)}")
+        else:
+            masks_ptrs = ()
+        kind = {"factored": "", "masked": "_masked", "raw": "_raw"}[masks]
+        self.fn = getattr(lib, f"dmt_fold_assemble{kind}_{_suffix(tab.dtype)}")
+        # K5 names the stride of its parameter block
         self.args = (tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), *masks_ptrs,
-                     ctypes.addressof(self.params))
+                     ctypes.addressof(self.params), *((tab.refine,) if self.raw else ()))
 
-    def __call__(self, jitter, diagval):
+    def __call__(self, jitter, diagval=0.0):
         out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
         op, args = out.data_ptr(), self.args
-        s, dv = self.F(1.0 + float(jitter)), self.F(float(diagval))
-        launch_check(on_device(self.index, lambda st: self.fn(op, *args, s, dv, st)), self.name)
+        s = self.F(1.0 + float(jitter))
+        scalars = (s,) if self.raw else (s, self.F(float(diagval)))
+        launch_check(on_device(self.index, lambda st: self.fn(op, *args, *scalars, st)), self.name)
         return out
 
 
@@ -732,31 +774,23 @@ def assemble_fold_lean_raw(tab: FoldTableDevice, jitter):
     operator of a form without Dirichlet dofs, whose masks are identities.
 
     Replaces the TPU kernel dolfinx_mpc_tpu/ops/pallas_lattice.py:
-    _make_lean_fold_pallas_group -> kernel (fuse mode None).  K1's thread
-    layout without the mask reads and the diagonal term: bound by the one
-    write (135 x 65^3 values, 148 MB, for P1 elasticity at n=64 in f32;
-    65 x 129^3, 558 MB, on the refined P2 n=64 grid).  On the refined grid
-    an entry adds only at the points of its corner's parity, the stride-r
-    form of the TPU kernel's pltpu.repeat upsampling times its parity
-    mask.  Any mask stack the table holds is not read.  CPU tables run the
-    plain version."""
+    _make_lean_fold_pallas_group -> kernel (fuse mode None).  K1's design
+    without the masks and the diagonal term: a block per (plane, x plane)
+    computes the plane's window sums once per class of points (fold_edges)
+    and writes each value as one lookup, k fastest for coalesced stores,
+    bound by the one write (230 x 65^3 values, 253 MB, for the blocked P2
+    table at n=64 in f32; 135 x 65^3, 148 MB, for P1 elasticity; 65 x
+    129^3, 558 MB, on the refined P2 n=64 grid).  On the refined grid an
+    entry adds only at the points of its corner's parity (the stride-2 form
+    of the TPU kernel's pltpu.repeat upsampling times its parity mask), so
+    the classes are (segment, parity) per axis.  At stride 1 the class
+    values are K1's, so the result equals K1 / K4 with unit mask factors
+    bit for bit.  Any mask stack the table holds is not read.  The launch
+    is prepared once per table (FoldTableDevice.launch).  CPU tables run
+    the plain version."""
     if tab.device.type == "cpu":
         return assemble_fold_lean_raw_plain(tab, jitter)
-    _check_table(tab, "assemble_fold_lean_raw", "raw")
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    dev = tab.device
-    n0, n1, n2 = tab.vshape
-    nx, ny, nz = tab.dims
-    out = torch.empty((tab.n_planes, n0, n1, n2), dtype=tab.dtype, device=dev)
-    F = ctypes.c_float if tab.dtype == torch.float32 else ctypes.c_double
-    with torch.cuda.device(dev):
-        rc = getattr(lib, f"dmt_fold_assemble_raw_{_suffix(tab.dtype)}")(
-            out.data_ptr(), tab.n_planes, n0, n1, n2, nx, ny, nz,
-            tab.planes.data_ptr(), tab.ent.data_ptr(), tab.coef.data_ptr(), tab.refine,
-            F(1.0 + float(jitter)), torch.cuda.current_stream(dev).cuda_stream)
-    launch_check(rc, "assemble_fold_lean_raw")
+    out = tab.launch("raw")(jitter)
     assemble_fold_lean_raw.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Host cost per call of the port's kernel wrappers (K2's and K7's
 DIAMatrix.matvec, K6's BlockDIAMatrix.matvec_blocked, K8's
-BellMatrix.matvec, the assemblers K1, K4 and K3), bench.py's assembly
+BellMatrix.matvec, the assemblers K1, K4, K3 and K5), bench.py's assembly
 throughput and the warm CG time per iteration of the P1, bs=3, P2 and
 contact paths, on one NVIDIA card.
 
@@ -25,9 +25,11 @@ nvidia-smi name and power limit.
   same calls.
 - asm: the assemblers' wrappers on the n=64 tables, float32 (K1 on P1
   15 x 65^3 and on bs=3 135 x 65^3, K4 on P2 230 x 65^3, K3 on P1 and P2
-  with chip_smoke.blob's non-separable set), the same two times over 200
-  calls (their launches outlast their host cost, so fewer calls keep the
-  launch queue from filling); then bench.py's constrained-assembly metric
+  with chip_smoke.blob's non-separable set; K5 on the raw tables of the
+  bs=3 form, 135 x 65^3, and of the P2 form, blocked 230 x 65^3 and
+  refined 65 x 129^3), the same two times over 200 calls (their launches
+  outlast their host cost, so fewer calls keep the launch queue from
+  filling); then bench.py's constrained-assembly metric
   for the P1, P2 and bs=3 problems at n=64 (chip_smoke.assembly_rate: ms
   per whole clf._assemble_fold_lean_kernel call, MDoF/s, GB/s of operator
   data written).
@@ -174,6 +176,18 @@ def asm_times(cs, dev, wrapper_times, emit, n=64):
                  dofs=dofs, bytes=nbytes)
         del clf, tab
         torch.cuda.empty_cache()
+    # K5 on the raw (unmasked) tables of the bs=3 and P2 forms
+    el = cs.make_elasticity(n, np.float32, dev)[4]
+    p2 = cs.make_problem(n, np.float32, dev, degree=2)[4]
+    for label, table in (("bs=3 grid", LK.build_fold_table(el)), ("P2 blocked", LK.build_fold_table(p2)),
+                         ("P2 refined r=2", LK.build_fold_table(p2, _refined=True))):
+        tab = table.on(dev, torch.float32)
+        wrapper_times(f"assemble_fold_lean_raw {label} {(tab.n_planes,) + tuple(tab.vshape)} (K5)", 0.013,
+                      lambda j: LK.assemble_fold_lean_raw(tab, j), calls=200)
+        del tab
+        table._on.clear()
+        torch.cuda.empty_cache()
+    del el, p2
 
 
 def path_solves(cs, dmt, dev, args, emit):

@@ -495,3 +495,39 @@ def test_fold_assemblers_match_plain_on_card_odd_extents(cuda, dtype, tol):
                 pi, pj, pk = (torch.as_tensor(f[:, 1:-1], device=cuda) for f in table.factors[3:])
                 real = (pi[:, :, None, None] * pj[:, None, :, None] * pk[:, None, None, :])[rows] != 0
             assert not got[~real].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_k5_matches_plain_on_card_odd_extents(cuda, dtype, tol):
+    """K5 against its plain version at odd, unequal extents: at stride 1 on
+    the raw bs=3 grid table and the raw blocked P2 table (also padded
+    beyond n + 1), at stride 2 on the refined P2 table (also padded),
+    through the tables' prepared launches with plain and with evict-first
+    stores: one launch per call, two calls bit-equal; at stride 1 equal to
+    K1 / K4 with unit mask factors bit for bit."""
+    el = _elasticity_problem((5, 6, 7), np.float64, "cpu")[5]
+    free2 = _free_problem((3, 4, 5), np.float64, "cpu", 2)[5]
+    ones3 = np.ones((3,) + el.vshape)
+    keep2 = free2._split_classes(np.ones(free2.vshape))
+    raw3, refined = LK.build_fold_table(el), LK.build_fold_table(free2, _refined=True)
+    unit = {id(raw3): (LK.assemble_fold_lean_factored,
+                       LK.build_fold_table(el, LK._detect_factored_masks(ones3, 0 * ones3), ones3, 0 * ones3)),
+            id(free2.table): (LK.assemble_fold_lean_blocked,
+                              LK.build_fold_table(free2, LK._detect_factored_masks(keep2, 0 * keep2,
+                                                                                   free2._blocked_pads()),
+                                                  keep2, 0 * keep2))}
+    for table in (raw3, free2.table, padded_table(free2.table, (2, 1, 0)), refined, padded_table(refined, (1, 2, 0))):
+        tab = table.on(cuda, dtype)
+        ref = LK.assemble_fold_lean_raw_plain(tab, 0.02)
+        params = tab.launch("raw").params
+        assert type(params) is (LK.FoldParamsR2 if table.refine == 2 else LK.FoldParams)
+        for stream in (params.stream, 1 - params.stream):
+            params.stream = stream
+            n = LK.assemble_fold_lean_raw.launches
+            got, again = LK.assemble_fold_lean_raw(tab, 0.02), LK.assemble_fold_lean_raw(tab, 0.02)
+            torch.cuda.synchronize()
+            assert LK.assemble_fold_lean_raw.launches == n + 2 and torch.equal(got, again)
+            assert float((got - ref).abs().max() / ref.abs().max()) <= tol, (table.vshape, table.refine, stream)
+        if id(table) in unit:
+            kernel, u = unit[id(table)]
+            assert torch.equal(got, kernel(u.on(cuda, dtype), 0.02, 1.3))

@@ -2,10 +2,13 @@
 SpMV) and K6 (blocked SpMV): their plain PyTorch versions against the JAX
 package's Pallas kernels in interpret mode (float32, rel 5e-6 as in
 tests/test_pallas_lattice.py) and against its XLA paths (float64), on the
-same inputs; and the launches the operators prepare for the card (halo,
-parameter blocks, K6's packed triple table), which need no card."""
+same inputs; and the launches the operators and fold tables prepare for
+the card (halo, parameter blocks, K6's packed triple table, the
+assemblers' classes, K5's at window strides 1 and 2), which need no
+card."""
 
 import dataclasses
+import functools
 import itertools
 
 import numpy as np
@@ -426,9 +429,14 @@ def test_prepared_launches_refuse_cpu_data_and_cpu_operators_launch_nothing():
     assert (LK.dia_matvec_bs.launches, LK.blocked_matvec.launches) == (n7, n6)
 
 
-def _class_ids(edges, n):
-    """The segment of every point 0 .. n-1 of an axis with these edges."""
-    return np.searchsorted(np.asarray(edges), np.arange(n), side="right") - 1
+def _class_ids(edges, n, r=1):
+    """The class of every point 0 .. n-1 of an axis with these classes
+    (their first points, fold_edges), by the kernels' rule: the last class
+    whose first point is <= x and shares x's parity mod r; at r = 1 the
+    segment between two edges."""
+    e, x = np.asarray(edges), np.arange(n)
+    ok = (e[None, :] <= x[:, None]) & ((x[:, None] - e[None, :]) % r == 0)
+    return len(e) - 1 - np.argmax(ok[:, ::-1], axis=1)
 
 
 def _blob_clf(dims, degree):
@@ -449,11 +457,23 @@ def _blob_clf(dims, degree):
 
 
 FOLD_CASES = ["P1", "bs=3", "P2 blocked", "P1 padded", "P2 blocked padded", "P2 blocked masked padded"]
+# K5's raw tables at odd, unequal extents, and padded: the bs=3 vertex grid
+# and the blocked P2 class grids at stride 1, the refined P2 grid at stride 2
+K5_CASES = ["bs=3 raw", "P2 blocked raw", "P2 refined", "bs=3 raw padded", "P2 blocked raw padded",
+            "P2 refined padded"]
 
 
+@functools.lru_cache(maxsize=None)
 def _fold_case_table(case):
-    """The host table of one K1 / K4 / K3 case (odd and unequal extents)."""
-    if case.startswith("P1"):
+    """The host table of one K1 / K4 / K3 case or one K5 case (K5_CASES:
+    no masks)."""
+    if case in K5_CASES:
+        if case.startswith("bs=3"):
+            table = LK.build_fold_table(_pt_elasticity_clf((3, 4, 5)))
+        else:
+            table = LK.build_fold_table(_pt_form_clf((2, 3, 4), 2, False), _refined=case.startswith("P2 refined"))
+        assert table.factors is None and table.keep is None
+    elif case.startswith("P1"):
         table = _pt_form_clf((3, 4, 5), 1, True).table
     elif case == "bs=3":
         table = _pt_elasticity_clf((2, 3, 3)).table
@@ -464,36 +484,55 @@ def _fold_case_table(case):
     return padded_table(table, (1, 2, 0)) if case.endswith("padded") else table
 
 
-@pytest.mark.parametrize("case", FOLD_CASES)
+def _in_windows(xs, corner, dims, r):
+    """Whether the points xs (one array per axis) lie in the window of this
+    corner and these box counts at stride r."""
+    u = [x - corner[a] for a, x in enumerate(xs)]
+    return np.logical_and.reduce([(v >= 0) & (v < r * dims[a]) & (v % r == 0) for a, v in enumerate(u)])
+
+
+@pytest.mark.parametrize("case", FOLD_CASES + K5_CASES)
 def test_fold_classes_hold_the_same_entries(case):
     """At every point of every plane, the entries whose window holds the
     point are the entries whose window holds its class's first point (the
-    point at which the kernels compute the class value): each axis splits
-    at the edges fold_edges gives, 3 segments on the unpadded grids and 4
-    where the grid runs beyond n + 1."""
+    point at which the kernels compute the class value), the class taken
+    by the kernels' rule; each first point lies in its own class.  At
+    stride 1 each axis splits at the edges fold_edges gives, 3 segments on
+    the unpadded grids and 4 where the grid runs beyond n + 1; at stride 2
+    (K5 on the refined grid of 2n + 1 points) the classes are (segment,
+    parity), (0, 1, 2, 3, 2n) per axis, and padded slots add their own."""
     table = _fold_case_table(case)
-    edges = LK.fold_edges(table.vshape, table.dims, table.ent)
+    r = table.refine
+    assert r == (2 if "refined" in case else 1)
+    edges = LK.fold_edges(table.vshape, table.dims, table.ent, r)
+    assert edges == table.on("cpu", torch.float64).edges
     padded = case.endswith("padded")
-    assert [len(e) for e in edges] == ([4, 4, 3] if padded else [3, 3, 3])
-    assert all(e[:2] == (0, 1) for e in edges)
+    if r == 1:
+        assert [len(e) for e in edges] == ([4, 4, 3] if padded else [3, 3, 3])
+        assert all(e[:2] == (0, 1) for e in edges)
+    else:
+        assert [len(e) for e in edges] == ([6, 7, 5] if padded else [5, 5, 5])
+        assert all(e[:4] == (0, 1, 2, 3) for e in edges) and edges[2][-1] == 2 * table.dims[2]
+        assert (table.planes[:, 7] - table.planes[:, 6]).max() == 27
+    ids = [_class_ids(e, n, r) for e, n in zip(edges, table.vshape)]
+    for e, i in zip(edges, ids):
+        assert np.array_equal(i[list(e)], np.arange(len(e)))
     pts = np.meshgrid(*[np.arange(n) for n in table.vshape], indexing="ij")
-    reps = [np.asarray(e)[_class_ids(e, n)][x] for e, n, x in zip(edges, table.vshape, pts)]
-    for _, _, _, _, _, _, e0, e1 in table.planes:
-        for e in range(e0, e1):
-            def inside(xs):
-                return np.logical_and.reduce([(x >= table.ent[e, a]) & (x < table.ent[e, a] + table.dims[a])
-                                              for a, x in enumerate(xs)])
-            assert np.array_equal(inside(pts), inside(reps))
+    reps = [np.asarray(e)[i][x] for e, i, x in zip(edges, ids, pts)]
+    for corner in table.ent:
+        assert np.array_equal(_in_windows(pts, corner, table.dims, r), _in_windows(reps, corner, table.dims, r))
 
 
-@pytest.mark.parametrize("case", FOLD_CASES)
+@pytest.mark.parametrize("case", FOLD_CASES + K5_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fold_class_values_equal_window_sums_bit_for_bit(case, dtype):
     """The kernels' arithmetic emulated per class: each plane's class values
-    by the entry-ordered loop at the class's first point, then broadcast
-    over the classes' points, equal the plain version's window slice-adds
-    (_window_sums) bit for bit."""
+    by the entry-ordered loop at the class's first point (strided windows
+    at stride 2), then broadcast over the classes' points by the kernels'
+    class rule, equal the plain version's window slice-adds (_window_sums)
+    bit for bit."""
     tab = _fold_case_table(case).on("cpu", dtype)
+    r = tab.refine
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     jitter = 0.013
     s = np_dt(1.0 + jitter)
@@ -501,7 +540,7 @@ def test_fold_class_values_equal_window_sums_bit_for_bit(case, dtype):
     s3 = s2 * s
     ref, rows = LK._window_sums(tab, jitter)
     coef, ent = tab.coef.numpy(), tab.ent.numpy()
-    ids = [_class_ids(e, n) for e, n in zip(tab.edges, tab.vshape)]
+    ids = [_class_ids(e, n, r) for e, n in zip(tab.edges, tab.vshape)]
     got = np.empty(tuple(ref.shape), np_dt)
     for mi, (*_, e0, e1) in enumerate(rows):
         cls = np.empty([len(e) for e in tab.edges], np_dt)
@@ -509,12 +548,14 @@ def test_fold_class_values_equal_window_sums_bit_for_bit(case, dtype):
             rep = [tab.edges[a][c[a]] for a in range(3)]
             acc = np_dt(0.0)
             for e in range(e0, e1):
-                if all(ent[e, a] <= rep[a] < ent[e, a] + tab.dims[a] for a in range(3)):
+                if _in_windows(rep, ent[e], tab.dims, r):
                     c0, c1, c2 = coef[e]
                     acc = np_dt(acc + np_dt(c0 * s3 + c1 * s2 + c2 * s))
             cls[c] = acc
         got[mi] = cls[np.ix_(*ids)]
-    assert torch.equal(torch.as_tensor(got), ref)
+    assert torch.equal(torch.as_tensor(got), ref) and ref.abs().max() > 0
+    if case in K5_CASES:
+        assert torch.equal(LK.assemble_fold_lean_raw_plain(tab, jitter), ref)
 
 
 @pytest.mark.parametrize("case", FOLD_CASES)
@@ -528,7 +569,8 @@ def test_fold_launch_params_match_the_table(case):
     masked = "masked" in case
     tab = table.on("cpu", torch.float32)
     n0, n1, n2 = table.vshape
-    p = LK.fold_launch_params(table.vshape, table.dims, tab.edges, table.n_planes, tab.n_stack, 4, masked)
+    p = LK.fold_launch_params(table.vshape, table.dims, tab.edges, table.n_planes, tab.n_stack, 4,
+                              "masked" if masked else "factored")
     assert (p.n_pl, p.n0, p.n1, p.n2, p.nx, p.ny, p.nz) == (table.n_planes, n0, n1, n2) + tuple(table.dims)
     assert [tuple(p.edge[a][:p.ne[a]]) for a in range(3)] == list(tab.edges)
     assert p.kw == n2 and p.g == min(3, n1) and p.threads == -(-p.g * n2 // 32) * 32
@@ -562,12 +604,13 @@ def test_fold_launch_params_on_the_path_shapes(planes, n, threads, stream):
     memory; more than 4 edges, more than 8 entries on a plane, 65,536
     planes and rows beyond shared memory raise."""
     edges = ((0, 1, n - 1),) * 3
-    for masked in (False, True):
-        p = LK.fold_launch_params((n, n, n), (n - 1,) * 3, edges, planes, 8, 4, masked)
-        assert (p.g, p.kw, p.threads, p.stream, p.stage) == (3, n, threads, stream, int(masked))
+    for masks in ("factored", "masked"):
+        p = LK.fold_launch_params((n, n, n), (n - 1,) * 3, edges, planes, 8, 4, masks)
+        assert type(p) is LK.FoldParams
+        assert (p.g, p.kw, p.threads, p.stream, p.stage) == (3, n, threads, stream, int(masks == "masked"))
     # K3's keep planes leave shared memory only where they do not fit in it: beyond 337 x 337 points
-    assert LK.fold_launch_params((n, 337, 337), (n - 1,) * 3, edges, planes, 8, 4, True).stage == 1
-    assert LK.fold_launch_params((n, 338, 338), (n - 1,) * 3, edges, planes, 8, 4, True).stage == 0
+    assert LK.fold_launch_params((n, 337, 337), (n - 1,) * 3, edges, planes, 8, 4, "masked").stage == 1
+    assert LK.fold_launch_params((n, 338, 338), (n - 1,) * 3, edges, planes, 8, 4, "masked").stage == 0
     with pytest.raises(ValueError, match="edges"):
         LK.fold_launch_params((n, n, n), (n - 1,) * 3, ((0, 1, 2, 3, 4),) + edges[1:], planes, 8, 4)
     with pytest.raises(ValueError, match="entries"):
@@ -576,3 +619,76 @@ def test_fold_launch_params_on_the_path_shapes(planes, n, threads, stream):
         LK.fold_launch_params((n, n, n), (n - 1,) * 3, edges, 65536, 8, 4)
     with pytest.raises(ValueError, match="shared memory"):
         LK.fold_launch_params((n, 20000, n), (n - 1,) * 3, edges, planes, 8, 8)
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_k5_launch_params_match_the_table(case):
+    """K5's parameter block holds the table's planes, grid, window extents,
+    stride and classes, stores plainly (a small output) and stages nothing,
+    and its threads cover every column of every row once; a CPU table
+    prepares no launch, K5's wrapper runs the plain version there and
+    counts nothing, and preparing a launch for it raises."""
+    table = _fold_case_table(case)
+    tab = table.on("cpu", torch.float32)
+    n0, n1, n2 = table.vshape
+    p = LK.fold_launch_params(table.vshape, table.dims, tab.edges, table.n_planes, 0, 4, "raw", tab.n_entries,
+                              table.refine)
+    assert (p.n_pl, p.n0, p.n1, p.n2, p.nx, p.ny, p.nz) == (table.n_planes, n0, n1, n2) + tuple(table.dims)
+    assert [tuple(p.edge[a][:p.ne[a]]) for a in range(3)] == list(tab.edges)
+    assert type(p) is (LK.FoldParamsR2 if table.refine == 2 else LK.FoldParams) and (p.stream, p.stage) == (0, 0)
+    assert p.kw == n2 and p.g == min(4, n1) and p.threads == -(-p.g * n2 // 32) * 32
+    cover = np.zeros((n1, n2), int)
+    for u in range(p.g * p.kw):  # thread u: rows u // kw + g t, columns u % kw + kw t
+        cover[u // p.kw::p.g, u % p.kw::p.kw] += 1
+    assert (cover == 1).all()
+    n5 = LK.assemble_fold_lean_raw.launches
+    assert torch.equal(LK.assemble_fold_lean_raw(tab, 0.01), LK.assemble_fold_lean_raw_plain(tab, 0.01))
+    assert tab._launches == {} and LK.assemble_fold_lean_raw.launches == n5
+    with pytest.raises(RuntimeError):
+        LK.FoldLaunch(tab, "raw")
+    with pytest.raises(RuntimeError):
+        LK.assemble_fold_lean_raw(table.on("meta", torch.float32), 0.0)
+
+
+@pytest.mark.parametrize("planes,n,r,g,threads", [(230, 65, 1, 4, 288), (135, 65, 1, 4, 288), (65, 129, 2, 3, 416)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k5_launch_params_on_the_path_shapes(planes, n, r, g, threads, itemsize):
+    """The block K5 takes on its three tables at n=64 (the blocked P2
+    triples and the bs=3 planes on 65^3, the refined P2 planes on 129^3 at
+    stride 2): classes (0, 1, 64) per axis at stride 1 and (0, 1, 2, 3, 128)
+    at stride 2 (corners 0 .. r, windows of 64 boxes), four row groups of
+    65 columns and three of 129 in whole warps, evict-first stores (every
+    output exceeds the 50 MB L2),
+    nothing staged, and a block's shared memory well inside the 48 KB that
+    needs no opt-in."""
+    ent = [(d, d, d) for d in range(r + 1)]
+    edges = LK.fold_edges((n, n, n), (64, 64, 64), ent, r)
+    assert edges == (((0, 1, 64),) * 3 if r == 1 else ((0, 1, 2, 3, 128),) * 3)
+    p = LK.fold_launch_params((n, n, n), (64, 64, 64), edges, planes, 0, itemsize, "raw", (r + 1) ** 3, r)
+    assert type(p) is (LK.FoldParamsR2 if r == 2 else LK.FoldParams)
+    assert (p.g, p.kw, p.threads, p.stream, p.stage) == (g, n, threads, 1, 0)
+    assert [p.ne[a] for a in range(3)] == [len(e) for e in edges]
+    assert LK.fold_smem_bytes(n, n, itemsize, "raw", False, r) < 48 * 1024
+
+
+def test_k5_limits_raise():
+    """K5's limits: more entries on a plane than its stride's bound (8 at
+    stride 1, 27 at stride 2), more classes on an axis than the parameter
+    block holds at that stride (4, 8), a stride other than 1 or 2, or a
+    stride of 2 for the masked assemblers all raise."""
+    vshape, dims = (129, 129, 129), (64, 64, 64)
+    e1, e2 = ((0, 1, 64),) * 3, ((0, 1, 2, 3, 128),) * 3
+    assert type(LK.fold_launch_params(vshape, dims, e2, 65, 0, 4, "raw", 27, 2)) is LK.FoldParamsR2
+    with pytest.raises(ValueError, match="entries"):
+        LK.fold_launch_params(vshape, dims, e2, 65, 0, 4, "raw", 28, 2)
+    with pytest.raises(ValueError, match="entries"):
+        LK.fold_launch_params(vshape, dims, e1, 65, 0, 4, "raw", 9, 1)
+    with pytest.raises(ValueError, match="edges"):
+        LK.fold_launch_params(vshape, dims, (tuple(range(9)),) + e2[1:], 65, 0, 4, "raw", 27, 2)
+    with pytest.raises(ValueError, match="edges"):
+        LK.fold_launch_params(vshape, dims, ((0, 1, 2, 3, 128),) + e1[1:], 65, 0, 4, "raw", 8, 1)
+    with pytest.raises(ValueError, match="stride"):
+        LK.fold_launch_params(vshape, dims, e2, 65, 0, 4, "raw", 27, 3)
+    for masks in ("factored", "masked"):
+        with pytest.raises(ValueError, match="stride"):
+            LK.fold_launch_params(vshape, dims, e2, 65, 0, 4, masks, 27, 2)
