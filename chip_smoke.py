@@ -65,17 +65,35 @@ each (or a few), any failure exits non-zero:
    packing time; then K8 against its plain version on that operator in f32
    and f64, with the cuSPARSE CSR product A @ x on the whole operator timed
    beside it;
+4e. the rotated slip-contact path at the contact path's size (74,658 dofs):
+   the same boxes with the top box's x=0 side tagged 3, every point rotated
+   by rotation_matrix([1, 1, 0], 0.3); the slave normal from
+   facet_normal_approximation(method="project") in float64 on the card
+   (exterior-facet assembly and Jacobi-CG), gated against
+   create_normal_approximation on the slave blocks;
+   create_contact_slip_condition; Dirichlet 0 at Z=0 and R (0, 0, -0.05)
+   at Z=2; the traction R (0.1, 0, 0) on tag 3 as an exterior-facet linear
+   form; then 4d's assembly, BELL + AMG + CG and gates (CG against the JAX
+   package's CPU count, K8 its + 1 times, no lattice kernel), with the host
+   time of each set-up phase, and K8 against its plain version on that
+   operator;
 5. the float64 oracles on the card: LinearProblem (Jacobi-CG) against
    u = K (K^T A K)^-1 K^T b from scipy at P1 n=6, at P2 n=3, at P1 n=6
    with the non-separable set (the path of K3), at bs=3 P1 n=4 with a vector
    source (K1, K7), and for the reaction-diffusion form without Dirichlet
    dofs at P1 n=6 (K5, K2) and P2 n=3 (K5, K6), counters reset before each;
-   the contact problem at NB=4/NT=3 through BELL + AMG + CG (K8) and through
-   LinearProblem with pc gamg (CSR, no K8).
+   four problems of the general assembler (constrained_problem: slip
+   elasticity, the rotated slip contact at NB=3/NT=2 with its traction, a
+   2-D point-to-point tie, P2 stiffness plus a Robin facet term under a
+   general constraint); the contact problem at NB=4/NT=3 through BELL + AMG
+   + CG (K8) and through LinearProblem with pc gamg (CSR, no K8);
+6. the port's demo_contact_2D and demo_elasticity at their CI sizes on the
+   card, with their own checks.
 
 The last two lines are the card's nvidia-smi line and
 {"ok": true, "device": {...}}; the line before them lists every kernel
-(K1-K8) with its launches on its path, its error against the plain version,
+(K1-K8) with its launches on its path (K8 also on the slip-contact path,
+under "slip_contact"), its error against the plain version,
 its time, the plain version's, the cuSPARSE product's for the SpMVs (K2,
 K6, K7, K8; null for the assemblers) and the bound: the larger of the bytes
 it must move over 3.35 TB/s and its operations over 67 TFLOP/s (f32), from
@@ -195,6 +213,19 @@ N_BS3 = 64
 # remainder entries.
 JAX_CPU_CONTACT_CG_ITS = 9
 NB_CONTACT, NT_CONTACT = 24, 20
+# CG iterations of the JAX package on make_slip_contact's problem (the
+# rotated slip contact with the traction) at NB=24/NT=20 on the CPU, the
+# same all-f32 solve recipe: 34, rnorm 9.66e-07 at |b| 1.062 (441 slaves,
+# 74,658 dofs; JAX 0.9.0 on the CPU of an H100 host), measured with
+#   JAX_PLATFORMS=cpu python3 scripts/jax_slip_contact_cg.py --nb 24 --nt 20
+# which builds the problem with the JAX package (the averaged normal, which
+# the port's projected one equals to NORMAL_GATE here; constraint and
+# assembly in float64; BELL, AMG, b and CG in float32, rtol 1e-6, CG jitted).
+# At NB=8/NT=7 both packages take 19 on the CPU.
+JAX_CPU_SLIP_CONTACT_CG_ITS = 34
+# the projected and the averaged normal on a flat interface: equal up to the
+# projection's CG tolerance
+NORMAL_GATE = 1e-8
 # forward error gate of the float32 contact solve against a float64 solve of
 # the same system: eps32 times a condition estimate of ~1e4 for P1
 # elasticity at h = 1/24
@@ -1137,54 +1168,135 @@ def main_path(dev, n=N_MAIN):
     return counts, summary
 
 
-def make_contact(nb, nt, dtype, device, body_force=False):
-    """benchmarks/bench_contact_3D.py:31-64 through the port: P1 vector tets
-    of two stacked boxes, (0,0,0)-(1,1,1) with nb^3 and (0,0,1)-(1,1,2) with
-    nt^3 cells, the interface facets tagged 1 (top side) and 2 (bottom
-    side), create_contact_inelastic_condition(mt, 1, 2), Dirichlet 0 at z=0
-    and (0, 0, -0.05) at z=2, 2 mu sym(grad u):sym(grad v) + lambda div u
-    div v with mu=1, lambda=1.25 and the benchmark's zero source (or a body
-    force, for the oracles).  Returns (V, bcs, mpc, a, L)."""
+def contact_mesh(nb, nt, side_tag=False, rotation=None):
+    """The contact benchmark's mesh through the port: P1 tets of two stacked
+    boxes, (0,0,0)-(1,1,1) with nb^3 and (0,0,1)-(1,1,2) with nt^3 cells,
+    the interface facets tagged 1 (top side) and 2 (bottom side), with
+    side_tag the top box's x=0 side facets tagged 3, and with a rotation R
+    every point moved to R x after tagging.  Returns (mesh, meshtags)."""
     import numpy as np
 
-    import dolfinx_mpc_tpu_torch as dmt
-    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
     from dolfinx_mpc_tpu_torch.fem.mesh import Mesh, create_box, meshtags
 
     bot = create_box((0, 0, 0), (1, 1, 1), (nb, nb, nb))
     top = create_box((0, 0, 1), (1, 1, 2), (nt, nt, nt))
     mesh = Mesh(np.vstack([bot.points, top.points]), np.vstack([bot.cells, top.cells + bot.num_points]),
                 bot.cell_type)
-    V = dmt.functionspace(mesh, ("Lagrange", 1, (3,)))
     fverts, _, f2c = mesh.facets()
-    on_iface = np.isclose(mesh.points[fverts][:, :, 2], 1.0).all(axis=1)
+    fpts = mesh.points[fverts]
     ext = np.isin(np.arange(fverts.shape[0]), mesh.exterior_facets())
-    iface = np.flatnonzero(on_iface & ext)
+    iface = np.flatnonzero(np.isclose(fpts[:, :, 2], 1.0).all(axis=1) & ext)
     cz = mesh.points[mesh.cells[f2c[iface, 0]]].mean(axis=1)[:, 2]
-    mt = meshtags(mesh, 2, iface, np.where(cz > 1.0, 1, 2))
+    idx, vals = [iface], [np.where(cz > 1.0, 1, 2)]
+    if side_tag:
+        side = np.flatnonzero(np.isclose(fpts[:, :, 0], 0.0).all(axis=1) & ext & (fpts[:, :, 2] >= 1.0).all(axis=1))
+        idx.append(side)
+        vals.append(np.full(len(side), 3))
+    mt = meshtags(mesh, 2, np.concatenate(idx), np.concatenate(vals))
+    if rotation is not None:
+        mesh.points[:] = mesh.points @ rotation.T
+    return mesh, mt
+
+
+def elasticity_form(V):
+    """2 mu sym(grad u):sym(grad v) + lambda div u div v, mu=1, lambda=1.25."""
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+
+    mu, lam = 1.0, 1.25
+    return dmt.BilinearForm(V, lambda u, v, c: 2 * mu * inner(sym(grad(u)), sym(grad(v)))
+                            + lam * div(u) * conj(div(v)))
+
+
+def make_contact(nb, nt, dtype, device, body_force=False):
+    """benchmarks/bench_contact_3D.py:31-64 through the port: contact_mesh,
+    create_contact_inelastic_condition(mt, 1, 2), Dirichlet 0 at z=0 and
+    (0, 0, -0.05) at z=2, elasticity_form and the benchmark's zero source
+    (or a body force, for the oracles).  Returns (V, bcs, mpc, a, L)."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+
+    mesh, mt = contact_mesh(nb, nt)
+    V = dmt.functionspace(mesh, ("Lagrange", 1, (3,)))
     mpc = dmt.MultiPointConstraint(V, dtype, device=device)
     mpc.create_contact_inelastic_condition(mt, 1, 2)
     mpc.finalize()
     bcs = [dmt.dirichletbc(np.zeros(3), dmt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 0.0)), V),
            dmt.dirichletbc(np.array([0.0, 0.0, -0.05]),
                            dmt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 2.0)), V)]
-    mu, lam = 1.0, 1.25
-    a = dmt.BilinearForm(V, lambda u, v, c: 2 * mu * inner(sym(grad(u)), sym(grad(v)))
-                         + lam * div(u) * conj(div(v)))
     if body_force:
         L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
                            + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
     else:
         L = dmt.LinearForm(V, lambda v, c: 0.0 * v.value[..., 2])
-    return V, bcs, mpc, a, L
+    return V, bcs, mpc, elasticity_form(V), L
 
 
-def build_contact(dev, nb=NB_CONTACT, nt=NT_CONTACT):
+def make_slip_contact(nb, nt, dtype, device, times=None):
+    """The rotated slip-contact problem through the port
+    (scripts/jax_slip_contact_cg.py builds the same with the JAX package):
+    contact_mesh with the side tag, rotated by R = rotation_matrix([1, 1, 0],
+    0.3); the slave normal from facet_normal_approximation(V, mt, 1,
+    method="project") in float64 on `device` (exterior-facet assembly and
+    Jacobi-CG); create_contact_slip_condition(mt, 1, 2, n); Dirichlet 0 at
+    Z=0 and R (0, 0, -0.05) at Z=2 (markers in the unrotated frame);
+    elasticity_form; the traction R (0.1, 0, 0) on tag 3 as an exterior-facet
+    linear form.  `times`, a dict, receives the host seconds of the normal
+    projection and of the constraint and the largest difference between
+    the projected normal and create_normal_approximation's on the slave
+    blocks.  Returns (V, bcs, mpc, a, L)."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import inner
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import (
+        create_normal_approximation,
+        facet_normal_approximation,
+        rotation_matrix,
+    )
+
+    times = {} if times is None else times
+    R = rotation_matrix([1.0, 1.0, 0.0], 0.3)
+    mesh, mt = contact_mesh(nb, nt, side_tag=True, rotation=R)
+    V = dmt.functionspace(mesh, ("Lagrange", 1, (3,)))
+    t0 = time.time()
+    n = facet_normal_approximation(V, mt, 1, method="project", device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    times["normal_s"] = time.time() - t0
+    n_avg = create_normal_approximation(V, mt, 1, device=device)
+    slave_blocks = dmt.locate_dofs_topological(V, 2, mt.find(1))
+    gap = (n.x.array - n_avg.x.array).reshape(-1, 3)[torch.as_tensor(slave_blocks, device=device)]
+    times["normal_gap"] = float(gap.abs().max())
+    t0 = time.time()
+    mpc = dmt.MultiPointConstraint(V, dtype, device=device)
+    mpc.create_contact_slip_condition(mt, 1, 2, n)
+    mpc.finalize()
+    times["constraint_s"] = time.time() - t0
+
+    def in_rot(marker):
+        return lambda x: marker(R.T @ x[:3])
+
+    bcs = [dmt.dirichletbc(np.zeros(3), dmt.locate_dofs_geometrical(V, in_rot(lambda X: np.isclose(X[2], 0.0))), V),
+           dmt.dirichletbc(R @ np.array([0.0, 0.0, -0.05]),
+                           dmt.locate_dofs_geometrical(V, in_rot(lambda X: np.isclose(X[2], 2.0))), V)]
+    L = dmt.LinearForm(V, lambda v, c: inner(c["t"], v), integral="exterior_facet", entities=mt.find(3),
+                       constants={"t": R @ np.array([0.1, 0.0, 0.0])})
+    return V, bcs, mpc, elasticity_form(V), L
+
+
+def build_contact(dev, nb=NB_CONTACT, nt=NT_CONTACT, slip=False, times=None):
     """bench_contact_3D.py --format bell --pc amg up to the solve, through
-    the port's entry points: the constraint and the assembly in float64 on
-    the card, b cast to float32, the BELL operator and the AMG hierarchy in
-    float32.  Returns (V, mpc, a, bcs, b32, As, B, M, host seconds of the
-    set-up, of assembly + rhs, of the BELL conversion, of the AMG set-up)."""
+    the port's entry points, for tied contact (make_contact) or, with slip,
+    the rotated slip contact (make_slip_contact, which fills `times`): the
+    constraint and the assembly in float64 on the card, b cast to float32,
+    the BELL operator and the AMG hierarchy in float32; with `times`, also
+    the warm device times of assembly + rhs and of the rhs alone.  Returns (V, mpc,
+    a, bcs, b32, As, B, M, host seconds of the set-up (for slip without the
+    normal projection and the constraint), of assembly + rhs, of the BELL
+    conversion, of the AMG set-up)."""
     import numpy as np
     import torch
 
@@ -1193,14 +1305,27 @@ def build_contact(dev, nb=NB_CONTACT, nt=NT_CONTACT):
     from dolfinx_mpc_tpu_torch.la.bell import bell_from_scipy
     from dolfinx_mpc_tpu_torch.utils.mpc_utils import rigid_motions_nullspace
 
+    record = times is not None
+    times = {} if times is None else times
     t0 = time.time()
-    V, bcs, mpc, a, L = make_contact(nb, nt, np.float64, dev)
-    t_setup = time.time() - t0
+    if slip:
+        V, bcs, mpc, a, L = make_slip_contact(nb, nt, np.float64, dev, times)
+    else:
+        V, bcs, mpc, a, L = make_contact(nb, nt, np.float64, dev)
+    t_setup = time.time() - t0 - times.get("normal_s", 0.0) - times.get("constraint_s", 0.0)
+
+    def assemble():
+        A = dmt.assemble_matrix(a, mpc, bcs)
+        return A, dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+
     t0 = time.time()
-    A = dmt.assemble_matrix(a, mpc, bcs)
-    b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+    A, b = assemble()
     torch.cuda.synchronize()
     t_asm = time.time() - t0
+    if record:  # warm: the matrix, and the right-hand side alone
+        times["asm_rhs_ms"] = cuda_ms(assemble, 3, 1)
+        times["rhs_ms"] = cuda_ms(lambda: dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs],
+                                                                        mpc), bcs), 5, 1)
     t0 = time.time()
     As = A.to_scipy()
     B = bell_from_scipy(As, dtype=np.float32, device=dev)
@@ -1213,10 +1338,10 @@ def build_contact(dev, nb=NB_CONTACT, nt=NT_CONTACT):
     return V, mpc, a, bcs, b.to(torch.float32), As, B, M, t_setup, t_asm, t_bell, t_amg
 
 
-def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
-    """Phase 4d: bench_contact_3D.py --format bell --pc amg through the
-    port's entry points, float32 solve.  Returns (counts, summary, the BELL
-    operator, the scipy matrix)."""
+def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT, slip=False):
+    """Phase 4d (tied) or 4e (slip): bench_contact_3D.py --format bell --pc
+    amg through the port's entry points, float32 solve.  Returns (counts,
+    summary, the BELL operator, the scipy matrix)."""
     import numpy as np
     import torch
 
@@ -1224,10 +1349,11 @@ def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
     from dolfinx_mpc_tpu_torch.la.solvers import jacobi_preconditioner
     from dolfinx_mpc_tpu_torch.la.sparse import csr_from_scipy
 
+    times = {}
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    V, mpc, a, bcs, b32, As, B, M, t_setup, t_asm, t_bell, t_amg = build_contact(dev, nb, nt)
+    V, mpc, a, bcs, b32, As, B, M, t_setup, t_asm, t_bell, t_amg = build_contact(dev, nb, nt, slip, times)
     t0 = time.time()
     x, its, rnorm = dmt.cg(B.matvec, b32, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
     torch.cuda.synchronize()
@@ -1238,7 +1364,7 @@ def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
 
     if not bool(torch.isfinite(u).all()):
-        fail("contact path: the solution is not finite")
+        fail(f"{'slip ' if slip else ''}contact path: the solution is not finite")
     # checks with the plain CSR SpMV in float64; the float64 reference is
     # Jacobi-CG on that operator
     A64 = csr_from_scipy(As, dtype=np.float64, device=dev)
@@ -1250,7 +1376,7 @@ def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
     x_ref, its_ref, _ = dmt.cg(A64.matvec, b64, M=jacobi_preconditioner(A64.diagonal()), rtol=1e-12, atol=0.0,
                                max_it=50000)
     if its_ref >= 50000:
-        fail("contact path: the float64 reference solve did not converge")
+        fail(f"{'slip ' if slip else ''}contact path: the float64 reference solve did not converge")
     fwd = float(torch.linalg.vector_norm(x64 - x_ref) / torch.linalg.vector_norm(x_ref))
     summary = dict(nb=nb, nt=nt, dofs=V.num_dofs, slaves=mpc.num_local_slaves, setup_s=t_setup, asm_s=t_asm,
                    bell_s=t_bell, amg_s=t_amg, its=its, rnorm=rnorm, bnorm=float(torch.linalg.vector_norm(b32)),
@@ -1258,7 +1384,7 @@ def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
                    tiles=tuple(B.data.shape), rem=int(B.rem_data.shape[0]), levels=[o.shape for o in M.ops],
                    level_formats=[type(o).__name__ for o in M.ops], peak_mb=peak_mb,
                    tiles_mb=B.data.numel() * B.data.element_size() / 1e6, packed_mb=B.packed.nbytes / 1e6,
-                   packed_nnz=B.packed.nnz, threads_per_row=B.packed.threads_per_row)
+                   packed_nnz=B.packed.nnz, threads_per_row=B.packed.threads_per_row, **times)
     # phase breakdown on the built objects (launches here are not counted)
     from dolfinx_mpc_tpu_torch.la.bell import bell_matvec, bell_pack
 
@@ -1285,14 +1411,14 @@ def contact_path(dev, nb=NB_CONTACT, nt=NT_CONTACT):
     return counts, summary, B, As
 
 
-def compare_bell_kernel(dev, gen, B, As):
-    """Phase 4d: K8 against its plain version (bell_packed_matvec_plain) and
-    the tile product + remainder on the contact operator, in f32 (the path's
-    B) and f64, with its warm, cold-L2, profiler and wrapper-host times, the
-    cuSPARSE CSR product of the whole operator beside it, the bound on the
-    nonzeros and, labelled, the bound of the padded tiles (what a tile stream
-    must read); then K8's warm
-    and cold times at other sub-warp widths, for the record."""
+def compare_bell_kernel(dev, gen, B, As, label="", sweep=True):
+    """Phases 4d and 4e: K8 against its plain version
+    (bell_packed_matvec_plain) and the tile product + remainder on a contact
+    operator, in f32 (the path's B) and f64, with its warm, cold-L2,
+    profiler and wrapper-host times, the cuSPARSE CSR product of the whole
+    operator beside it, the bound on the nonzeros and, labelled, the bound
+    of the padded tiles (what a tile stream must read); then, with sweep,
+    K8's warm and cold times at other sub-warp widths, for the record."""
     import numpy as np
     import torch
 
@@ -1316,7 +1442,7 @@ def compare_bell_kernel(dev, gen, B, As):
         plain_ms = cuda_ms(lambda: BL.bell_packed_matvec_plain(P, x), 20, 2)
         bms, by = spmv_bound(P.nnz, x, got, P.nnz * 4 + P.row_ptr.numel() * 4)
         tile_bms, _ = spmv_bound(Bd.data.numel(), x, got, Bd.cols.numel() * Bd.cols.element_size())
-        print(f"K8 {str(dt)[6:]} packed {P.nnz} nonzeros of {n_rows} rows ({P.nbytes / 1e6:.1f} MB; tiles "
+        print(f"K8{label} {str(dt)[6:]} packed {P.nnz} nonzeros of {n_rows} rows ({P.nbytes / 1e6:.1f} MB; tiles "
               f"{tuple(Bd.data.shape)} {Bd.data.numel() * Bd.data.element_size() / 1e6:.1f} MB + "
               f"{int(Bd.rem_data.shape[0])} remainder entries), {P.threads_per_row} threads per row: rel L2 {rel:.3e} "
               f"to plain (tol {tol:g}), {rel_tiles:.3e} to the tile product + remainder; kernel {fmt_times(t)}; "
@@ -1329,12 +1455,14 @@ def compare_bell_kernel(dev, gen, B, As):
         if dt == torch.float32:
             out["K8"] = dict(max_abs_err=float((got - ref).abs().max()), ms=t["warm_ms"], plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, library_ms=lib_ms)
-            sweep = []
-            for g in (4, 8, 16, 32):
+            by_width = []
+            for g in (4, 8, 16, 32) if sweep else ():
                 L = BL._K8Launch(P)
                 L.g = g
-                sweep.append(f"{g}: warm {cuda_ms(lambda: L(x), 200):.4f} / cold {cold_ms(lambda: L(x), 50):.4f} ms")
-            print(f"K8 f32 by threads per row (the path takes {P.threads_per_row}): {'; '.join(sweep)}", flush=True)
+                by_width.append(f"{g}: warm {cuda_ms(lambda: L(x), 200):.4f} / cold {cold_ms(lambda: L(x), 50):.4f} ms")
+            if by_width:
+                print(f"K8 f32 by threads per row (the path takes {P.threads_per_row}): {'; '.join(by_width)}",
+                      flush=True)
         del Bd, P, got, ref, tiles
     return out
 
@@ -1378,10 +1506,76 @@ def oracle_contact_f64(dev, nb=4, nt=3, through="bell"):
     return float(np.abs(u - u_ref).max()), its, counts
 
 
+def constrained_problem(kind, dev):
+    """Phase 5's general-assembler problems in float64 on `dev`, each the
+    input of a JAX-package test, solved: "slip" (tests/test_slip_and_periodic.py:89,
+    slip on x=1 of a 6x6 P1 vector square, averaged normal, bc at x=0,
+    source (1, -0.5)), "slip contact" (tests/test_contact.py:205 at NB=3 /
+    NT=2 with make_slip_contact's traction), "p2p" (tests/test_contact.py:114,
+    two 3x3 squares stacked at y=1, the block at (1, 2) tied to (0, 0),
+    vector Laplacian, bc on the lower square's x=1 edge, source (1, -0.5))
+    and "robin" (tests/test_surface_integral.py:35: P2 on a 4x4 square,
+    stiffness plus 3 u v ds on y=1, the general constraint u(0.5, 1) =
+    0.4 u(0.5, 0), source 1 + x y).  Returns (V, bcs, mpc, a, L)."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.constraints import create_point_to_point_constraint
+    from dolfinx_mpc_tpu_torch.fem.forms import grad, inner
+    from dolfinx_mpc_tpu_torch.fem.mesh import (
+        Mesh,
+        create_rectangle,
+        create_unit_square,
+        locate_entities_boundary,
+        meshtags,
+    )
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import create_normal_approximation
+
+    if kind == "slip contact":
+        return make_slip_contact(3, 2, np.float64, dev)
+    source = lambda v, c: v.value[..., 0] - 0.5 * v.value[..., 1]  # noqa: E731  inner((1, -0.5), v)
+    mpc = None
+    if kind == "slip":
+        mesh = create_unit_square(6, 6)
+        V = dmt.functionspace(mesh, ("Lagrange", 1, (2,)))
+        mt = meshtags(mesh, 1, locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], 1.0)), 1)
+        bcs = [dmt.dirichletbc(np.zeros(2), dmt.locate_dofs_geometrical(V, lambda x: np.isclose(x[0], 0.0)), V)]
+        mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+        mpc.create_slip_constraint(V, (mt, 1), create_normal_approximation(V, mt, 1, device=dev), bcs)
+        a, L = elasticity_form(V), dmt.LinearForm(V, source)
+    elif kind == "p2p":
+        bot = create_rectangle((0.0, 0.0), (1.0, 1.0), (3, 3))
+        top = create_rectangle((0.0, 1.0), (1.0, 2.0), (3, 3))
+        mesh = Mesh(np.vstack([bot.points, top.points]), np.vstack([bot.cells, top.cells + bot.num_points]),
+                    bot.cell_type)
+        V = dmt.functionspace(mesh, ("Lagrange", 1, (2,)))
+        bcs = [dmt.dirichletbc(np.zeros(2), dmt.locate_dofs_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0) & (x[1] <= 1.0)), V)]
+        mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+        mpc.add_constraint_from_mpc_data(V, create_point_to_point_constraint(V, np.array([1.0, 2.0]),
+                                                                             np.array([0.0, 0.0])))
+        a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)))
+        L = dmt.LinearForm(V, source)
+    elif kind == "robin":
+        mesh = create_unit_square(4, 4)
+        V = dmt.functionspace(mesh, ("Lagrange", 2))
+        facets = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[1], 1.0))
+        a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v))) + dmt.BilinearForm(
+            V, lambda u, v, c: 3.0 * inner(u, v), integral="exterior_facet", entities=facets)
+        mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+        mpc.create_general_constraint({np.array([0.5, 1.0]).tobytes(): {np.array([0.5, 0.0]).tobytes(): 0.4}})
+        bcs = []
+        L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[1]) * v.value)
+    else:
+        raise ValueError(kind)
+    mpc.finalize()
+    return V, bcs, mpc, a, L
+
+
 def oracle_f64(dev, n=6, degree=1, marker=y_planes, kind="poisson"):
     """Phase 5: LinearProblem (Jacobi-CG) in float64 on the card vs scipy,
     for make_problem's Poisson form, make_elasticity's (with a vector
-    source) or make_free's.  Returns (max error, CG iterations, kernel
+    source), make_free's or one of constrained_problem's.  Returns (max error, CG iterations, kernel
     launches of the solve)."""
     import numpy as np
     import scipy.sparse.linalg as spla
@@ -1389,15 +1583,18 @@ def oracle_f64(dev, n=6, degree=1, marker=y_planes, kind="poisson"):
     import dolfinx_mpc_tpu_torch as dmt
     from dolfinx_mpc_tpu_torch.utils import assemble_matrix_scipy, gather_transformation_matrix
 
-    if kind == "elasticity":
-        V, bc, mpc, a, _ = make_elasticity(n, np.float64, dev)
-        L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
-                           + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
+    if kind in ("slip", "slip contact", "p2p", "robin"):
+        V, bcs, mpc, a, L = constrained_problem(kind, dev)
     else:
-        V, bc, mpc, a, _ = (make_free(n, np.float64, dev, degree) if kind == "free"
-                            else make_problem(n, np.float64, dev, degree, marker))
-        L = dmt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[2]) * v.value)
-    bcs = [] if bc is None else [bc]
+        if kind == "elasticity":
+            V, bc, mpc, a, _ = make_elasticity(n, np.float64, dev)
+            L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
+                               + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
+        else:
+            V, bc, mpc, a, _ = (make_free(n, np.float64, dev, degree) if kind == "free"
+                                else make_problem(n, np.float64, dev, degree, marker))
+            L = dmt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[2]) * v.value)
+        bcs = [] if bc is None else [bc]
     reset_counts()
     prob = dmt.LinearProblem(a, L, mpc, bcs=bcs,
                              petsc_options={"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-12})
@@ -1534,6 +1731,35 @@ def main():
     cmp.update(compare_bell_kernel(dev, gen, B, As))
     del B, As
 
+    counts9, s9, B9, As9 = contact_path(dev, slip=True)
+    lattice9 = {k: v for k, v in counts9.items() if k != "K8"}
+    print(f"slip contact path NB={s9['nb']}/NT={s9['nt']}, rotated ({s9['dofs']} dofs, {s9['slaves']} slaves, "
+          f"{s9['nnz']} nonzeros; BELL tiles {s9['tiles']} + {s9['rem']} remainder entries; AMG levels {s9['levels']} "
+          f"as {s9['level_formats']}): host set-up {s9['setup_s']:.2f} s, normal projection {s9['normal_s']:.2f} s "
+          f"(|n_project - n_average| {s9['normal_gap']:.3e} on the slave blocks, gate {NORMAL_GATE:g}), constraint "
+          f"{s9['constraint_s']:.2f} s, assembly + rhs {s9['asm_s']:.2f} s first (tables included), "
+          f"{s9['asm_rhs_ms']:.4f} ms warm (rhs alone: exterior-facet traction + lifting + set_bc "
+          f"{s9['rhs_ms']:.4f} ms), BELL conversion {s9['bell_s']:.2f} s, AMG set-up {s9['amg_s']:.2f} s, peak "
+          f"device memory of build + solve {s9['peak_mb']:.1f} MB, BELL matvec (one K8 launch) {s9['spmv_ms']:.4f} ms, "
+          f"V-cycle {s9['vcycle_ms']:.4f} ms, CG {s9['its']} its in {s9['cg_s']:.4f} s first solve, "
+          f"{s9['ms_per_it']:.4f} ms/it warm ({s9['k8_per_it']:.1f} K8 launches/it), rnorm {s9['rnorm']:.3e} "
+          f"(|b| {s9['bnorm']:.3e}); recomputed in f64: |b-Ax|/|b| {s9['rel_res']:.3e}, backward error "
+          f"{s9['eta']:.3e} (gate {BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s9['fwd']:.3e} (gate "
+          f"{CONTACT_FORWARD_ERROR_GATE:g}, f64 Jacobi-CG {s9['its_ref']} its); launches {counts9}", flush=True)
+    if counts9["K8"] != s9["its"] + 1 or max(lattice9.values()) != 0:
+        fail(f"slip contact path: K8 must launch its + 1 = {s9['its'] + 1} times (one per matvec) and no lattice "
+             f"kernel: {counts9}")
+    if not s9["normal_gap"] <= NORMAL_GATE:
+        fail(f"slip contact path: the projected and averaged normals differ by {s9['normal_gap']:.3e}")
+    if not s9["eta"] <= BACKWARD_ERROR_GATE:
+        fail(f"slip contact path backward error {s9['eta']:.3e} > {BACKWARD_ERROR_GATE:g}")
+    if not s9["fwd"] <= CONTACT_FORWARD_ERROR_GATE:
+        fail(f"slip contact path solution differs from the f64 solve by {s9['fwd']:.3e}")
+    if abs(s9["its"] - JAX_CPU_SLIP_CONTACT_CG_ITS) > 2:
+        fail(f"slip contact CG took {s9['its']} its, JAX-CPU takes {JAX_CPU_SLIP_CONTACT_CG_ITS} (+-2 allowed)")
+    k8_slip = compare_bell_kernel(dev, gen, B9, As9, label=" (slip contact)", sweep=False)["K8"]
+    del B9, As9
+
     oracle_counts = {}
     for name, n, degree, marker, kind, need, forbid in (
             ("P1 n=6", 6, 1, y_planes, "poisson", ("K1", "K2"), ()),
@@ -1541,13 +1767,17 @@ def main():
             ("P1 n=6, blob set", 6, 1, blob, "poisson", ("K3", "K2"), ()),
             ("bs=3 P1 n=4", 4, 1, y_planes, "elasticity", ("K1", "K7"), ("K2",)),
             ("Dirichlet-free P1 n=6", 6, 1, None, "free", ("K5", "K2"), ("K1", "K4")),
-            ("Dirichlet-free P2 n=3", 3, 2, None, "free", ("K5", "K6"), ("K1", "K4"))):
+            ("Dirichlet-free P2 n=3", 3, 2, None, "free", ("K5", "K6"), ("K1", "K4")),
+            ("slip elasticity 2-D", 0, 1, None, "slip", (), ()),
+            ("rotated slip contact NB=3/NT=2 with traction", 0, 1, None, "slip contact", (), ()),
+            ("2-D point-to-point tie", 0, 1, None, "p2p", (), ()),
+            ("P2 stiffness + Robin ds, general constraint", 0, 2, None, "robin", (), ())):
         err, its64, c = oracle_f64(dev, n, degree, marker, kind)
         print(f"f64 oracle {name} on the card: Jacobi-CG {its64} its, max|u - K(K^T A K)^-1 K^T b| "
               f"{err:.3e} (tol 1e-8); launches {c}", flush=True)
         if not err <= 1e-8:
             fail(f"f64 oracle {name}: error {err:.3e} > 1e-8")
-        if min(c[k] for k in need) <= 0 or max((c[k] for k in forbid), default=0) != 0:
+        if min((c[k] for k in need), default=1) <= 0 or max((c[k] for k in forbid), default=0) != 0:
             fail(f"f64 oracle {name} did not go through {need} or went through {forbid}: {c}")
         oracle_counts[name] = c
     counts3 = oracle_counts["P1 n=6, blob set"]
@@ -1561,6 +1791,17 @@ def main():
             fail(f"f64 contact oracle through {through}: error {err:.3e} > 1e-8")
         if (c["K8"] > 0) != k8:
             fail(f"f64 contact oracle through {through}: K8 launches {c['K8']}")
+
+    from dolfinx_mpc_tpu_torch.demos import demo_contact_2D, demo_elasticity
+
+    for name, fn in (("demo_contact_2D.main(nb=5, nt=4)", lambda: demo_contact_2D.main(nb=5, nt=4, device="cuda")),
+                     ("demo_elasticity.main(n=8)", lambda: demo_elasticity.main(n=8, device="cuda"))):
+        reset_counts()
+        u = fn().x.array
+        if u.device.type != "cuda" or not bool(torch.isfinite(u).all()):
+            fail(f"{name}: the solution is not a finite tensor on the card")
+        print(f"{name} on the card: its own checks passed, max|u| {float(u.abs().max()):.4e}; launches "
+              f"{read_counts(KERNELS)}", flush=True)
 
     src = "dolfinx_mpc_tpu_torch/csrc/lattice_kernels.cu"
     pl = "dolfinx_mpc_tpu/ops/pallas_lattice.py"
@@ -1586,7 +1827,8 @@ def main():
         dict(name=f"K8 bell_matvec (contact path NB={NB_CONTACT}/NT={NT_CONTACT}; error and times on the packed "
                   f"layout of its operator, {s8['packed_nnz']} nonzeros, f32)", route="cuda",
              source="dolfinx_mpc_tpu_torch/csrc/bell_kernels.cu", replaces="dolfinx_mpc_tpu/la/bell.py:164",
-             launches=counts8["K8"], **cmp["K8"]),
+             launches=counts8["K8"], **cmp["K8"],
+             slip_contact=dict(launches=counts9["K8"], packed_nnz=s9["packed_nnz"], **k8_slip)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -13,7 +13,10 @@ lean-fold assemblers K1, K3 and K4, the unmasked assembler K5, the scalar
 and vector DIA SpMVs K2 and K7 and the blocked SpMV K6) and the
 unstructured path's blocked-ELL SpMV K8 are CUDA C++ for sm_90a in
 ``csrc/``, built with nvcc on first use; on CPU tensors their plain PyTorch
-versions run instead.
+versions run instead.  Constraint generators (periodic, slip, contact slip
+and tied contact, dictionary, point-to-point), exterior-facet integrals,
+the normal approximations (utils), gmsh I/O (io) and the demos
+(``dolfinx_mpc_tpu_torch/demos``) run on the same entry points.
 """
 
 import torch as _torch
@@ -49,6 +52,8 @@ from .ops.lattice import assemble_matrix_lattice  # noqa: E402
 from .problem import LinearProblem  # noqa: E402
 
 __version__ = "0.1.0"
+
+from . import io  # noqa: E402  (XDMFFile, read_gmsh, write_gmsh)
 
 __all__ = [
     "assemble_matrix",

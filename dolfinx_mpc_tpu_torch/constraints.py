@@ -1,16 +1,21 @@
-"""Constraint generators: the periodic pair and tied (inelastic) contact
-(numpy host code).
+"""Constraint generators: periodic, slip, contact (slip & inelastic),
+dictionary and point-to-point constraints (numpy host code).
 
-Copied from ``dolfinx_mpc_tpu/constraints.py:39-146, 183-199, 247-289`` (the
-JAX reference), so that the PyTorch port never imports JAX.  Slip, contact
-slip, dictionary and point-to-point generators come with ROADMAP queue 1,
-item 17.
+Copied from ``dolfinx_mpc_tpu/constraints.py`` (the JAX reference), so that
+the PyTorch port never imports JAX.  The one change: a normal ``Function``
+of the port holds its values in a tensor on some device, which the slip
+generators read back to the host once (``_host_values``).
 
 Rebuild of the reference's generator layer (SURVEY.md L2):
 - periodic: reference cpp/PeriodicConstraint.h:30-490 — dof coords are
   mapped through the user relation and masters come from basis evaluation at
   the mapped point.  The reference's two-phase MPI alltoall dance
   (:223-481) disappears: one address space, one host-side point-location pass.
+- slip: reference cpp/SlipConstraint.h:16-175.
+- contact: reference cpp/ContactConstraint.h:359-894 (slip) and
+  :906-1780 (inelastic/tied).
+- dictionary: reference python/src/dolfinx_mpc/dictcondition.py:31-233.
+- point-to-point: reference python/src/dolfinx_mpc/utils/mpc_utils.py:300-419.
 
 All generators run once at setup on the host (numpy) and return a flat
 `MPCData`; the hot path only ever sees the finalized padded tables.
@@ -20,16 +25,25 @@ from __future__ import annotations
 
 import numpy as np
 
-from .fem.functionspace import FunctionSpace, locate_dofs_topological
+from .fem.functionspace import Function, FunctionSpace, locate_dofs_topological
 from .fem.geometry_maps import PointLocator, _tabulate_rows
 from .fem.mesh import MeshTags
 from .multipointconstraint import MPCData
 
 __all__ = [
-    "create_contact_inelastic_condition",
     "create_periodic_condition_geometrical",
     "create_periodic_condition_topological",
+    "create_slip_condition",
+    "create_contact_slip_condition",
+    "create_contact_inelastic_condition",
+    "create_dictionary_constraint",
+    "create_point_to_point_constraint",
 ]
+
+
+def _host_values(f: Function, dtype) -> np.ndarray:
+    """A Function's dof values as a host numpy array of `dtype`."""
+    return np.asarray(f.x.array.detach().cpu().numpy(), dtype=dtype)
 
 
 def _bc_dof_set(bcs):
@@ -141,6 +155,41 @@ def create_periodic_condition_topological(V, meshtag: MeshTags, tag: int, relati
     return _periodic_from_slave_blocks(base, slave_blocks, components, relation, bcs, scale, dtype)
 
 
+def create_slip_condition(V, facet_marker, v: Function, bcs, dtype=np.float64):
+    """u . n = 0 on tagged facets (SlipConstraint.h:16-175): per block the
+    component with the largest |n| becomes the slave, the other components
+    masters with coefficient -n_i / n_slave."""
+    mt, tag = facet_marker if isinstance(facet_marker, tuple) else (facet_marker, None)
+    facets = mt.find(tag) if tag is not None else mt.indices
+    base = V if V.parent is None else V.parent
+    bs = base.block_size
+    blocks = locate_dofs_topological(base, mt.dim, facets)
+    bc_dofs = _bc_dof_set(bcs)
+    off = getattr(base, "dof_offset", 0)
+    n = _host_values(v, dtype).reshape(-1, bs)
+    slaves, masters, coeffs, offsets = [], [], [], [0]
+    for b in blocks:
+        nb = n[b]
+        k = int(np.argmax(np.abs(nb)))
+        sdof = int(b) * bs + k
+        if sdof + off in bc_dofs or nb[k] == 0:
+            continue
+        slaves.append(sdof)
+        for i in range(bs):
+            if i == k:
+                continue
+            masters.append(int(b) * bs + i)
+            coeffs.append(-nb[i] / nb[k])
+        offsets.append(len(masters))
+    return _shift_mpc(MPCData(
+        np.asarray(slaves, np.int64),
+        np.asarray(masters, np.int64),
+        np.asarray(coeffs, dtype),
+        np.zeros(len(masters), np.int32),
+        np.asarray(offsets, np.int64),
+    ), off)
+
+
 def _facet_cells(mesh, facets):
     _, _, f2c = mesh.facets()
     cells = np.unique(f2c[facets].ravel())
@@ -159,8 +208,53 @@ def _locate_with_fallback(V, pts, master_cells, eps2):
     return _basis_masters(V, pts, locator, tol=1e-3)
 
 
-def create_contact_inelastic_condition(V, meshtags: MeshTags, slave_marker, master_marker, eps2=1e-20,
-                                       allow_missing_masters=False, dtype=np.float64):
+def create_contact_slip_condition(V, meshtags: MeshTags, slave_marker, master_marker, normal: Function, eps2=1e-20, dtype=np.float64):
+    """Slip contact u_s·n_s = u_m·n_m between (possibly non-matching)
+    interfaces (ContactConstraint.h:359-894).  Per slave block: slave dof =
+    component with largest |n| (:420-447); in-block masters coeff -n_i/n_s
+    (:216-279); master-side masters n_b/n_s · phi_j(x_s) (:58-161)."""
+    base = V if V.parent is None else V.parent
+    off = getattr(base, "dof_offset", 0)
+    bs = base.block_size
+    mesh = base.mesh
+    s_facets = meshtags.find(slave_marker)
+    m_facets = meshtags.find(master_marker)
+    s_blocks = locate_dofs_topological(base, meshtags.dim, s_facets)
+    n = _host_values(normal, dtype).reshape(-1, bs)
+    pts = base.dof_coords_blocks[s_blocks]
+    mcells = _facet_cells(mesh, m_facets)
+    _, mblocks, phi = _locate_with_fallback(base, pts, mcells, eps2)
+    slaves, masters, coeffs, offsets = [], [], [], [0]
+    drop_tol = 1e-13
+    for i, b in enumerate(s_blocks):
+        nb = n[b]
+        k = int(np.argmax(np.abs(nb)))
+        if nb[k] == 0:
+            continue
+        slaves.append(int(b) * bs + k)
+        # in-block: other components of the slave block
+        for j in range(bs):
+            if j == k:
+                continue
+            masters.append(int(b) * bs + j)
+            coeffs.append(-nb[j] / nb[k])
+        # master side: all components of colliding-cell blocks
+        keep = np.abs(phi[i]) > drop_tol
+        for mb, ph in zip(mblocks[i][keep], phi[i][keep]):
+            for j in range(bs):
+                masters.append(int(mb) * bs + j)
+                coeffs.append(nb[j] / nb[k] * ph)
+        offsets.append(len(masters))
+    return _shift_mpc(MPCData(
+        np.asarray(slaves, np.int64),
+        np.asarray(masters, np.int64),
+        np.asarray(coeffs, dtype),
+        np.zeros(len(masters), np.int32),
+        np.asarray(offsets, np.int64),
+    ), off)
+
+
+def create_contact_inelastic_condition(V, meshtags: MeshTags, slave_marker, master_marker, eps2=1e-20, allow_missing_masters=False, dtype=np.float64):
     """Tied contact u_s = u_m componentwise (ContactConstraint.h:906-1780):
     every component of every slave block is a slave with masters
     phi_j(x_s) per matching component."""
@@ -196,6 +290,88 @@ def create_contact_inelastic_condition(V, meshtags: MeshTags, slave_marker, mast
             masters.extend((mb * bs + k).tolist())
             coeffs.extend(ph.tolist())
             offsets.append(len(masters))
+    return _shift_mpc(MPCData(
+        np.asarray(slaves, np.int64),
+        np.asarray(masters, np.int64),
+        np.asarray(coeffs, dtype),
+        np.zeros(len(masters), np.int32),
+        np.asarray(offsets, np.int64),
+    ), off)
+
+
+def create_dictionary_constraint(V, slave_master_dict, subspace_slave=None, subspace_master=None, dtype=np.float64):
+    """Coordinate-dictionary constraint
+    {slave_coord_bytes: {master_coord_bytes: coeff}}
+    (reference dictcondition.py:31-233)."""
+    base = V if V.parent is None else V.parent
+    off = getattr(base, "dof_offset", 0)
+    bs = base.block_size
+    coords = base.dof_coords_blocks
+    slaves, masters, coeffs, offsets = [], [], [], [0]
+
+    def find_block(xt):
+        x = np.frombuffer(xt, dtype=np.float64) if isinstance(xt, bytes) else np.asarray(xt, np.float64)
+        d2 = ((coords - x[None, : coords.shape[1]]) ** 2).sum(1)
+        i = int(np.argmin(d2))
+        if d2[i] > 1e-20:
+            raise RuntimeError(f"no dof at coordinate {x}")
+        return i
+
+    for s_xt, mdict in slave_master_dict.items():
+        sb = find_block(s_xt)
+        comps_s = [subspace_slave] if subspace_slave is not None else list(range(bs))
+        for k in comps_s:
+            slaves.append(sb * bs + k)
+            for m_xt, coeff in mdict.items():
+                mb = find_block(m_xt)
+                km = subspace_master if subspace_master is not None else k
+                masters.append(mb * bs + km)
+                coeffs.append(coeff)
+            offsets.append(len(masters))
+    return _shift_mpc(MPCData(
+        np.asarray(slaves, np.int64),
+        np.asarray(masters, np.int64),
+        np.asarray(coeffs, dtype),
+        np.zeros(len(masters), np.int32),
+        np.asarray(offsets, np.int64),
+    ), off)
+
+
+def create_point_to_point_constraint(V, slave_point, master_point, vector=None, dtype=np.float64):
+    """Tie the dof block nearest slave_point to basis values at master_point
+    (reference mpc_utils.py:300-419); with `vector`, a directional constraint."""
+    base = V if V.parent is None else V.parent
+    off = getattr(base, "dof_offset", 0)
+    bs = base.block_size
+    coords = base.dof_coords_blocks
+    sp = np.asarray(slave_point, np.float64)[: coords.shape[1]]
+    d2 = ((coords - sp[None]) ** 2).sum(1)
+    sb = int(np.argmin(d2))
+    locator = PointLocator(base.mesh)
+    _, mblocks, phi = _basis_masters(base, np.asarray(master_point, np.float64)[None, : coords.shape[1]], locator, tol=1e-9)
+    keep = np.abs(phi[0]) > 1e-13
+    mb, ph = mblocks[0][keep], phi[0][keep]
+    slaves, masters, coeffs, offsets = [], [], [], [0]
+    if vector is None:
+        for k in range(bs):
+            slaves.append(sb * bs + k)
+            masters.extend((mb * bs + k).tolist())
+            coeffs.extend(ph.tolist())
+            offsets.append(len(masters))
+    else:
+        v = np.asarray(vector, dtype=dtype)
+        k = int(np.argmax(np.abs(v)))
+        slaves.append(sb * bs + k)
+        for j in range(bs):
+            if j != k and v[j] != 0:
+                masters.append(sb * bs + j)
+                coeffs.append(-v[j] / v[k])
+        for m, p in zip(mb, ph):
+            for j in range(bs):
+                if v[j] != 0:
+                    masters.append(int(m) * bs + j)
+                    coeffs.append(v[j] / v[k] * p)
+        offsets.append(len(masters))
     return _shift_mpc(MPCData(
         np.asarray(slaves, np.int64),
         np.asarray(masters, np.int64),

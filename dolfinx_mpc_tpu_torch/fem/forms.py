@@ -37,8 +37,11 @@ __all__ = [
     "grad",
     "div",
     "sym",
+    "tr",
     "inner",
     "dot",
+    "outer",
+    "Identity",
     "conj",
 ]
 
@@ -80,6 +83,16 @@ def _val(a):
     return a.value if isinstance(a, Arg) else a
 
 
+def _pair(a, b):
+    """Values of two operands, an Identity made dense like the other."""
+    a, b = _val(a), _val(b)
+    if isinstance(a, _Identity):
+        a = a.dense(b)
+    if isinstance(b, _Identity):
+        b = b.dense(a)
+    return a, b
+
+
 def _is_torch(*xs):
     return any(isinstance(x, torch.Tensor) for x in xs)
 
@@ -100,6 +113,12 @@ def sym(A):
     return 0.5 * (A + (A.mT if _is_torch(A) else A.T))
 
 
+def tr(A):
+    if isinstance(A, _Identity):
+        return A.scale * A.n
+    return torch.diagonal(A).sum() if _is_torch(A) else np.trace(A)
+
+
 def conj(a):
     return torch.conj(a) if _is_torch(a) else np.conj(a)
 
@@ -107,14 +126,14 @@ def conj(a):
 def inner(a, b):
     """Frobenius inner product; conjugates the SECOND argument (test side),
     matching UFL's convention so complex assembly gives sesquilinear forms."""
-    a, b = _val(a), _val(b)
+    a, b = _pair(a, b)
     if _is_torch(a, b):
         return (a * conj(b)).sum()
     return np.sum(np.asarray(a) * np.conj(np.asarray(b)))
 
 
 def dot(a, b):
-    a, b = _val(a), _val(b)
+    a, b = _pair(a, b)
     if _is_torch(a, b):
         if not (_is_torch(a) and _is_torch(b)) or a.ndim == 0 or b.ndim == 0:
             return a * b
@@ -127,6 +146,61 @@ def dot(a, b):
     if a.ndim == 1 and b.ndim == 1:
         return np.sum(a * b)
     return a @ b
+
+
+def outer(a, b):
+    a, b = _pair(a, b)
+    if _is_torch(a, b):
+        return a[:, None] * conj(b)[None, :]
+    return np.outer(np.asarray(a), np.conj(np.asarray(b)))
+
+
+class _Identity:
+    """scale * I_n, kept symbolic until it meets a tensor or an array: the
+    integrand runs under vmap on the kernel's device and dtype, which a
+    factory call inside the integrand cannot see, so the identity takes
+    both from the operand it is combined with."""
+
+    __array_ufunc__ = None  # numpy defers to the reflected operators below
+
+    def __init__(self, n, scale=1.0):
+        self.n = n
+        self.scale = scale.item() if isinstance(scale, np.generic) else scale
+
+    def dense(self, like=None):
+        if isinstance(like, torch.Tensor):
+            return self.scale * torch.eye(self.n, dtype=like.dtype, device=like.device)
+        return self.scale * np.eye(self.n)
+
+    def _combine(self, other, op):
+        if isinstance(other, _Identity):
+            return _Identity(self.n, op(self.scale, other.scale))
+        return op(self.dense(other), other)
+
+    def __mul__(self, other):
+        if isinstance(other, (int, float, complex)):
+            return _Identity(self.n, self.scale * other)
+        return self.dense(other) * other
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return _Identity(self.n, -self.scale)
+
+    def __add__(self, other):
+        return self._combine(other, lambda a, b: a + b)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._combine(other, lambda a, b: a - b)
+
+    def __rsub__(self, other):
+        return self._combine(other, lambda a, b: b - a)
+
+
+def Identity(n):
+    return _Identity(n)
 
 
 # ---- form containers -----------------------------------------------------

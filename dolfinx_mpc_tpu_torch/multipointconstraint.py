@@ -120,7 +120,13 @@ class MultiPointConstraint:
         self.add_constraint(V, mpc_data.slaves, mpc_data.masters, mpc_data.coeffs,
                             mpc_data.owners, mpc_data.offsets)
 
-    # -- constraint generators (the periodic pair, tied contact) ---------
+    # -- constraint generators (mirror the reference API) ---------------
+    def create_general_constraint(self, slave_master_dict, subspace_slave=None, subspace_master=None):
+        from .constraints import create_dictionary_constraint
+
+        data = create_dictionary_constraint(self.V, slave_master_dict, subspace_slave, subspace_master, self.dtype)
+        self.add_constraint_from_mpc_data(self.V, data)
+
     def create_periodic_constraint_topological(self, V, meshtag, tag, relation, bcs=None, scale=1.0):
         from .constraints import create_periodic_condition_topological
 
@@ -132,6 +138,19 @@ class MultiPointConstraint:
 
         data = create_periodic_condition_geometrical(V, indicator, relation, bcs or [], scale, self.dtype)
         self.add_constraint_from_mpc_data(V, data)
+
+    def create_slip_constraint(self, space, facet_marker, v, bcs=None):
+        from .constraints import create_slip_condition
+
+        data = create_slip_condition(space, facet_marker, v, bcs or [], self.dtype)
+        self.add_constraint_from_mpc_data(space, data)
+
+    def create_contact_slip_condition(self, meshtags, slave_marker, master_marker, normal, eps2=1e-20):
+        from .constraints import create_contact_slip_condition
+
+        data = create_contact_slip_condition(self.V, meshtags, slave_marker, master_marker, normal, eps2,
+                                             self.dtype)
+        self.add_constraint_from_mpc_data(self.V, data)
 
     def create_contact_inelastic_condition(self, meshtags, slave_marker, master_marker, eps2=1e-20,
                                            allow_missing_masters=False):

@@ -229,6 +229,7 @@ def _side_tables(ct, Vt, Vs, cells, order, Tr, Tc, dtype, device):
     as_t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)  # noqa: E731
     tb = dict(
         coords=as_t(mesh.points[mesh.cells[c]], torch_dtype(_real_dtype(dtype))),
+        lf=as_t(ct.local_facets[order]),
         dmr=as_t(Vt.dofmap[c]),
         dmc=as_t(Vs.dofmap[c]),
         wdofmaps={n: as_t(W.dofmap[c]) for n, W in zip(ct.coeff_names, ct.coeff_spaces)},
@@ -294,7 +295,7 @@ def _class_values(ct, tb, coeffs, bc_row, bc_col, lo, hi, tdt):
     """Flat element values of cells [lo, hi) of one class: Ae masked by the
     bc rows and columns, then conj(Tr)^T Ae Tc on the slave class."""
     wl = {n: coeffs[n][tb["wdofmaps"][n][lo:hi]] for n in coeffs}
-    Ae = ct.kernel(tb["coords"][lo:hi], wl).to(tdt)  # (chunk, ndt, nds)
+    Ae = ct.kernel(tb["coords"][lo:hi], tb["lf"][lo:hi], wl).to(tdt)  # (chunk, ndt, nds)
     mr = 1.0 - bc_row[tb["dmr"][lo:hi]]
     mc = 1.0 - bc_col[tb["dmc"][lo:hi]]
     Ae = Ae * mr[:, :, None] * mc[:, None, :]
@@ -373,10 +374,11 @@ class CompiledVectorForm:
     tables: list  # per term: dict of device tensors
 
 
-def _term_tables(ct, Vt, tr_row, cells, dtype, device):
-    """Device tables of one term over `cells`: coordinates, the slave /
-    non-slave split, the local prolongations and the scatter targets
-    (invalid -1 -> trash slot ndofs)."""
+def _term_tables(ct, Vt, tr_row, cells, lf, dtype, device):
+    """Device tables of one term over `cells` (with their local facets
+    `lf`): coordinates, the slave / non-slave split, the local
+    prolongations and the scatter targets (invalid -1 -> trash slot
+    ndofs)."""
     mesh = Vt.mesh
     ndofs = Vt.num_dofs
     sl = tr_row.slave_cell_mask[cells]
@@ -389,6 +391,7 @@ def _term_tables(ct, Vt, tr_row, cells, dtype, device):
     as_t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)  # noqa: E731
     return dict(
         coords=as_t(mesh.points[mesh.cells[cells]], torch_dtype(_real_dtype(dtype))),
+        lf=as_t(lf),
         idx_ns=as_t(idx_ns),
         idx_sl=as_t(idx_sl),
         Tr=as_t(Tr, torch_dtype(dtype)),
@@ -404,7 +407,7 @@ def _compile_vector(form: Form, constraint, dtype, device) -> CompiledVectorForm
     Vt = form.test_space
     tr_row = _build_cell_transforms(Vt, mpc_r, dtype)
     terms = [compile_term(t, Vt, None) for t in form.terms]
-    tables = [_term_tables(ct, Vt, tr_row, ct.cells, dtype, device) for ct in terms]
+    tables = [_term_tables(ct, Vt, tr_row, ct.cells, ct.local_facets, dtype, device) for ct in terms]
     return CompiledVectorForm(terms, tables)
 
 
@@ -431,7 +434,7 @@ def assemble_vector(form: Form, constraint=None, b=None, dtype=None, device=None
     for ct, tb in zip(cv.terms, cv.tables):
         coeffs = _coeff_vectors(ct.term, device)
         wlocals = {n: coeffs[n][tb["wdofmaps"][n]] for n in coeffs}
-        be = ct.kernel(tb["coords"], wlocals).to(out.dtype)  # (n_cells, ndt)
+        be = ct.kernel(tb["coords"], tb["lf"], wlocals).to(out.dtype)  # (n_ent, ndt)
         _scatter(out, tb, be)
     out = out[:ndofs]
     return out if b is None else b + out
@@ -456,8 +459,9 @@ def _compile_lifting(form: Form, constraint, dtype, device, bcs):
             bc_col[bc.dofs] = True
     tables = []
     for ct in terms:
-        cells = ct.cells[np.flatnonzero(bc_col[Vs.dofmap[ct.cells]].any(axis=1))]
-        tb = _term_tables(ct, Vt, tr_row, cells, dtype, device)
+        keep = np.flatnonzero(bc_col[Vs.dofmap[ct.cells]].any(axis=1))
+        cells = ct.cells[keep]
+        tb = _term_tables(ct, Vt, tr_row, cells, ct.local_facets[keep], dtype, device)
         tb["dmc"] = torch.as_tensor(Vs.dofmap[cells], dtype=torch.int64, device=device)
         tables.append(tb)
     return terms, tables
@@ -488,7 +492,7 @@ def apply_lifting(b, forms, bcs_list, constraint=None, x0=None, scale=1.0, dtype
         for ct, tb in zip(terms, tables):
             coeffs = _coeff_vectors(ct.term, device)
             wlocals = {n: coeffs[n][tb["wdofmaps"][n]] for n in coeffs}
-            Ae = ct.kernel(tb["coords"], wlocals).to(tdt)
+            Ae = ct.kernel(tb["coords"], tb["lf"], wlocals).to(tdt)
             gcell = gvec[tb["dmc"]] * bc_col[tb["dmc"]]
             be = -scale * torch.einsum("cij,cj->ci", Ae, gcell)
             _scatter(lift, tb, be)

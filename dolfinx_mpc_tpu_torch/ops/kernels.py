@@ -1,13 +1,14 @@
-"""Element-tensor kernels: vectorize an integrand over (cells x quadrature x
-basis functions) with ``torch.func.vmap``.
+"""Element-tensor kernels: vectorize an integrand over (entities x
+quadrature x basis functions) with ``torch.func.vmap``.
 
-Counterpart of ``dolfinx_mpc_tpu/ops/kernels.py`` for cell integrals over
-uniform (non-mixed) Lagrange spaces: what the right-hand side of the main
-path (``assemble_vector``), lifting and the host oracle's element matrices
-need.  The geometry pullback is batched einsums; the integrand runs under
-nested vmaps exactly as the JAX package runs it under ``jax.vmap``.
-Exterior-facet integrals and mixed spaces come with ROADMAP queue 1,
-items 14-17.
+Counterpart of ``dolfinx_mpc_tpu/ops/kernels.py`` for cell and
+exterior-facet integrals over uniform (non-mixed) Lagrange spaces.  The
+geometry pullback is batched einsums; the integrand runs under nested vmaps
+exactly as the JAX package runs it under ``jax.vmap``.  A facet integral
+tabulates its bases and geometry once per local facet, at the facet
+quadrature points mapped into the cell, and each facet takes its slice by
+indexing with its local-facet index.  Mixed spaces come with ROADMAP
+queue 1, item 17.
 """
 
 from __future__ import annotations
@@ -20,7 +21,12 @@ import torch
 
 from ..fem.forms import Arg, Ctx, FormTerm
 from ..fem.functionspace import FunctionSpace
-from ..fem.geometry_maps import geom_tabulation
+from ..fem.geometry_maps import (
+    facet_reference_points,
+    facet_tangent_matrix,
+    geom_tabulation,
+    reference_facet_normals,
+)
 from ..fem.quadrature import quadrature_rule
 from .smallmat import small_det, small_inv
 
@@ -60,31 +66,31 @@ def _coeff_args(phi_w, dphi_w_phys, wlocal, bs):
 
 @dataclass
 class CompiledTerm:
-    """A single cell-integral term compiled to a batched element-tensor
-    function.
+    """A single integral term compiled to a batched element-tensor function.
 
-    kernel(coords, wlocals) -> Ae:
-      coords: (n_cells, n_verts, gdim) tensor
-      wlocals: dict name -> (n_cells, nd_w*bs_w) local coefficient values
-      Ae: (n_cells, ndt[, nds]) element tensors (quadrature weights and
-      |detJ| included), on coords' device and dtype.
+    kernel(coords, lf, wlocals) -> Ae:
+      coords: (n_ent, n_verts, gdim) tensor
+      lf: (n_ent,) int64 local facet index of each facet on coords' device
+          (facet integrals; cell kernels ignore it)
+      wlocals: dict name -> (n_ent, nd_w*bs_w) local coefficient values
+      Ae: (n_ent, ndt[, nds]) element tensors (quadrature weights and
+      |detJ| / surface measure included), on coords' device and dtype.
     """
 
     term: FormTerm
-    cells: np.ndarray
+    entities: np.ndarray  # active cells (cell integral) or facets
+    cells: np.ndarray  # cell of each active entity
+    local_facets: np.ndarray  # per active entity (zeros for cell integrals)
     kernel: Callable
     coeff_names: tuple
     coeff_spaces: tuple
 
 
 def compile_term(term: FormTerm, V_test: FunctionSpace, V_trial: Optional[FunctionSpace]) -> CompiledTerm:
-    mesh = V_test.mesh
-    if term.integral != "cell":
-        raise NotImplementedError(
-            f"{term.integral!r} integrals are not ported yet (ROADMAP queue 1, item 14)")
     for V in (V_test, V_trial):
         if V is not None and getattr(V, "is_mixed", False):
             raise NotImplementedError("mixed spaces are not ported yet (ROADMAP queue 1, item 17)")
+    mesh = V_test.mesh
     rank = 2 if V_trial is not None else 1
     deg_t = V_test.element.degree
     deg_s = V_trial.element.degree if V_trial is not None else deg_t
@@ -93,42 +99,109 @@ def compile_term(term: FormTerm, V_test: FunctionSpace, V_trial: Optional[Functi
         qdeg = deg_t + deg_s + max(deg_t, deg_s)  # headroom for coefficients/coords
     coeff_names = tuple(term.coefficients.keys())
     coeff_spaces = tuple(term.coefficients[n].function_space for n in coeff_names)
-    cells = (
-        np.arange(mesh.num_cells, dtype=np.int32)
-        if term.entities is None
-        else np.asarray(term.entities, dtype=np.int32)
-    )
-    q, w = quadrature_rule(mesh.ref_cell, qdeg)
-    kernel = _make_cell_kernel(mesh, V_test, V_trial, term.integrand, q, w,
-                               coeff_names, coeff_spaces, term.constants, rank)
-    return CompiledTerm(term, cells, kernel, coeff_names, coeff_spaces)
+    args = (mesh, V_test, V_trial, term.integrand, qdeg, coeff_names, coeff_spaces, term.constants, rank)
+
+    if term.integral == "cell":
+        cells = (
+            np.arange(mesh.num_cells, dtype=np.int32)
+            if term.entities is None
+            else np.asarray(term.entities, dtype=np.int32)
+        )
+        return CompiledTerm(term, cells, cells, np.zeros(len(cells), np.int32), _make_cell_kernel(*args),
+                            coeff_names, coeff_spaces)
+
+    if term.integral == "exterior_facet":
+        facets = (
+            mesh.exterior_facets() if term.entities is None else np.asarray(term.entities, dtype=np.int32)
+        )
+        _, cell_to_f, f2c = mesh.facets()
+        cells = f2c[facets, 0]
+        # local facet index of each facet within its cell
+        lf = np.argmax(cell_to_f[cells] == facets[:, None], axis=1).astype(np.int32)
+        return CompiledTerm(term, facets, cells.astype(np.int32), lf, _make_facet_kernel(*args),
+                            coeff_names, coeff_spaces)
+
+    raise ValueError(f"unsupported integral type {term.integral}")
 
 
-def _make_cell_kernel(mesh, V_test, V_trial, integrand, q, w, coeff_names, coeff_spaces,
-                      constants, rank):
+def _element_tensor(integrand, rank, targs, sargs, xq, normal, wargs, consts, scale):
+    """One entity's element tensor from its basis Args over q (test, and
+    trial for rank 2), its quadrature points, facet normals (None for
+    cells), coefficient Args and the per-point scale."""
+    vmap = torch.func.vmap
+    with_n = normal is not None
+
+    def ctx_at(x_q, n_q, w_q):
+        return Ctx(x_q, n_q, {**{n: Arg(*a) for n, a in w_q.items()}, **consts})
+
+    if rank == 1:
+        def at_q(t_q, x_q, n_q, w_q):
+            ctx = ctx_at(x_q, n_q, w_q)
+            return vmap(lambda vt: integrand(Arg(*vt), ctx))(t_q)
+
+        vals = vmap(at_q, in_dims=(0, 0, 0 if with_n else None, 0))(targs, xq, normal, wargs)
+        return torch.einsum("q,qi->i", scale.to(vals.dtype), vals)
+
+    def at_q(t_q, s_q, x_q, n_q, w_q):
+        ctx = ctx_at(x_q, n_q, w_q)
+
+        def row(vt):  # one test function
+            return vmap(lambda ut: integrand(Arg(*ut), Arg(*vt), ctx))(s_q)
+
+        return vmap(row)(t_q)  # (ndt, nds)
+
+    vals = vmap(at_q, in_dims=(0, 0, 0, 0 if with_n else None, 0))(targs, sargs, xq, normal, wargs)
+    return torch.einsum("q,qij->ij", scale.to(vals.dtype), vals)
+
+
+def _basis(tab, Jinv):
+    phi, dphi, bs = tab
+    return _basis_args(phi, torch.einsum("qit,qtg->qig", dphi, Jinv), bs)
+
+
+def _coeffs(coeff_names, tw, Jinv, wlocals):
+    """Coefficient Args over q, in the wider of the geometry's and the
+    coefficient's dtypes (jnp.einsum's promotion)."""
+    out = {}
+    for name, (p, d, bs) in zip(coeff_names, tw):
+        wl = wlocals[name]
+        dt = torch.promote_types(p.dtype, wl.dtype)
+        dwp = torch.einsum("qit,qtg->qig", d, Jinv).to(dt)
+        out[name] = _coeff_args(p.to(dt), dwp, wl.to(dt), bs)
+    return out
+
+
+def _converter(dev, rdt):
+    """numpy -> tensor of the coordinates' device and real dtype."""
+    return lambda a: torch.as_tensor(np.asarray(a), dtype=rdt, device=dev)
+
+
+def _consts(constants, T):
+    return {k: (v if isinstance(v, (int, float, complex)) else T(v)) for k, v in constants.items()}
+
+
+def _make_cell_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coeff_spaces, constants, rank):
     """Batched element kernel: the geometry per cell and the basis data per
     quadrature point are tensors; the integrand is vmapped over (q, i[, j])
     inside a vmap over cells."""
+    q, w = quadrature_rule(mesh.ref_cell, qdeg)
     phi_g, dphi_g = geom_tabulation(mesh.cell_type, q)  # (nq, nv), (nq, nv, tdim)
-    tab_t = (V_test.element.tabulate(q), V_test.element.tabulate_grad(q), V_test.block_size)
-    tab_s = None if rank == 1 else (
-        V_trial.element.tabulate(q), V_trial.element.tabulate_grad(q), V_trial.block_size)
-    tabs_w = [(W.element.tabulate(q), W.element.tabulate_grad(q), W.block_size)
-              for W in coeff_spaces]
 
-    def kernel(coords_b, wlocals_b):
-        dev, rdt = coords_b.device, coords_b.dtype
-        T = lambda a: torch.as_tensor(np.asarray(a), dtype=rdt, device=dev)  # noqa: E731
+    def tab(V):
+        return (V.element.tabulate(q), V.element.tabulate_grad(q), V.block_size)
+
+    tab_t = tab(V_test)
+    tab_s = None if rank == 1 else tab(V_trial)
+    tabs_w = [tab(W) for W in coeff_spaces]
+
+    def kernel(coords_b, lf_unused, wlocals_b):
+        T = _converter(coords_b.device, coords_b.dtype)
+        Ttab = lambda tab: (T(tab[0]), T(tab[1]), tab[2])  # noqa: E731
         phi_gt, dphi_gt, wq = T(phi_g), T(dphi_g), T(w)
-        tt = (T(tab_t[0]), T(tab_t[1]), tab_t[2])
-        ts = None if tab_s is None else (T(tab_s[0]), T(tab_s[1]), tab_s[2])
-        tw = [(T(p), T(d), bs) for p, d, bs in tabs_w]
-        consts = {k: (v if isinstance(v, (int, float, complex)) else T(v))
-                  for k, v in constants.items()}
-
-        def basis(tab, Jinv):
-            phi, dphi, bs = tab
-            return _basis_args(phi, torch.einsum("qit,qtg->qig", dphi, Jinv), bs)
+        tt = Ttab(tab_t)
+        ts = None if tab_s is None else Ttab(tab_s)
+        tw = [Ttab(t) for t in tabs_w]
+        consts = _consts(constants, T)
 
         def kernel_one(coords, wlocals):
             J = torch.einsum("qvt,vg->qgt", dphi_gt, coords)  # (nq, gdim, tdim)
@@ -136,36 +209,78 @@ def _make_cell_kernel(mesh, V_test, V_trial, integrand, q, w, coeff_names, coeff
             Jinv = small_inv(J)  # (nq, tdim, gdim)
             xq = phi_gt @ coords  # (nq, gdim)
             scale = wq * torch.abs(detJ)
-            targs = basis(tt, Jinv)
-            wargs = {}
-            for name, (p, d, bs) in zip(coeff_names, tw):
-                dwp = torch.einsum("qit,qtg->qig", d, Jinv)
-                wargs[name] = _coeff_args(p, dwp, wlocals[name], bs)
-
-            def ctx_at(x_q, w_q):
-                return Ctx(x_q, None, {**{n: Arg(*a) for n, a in w_q.items()}, **consts})
-
-            if rank == 1:
-                def at_q(t_q, x_q, w_q):
-                    ctx = ctx_at(x_q, w_q)
-                    return torch.func.vmap(lambda vt: integrand(Arg(*vt), ctx))(t_q)
-
-                vals = torch.func.vmap(at_q)(targs, xq, wargs)
-                return torch.einsum("q,qi->i", scale.to(vals.dtype), vals)
-
-            sargs = basis(ts, Jinv)
-
-            def at_q(t_q, s_q, x_q, w_q):
-                ctx = ctx_at(x_q, w_q)
-
-                def row(vt):  # one test function
-                    return torch.func.vmap(lambda ut: integrand(Arg(*ut), Arg(*vt), ctx))(s_q)
-
-                return torch.func.vmap(row)(t_q)  # (ndt, nds)
-
-            vals = torch.func.vmap(at_q)(targs, sargs, xq, wargs)
-            return torch.einsum("q,qij->ij", scale.to(vals.dtype), vals)
+            sargs = None if ts is None else _basis(ts, Jinv)
+            return _element_tensor(integrand, rank, _basis(tt, Jinv), sargs, xq, None,
+                                   _coeffs(coeff_names, tw, Jinv, wlocals), consts, scale)
 
         return torch.func.vmap(kernel_one)(coords_b, wlocals_b)
+
+    return kernel
+
+
+def _make_facet_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coeff_spaces, constants, rank):
+    """Batched exterior-facet kernel: bases and geometry tabulated once per
+    local facet (stacked on a leading local-facet axis), each facet's slice
+    gathered by its local-facet index, then the outward normal
+    J^{-T} N / |J^{-T} N| and the Nanson measure w |detJ| |J^{-T} N| times
+    the facet's reference embedding.  J^{-T} N is outward whatever the sign
+    of detJ (its dot product with J dX is N . dX); the JAX package also
+    multiplies the normal by sign(detJ), which turns it inward on
+    negatively oriented cells (half the tets of create_box), a defect the
+    port does not copy (ROADMAP queue 3)."""
+    cell_type = mesh.cell_type
+    cell = mesh.ref_cell
+    qf, wf = quadrature_rule(cell.facet_cell, qdeg)
+    n_lf = len(cell.facets)
+    Xq = [facet_reference_points(cell_type, k, qf) for k in range(n_lf)]
+
+    def stack_tab(V):
+        # (phi (n_lf, nq, nd), dphi (n_lf, nq, nd, tdim), bs)
+        return (np.stack([V.element.tabulate(X) for X in Xq]),
+                np.stack([V.element.tabulate_grad(X) for X in Xq]), V.block_size)
+
+    geo = [geom_tabulation(cell_type, X) for X in Xq]
+    phi_g = np.stack([g[0] for g in geo])  # (n_lf, nq, nv)
+    dphi_g = np.stack([g[1] for g in geo])  # (n_lf, nq, nv, tdim)
+    embed = []
+    for k in range(n_lf):
+        Tm = facet_tangent_matrix(cell_type, k)
+        embed.append(np.sqrt(np.linalg.det(Tm.T @ Tm)) if Tm.size else 1.0)
+    embed = np.asarray(embed)
+    ref_normals = reference_facet_normals(cell_type)  # (n_lf, tdim)
+    tab_t = stack_tab(V_test)
+    tab_s = None if rank == 1 else stack_tab(V_trial)
+    tabs_w = [stack_tab(W) for W in coeff_spaces]
+
+    def kernel(coords_b, lf_b, wlocals_b):
+        T = _converter(coords_b.device, coords_b.dtype)
+        lf_b = lf_b.to(device=coords_b.device, dtype=torch.int64)
+        at = lambda a: T(a)[lf_b]  # noqa: E731  (n_ent, ...) slices of a local-facet stack
+        sel = lambda tab: (at(tab[0]), at(tab[1]))  # noqa: E731
+        geo_b = (at(phi_g), at(dphi_g), at(ref_normals), at(embed))
+        tabs_b = {"t": sel(tab_t), "w": [sel(t) for t in tabs_w]}
+        if tab_s is not None:
+            tabs_b["s"] = sel(tab_s)
+        wq = T(wf)
+        consts = _consts(constants, T)
+
+        def kernel_one(coords, geo, tabs, wlocals):
+            pg, dg, nref, emb = geo
+            J = torch.einsum("qvt,vg->qgt", dg, coords)
+            detJ = small_det(J)
+            Jinv = small_inv(J)
+            xq = pg @ coords
+            # Nanson: ds = |detJ| |J^{-T} N| dS_ref; the measure includes the embedding
+            nvec = torch.einsum("qtg,t->qg", Jinv, nref)  # J^{-T} N, outward
+            nnorm = torch.linalg.vector_norm(nvec, dim=1)
+            normal = nvec / nnorm[:, None]
+            scale = wq * torch.abs(detJ) * nnorm * emb
+            tt = (*tabs["t"], tab_t[2])
+            sargs = _basis((*tabs["s"], tab_s[2]), Jinv) if tab_s is not None else None
+            tw = [(*p, t[2]) for p, t in zip(tabs["w"], tabs_w)]
+            return _element_tensor(integrand, rank, _basis(tt, Jinv), sargs, xq, normal,
+                                   _coeffs(coeff_names, tw, Jinv, wlocals), consts, scale)
+
+        return torch.func.vmap(kernel_one)(coords_b, geo_b, tabs_b, wlocals_b)
 
     return kernel

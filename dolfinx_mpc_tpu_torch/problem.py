@@ -81,8 +81,10 @@ class LinearProblem:
         """The lattice fold operator on structured box meshes with a
         plane-wrap constraint, else the general slot-CSR matrix.  The JAX
         package tries its "cells" lattice format between the two; the port
-        has no "cells" format yet (ROADMAP queue 1, item 14) and goes straight
-        to the general assembler, which gives the same matrix."""
+        has no "cells" format yet (ROADMAP queue 1, item 14), so a form or
+        mesh the fold path does not cover (NotImplementedError) goes straight
+        to the general assembler, which gives the same matrix on the same
+        device."""
         a = self._a
         if get_lattice_info(a.test_space.mesh) is None:
             return assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)
@@ -93,7 +95,7 @@ class LinearProblem:
             try:
                 clf = assemble_matrix_lattice(a, self.mpc, bcs=self.bcs, dtype=dtype,
                                               side_format="fold", device=self.mpc.device)
-            except ValueError:  # not a plane wrap: the general assembler
+            except (ValueError, NotImplementedError):  # not a plane wrap, or not a fold form
                 return assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)
             cache[key] = clf
         return clf.assemble()

@@ -14,7 +14,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-__all__ = ["assemble_matrix_scipy", "gather_transformation_matrix"]
+__all__ = [
+    "assemble_matrix_scipy",
+    "gather_transformation_matrix",
+    "compare_mpc_lhs",
+    "compare_mpc_rhs",
+    "gather_PETScMatrix",
+    "gather_PETScVector",
+]
 
 
 def gather_transformation_matrix(mpc, root=0) -> sp.csr_matrix:
@@ -44,9 +51,57 @@ def gather_transformation_matrix(mpc, root=0) -> sp.csr_matrix:
     return sp.csr_matrix((np.asarray(vals, dtype), (rows, cols)), shape=(N, len(reduced)))
 
 
+def gather_PETScMatrix(A, root=0) -> sp.csr_matrix:
+    """A scipy CSR copy of a port matrix (anything with ``to_scipy``) or of
+    a scipy matrix (the reference's util name)."""
+    if sp.issparse(A):
+        return A.tocsr()
+    return A.to_scipy()
+
+
+def gather_PETScVector(b, root=0) -> np.ndarray:
+    """A host numpy copy of a tensor (on any device) or an array."""
+    if isinstance(b, torch.Tensor):
+        return b.detach().cpu().numpy()
+    return np.asarray(b)
+
+
+def _reduced_dofs(mpc) -> np.ndarray:
+    N = mpc.V.num_dofs
+    is_slave = np.zeros(N, dtype=bool)
+    is_slave[np.asarray(mpc.slaves, dtype=np.int64)] = True
+    return np.flatnonzero(~is_slave)
+
+
+def compare_mpc_lhs(A_org, A_mpc, mpc, root=0, atol=5e3 * np.finfo(np.float64).resolution):
+    """Assert K^H A_org K == A_mpc restricted to non-slave rows/cols."""
+    K = gather_transformation_matrix(mpc, root)
+    A_org = gather_PETScMatrix(A_org)
+    A_mpc = gather_PETScMatrix(A_mpc)
+    KHAK = (K.T.conj() @ A_org @ K).tocsr()
+    reduced = _reduced_dofs(mpc)
+    A_mpc_red = A_mpc[reduced][:, reduced]
+    diff = (KHAK - A_mpc_red).tocoo()
+    if diff.nnz:
+        err = np.abs(diff.data).max()
+        assert err < atol, f"K^H A K mismatch: max |diff| = {err:.3e} > {atol:.1e}"
+
+
+def compare_mpc_rhs(b_org, b_mpc, mpc, root=0, atol=1e-8):
+    """Assert K^H b_org == b_mpc on non-slave dofs."""
+    K = gather_transformation_matrix(mpc, root)
+    b_org = gather_PETScVector(b_org)
+    b_mpc = gather_PETScVector(b_mpc)
+    reduced_b = K.T.conj() @ b_org
+    reduced = _reduced_dofs(mpc)
+    err = np.abs(reduced_b - b_mpc[reduced]).max() if len(reduced) else 0.0
+    assert err < atol, f"K^H b mismatch: max |diff| = {err:.3e}"
+
+
 def assemble_matrix_scipy(form, bcs=None, diagval=1.0) -> sp.csr_matrix:
     """Unconstrained host matrix of a square bilinear form in float64: cell
-    element matrices from the port's element kernel on the CPU, summed into
+    and exterior-facet element matrices from the port's element kernels on
+    the CPU, summed into
     CSR, bc rows and columns zeroed with diagval on their diagonal."""
     from ..ops.kernels import compile_term
 
@@ -59,7 +114,7 @@ def assemble_matrix_scipy(form, bcs=None, diagval=1.0) -> sp.csr_matrix:
         coords = torch.as_tensor(mesh.points[mesh.cells[ct.cells]], dtype=torch.float64)
         wl = {n: f.x.array.cpu().to(torch.float64)[torch.as_tensor(W.dofmap[ct.cells])]
               for (n, f), W in zip(term.coefficients.items(), ct.coeff_spaces)}
-        Ae = ct.kernel(coords, wl).numpy()  # (n_cells, nd, nd)
+        Ae = ct.kernel(coords, torch.as_tensor(ct.local_facets), wl).numpy()  # (n_ent, nd, nd)
         dm = V.dofmap[ct.cells]
         nd = dm.shape[1]
         A = A + sp.csr_matrix((Ae.reshape(-1), (np.repeat(dm, nd, axis=1).reshape(-1),

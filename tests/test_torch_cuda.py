@@ -531,3 +531,71 @@ def test_k5_matches_plain_on_card_odd_extents(cuda, dtype, tol):
         if id(table) in unit:
             kernel, u = unit[id(table)]
             assert torch.equal(got, kernel(u.on(cuda, dtype), 0.02, 1.3))
+
+
+def _facet_forms(device):
+    """P2 tets: stiffness plus g u v + (n . grad u) v on the x=1 facets (g
+    from a seed), a facet source with n, a general constraint and a
+    Dirichlet value at z=0."""
+    from dolfinx_mpc_tpu_torch.fem.forms import dot
+    from dolfinx_mpc_tpu_torch.fem.mesh import locate_entities_boundary
+
+    mesh = create_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 2, 2))
+    V = pt.functionspace(mesh, ("Lagrange", 2))
+    g = pt.Function(V, np.random.default_rng(11).uniform(0.5, 1.5, V.num_dofs), name="g", device=device)
+    facets = locate_entities_boundary(mesh, 2, lambda x: np.isclose(x[0], 1.0))
+    a = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v))) + pt.BilinearForm(
+        V, lambda u, v, c: c["g"].value * inner(u, v) + dot(c.n, grad(u)) * v.value,
+        integral="exterior_facet", entities=facets, coefficients={"g": g})
+    L = pt.LinearForm(V, lambda v, c: (2.0 + c.x[1] + c.n[0]) * v.value, integral="exterior_facet",
+                      entities=facets)
+    mpc = pt.MultiPointConstraint(V, np.float64, device=device)
+    mpc.create_general_constraint({np.array([1.0, 0.5, 0.5]).tobytes(): {np.array([0.0, 0.5, 0.5]).tobytes(): 0.7}})
+    mpc.finalize()
+    bc = pt.dirichletbc(0.25, pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[2], 0.0)), V)
+    return a, L, mpc, bc
+
+
+def test_facet_assembly_on_card_matches_cpu(cuda):
+    """Exterior-facet matrix, vector and lifting assembled on the card equal
+    the CPU's in float64 within 1e-12 relative (atomics reorder sums)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        a, L, mpc, bc = _facet_forms(dev)
+        A = pt.assemble_matrix(a, mpc, [bc])
+        b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, mpc), [a], [[bc]], mpc), [bc])
+        assert A.data.device.type == b.device.type == torch.device(dev).type
+        out[str(dev)] = (A.to_scipy(), b.cpu().numpy())
+    (Ac, bc_), (Ag, bg) = out["cpu"], out["cuda"]
+    assert np.array_equal(Ac.indptr, Ag.indptr) and np.array_equal(Ac.indices, Ag.indices)
+    assert abs(Ag - Ac).max() <= 1e-12 * abs(Ac).max()
+    assert np.abs(bg - bc_).max() <= 1e-12 * np.abs(bc_).max()
+
+
+def test_rotated_slip_contact_on_card_meets_oracle(cuda):
+    """chip_smoke.make_slip_contact at NB=3/NT=2 on the card (projected
+    normal by exterior-facet assembly and Jacobi-CG on the card, the
+    traction as a facet term), solved in float64 by LinearProblem:
+    K (K^T A K)^-1 K^T b within 1e-8, and the projected normal equal to the
+    averaged one within 1e-8."""
+    import os
+    import sys
+
+    import scipy.sparse.linalg as spla
+
+    from dolfinx_mpc_tpu_torch.utils import assemble_matrix_scipy, gather_transformation_matrix
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+    import chip_smoke
+
+    times = {}
+    V, bcs, mpc, a, L = chip_smoke.make_slip_contact(3, 2, np.float64, cuda, times)
+    assert times["normal_gap"] <= 1e-8 and mpc.num_local_slaves > 0
+    u = pt.LinearProblem(a, L, mpc, bcs=bcs, petsc_options={"ksp_rtol": 1e-12}).solve().x.array
+    assert u.device.type == "cuda"
+    A0 = assemble_matrix_scipy(a, bcs)
+    b0 = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, None, device="cpu"), [a], [bcs], None, device="cpu"),
+                   bcs).numpy()
+    K = gather_transformation_matrix(mpc)
+    u_ref = K @ spla.spsolve((K.T @ A0 @ K).tocsc(), K.T @ b0)
+    assert np.abs(u.cpu().numpy() - u_ref).max() < 1e-8

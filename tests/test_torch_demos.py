@@ -1,0 +1,86 @@
+"""The port's demos (dolfinx_mpc_tpu_torch/demos) at tests/test_demos.py's CI
+sizes on the CPU: each runs its own checks (its oracle, compare_mpc_lhs,
+periodicity, energy drift, interface continuity), and its returned
+solution equals the JAX demo's (demos/) on the same input to 1e-10.  The
+disconnect demos read one gmsh file, written by the JAX demos' factory."""
+
+import importlib
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+
+
+def _array(u):
+    if hasattr(u, "x"):
+        u = u.x.array
+    return u.numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
+
+
+def _both(name, **kw):
+    """(port solution, JAX solution) of demo `name` with the same arguments."""
+    port = importlib.import_module(f"dolfinx_mpc_tpu_torch.demos.{name}").main(device="cpu", **kw)
+    if hasattr(port, "x"):
+        assert port.x.array.device.type == "cpu"
+    ref = importlib.import_module(f"demos.{name}").main(**kw)
+    return _array(port), _array(ref)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("demo_periodic_geometrical", dict(n=12)),
+    ("demo_periodic3d_topological", dict(n=4, degree=2)),
+    ("demo_elasticity", dict(n=8)),
+    ("demo_contact_2D", dict(nb=5, nt=4)),
+    ("demo_contact_3D", dict(nb=3, nt=2)),
+    ("demo_linear_wave_problem", dict(n=12, steps=10)),
+])
+def test_demo_matches_jax(name, kw):
+    got, ref = _both(name, **kw)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-10
+
+
+@pytest.mark.parametrize("name,factory,args", [
+    ("demo_elasticity_disconnect_2D", "disconnected_plates_2d", (5, 4)),
+    ("demo_elasticity_disconnect", "disconnected_boxes_3d", (3, 2)),
+])
+def test_disconnect_demo_matches_jax(tmp_path, name, factory, args):
+    from demos import create_and_export_mesh as jdemo
+
+    from dolfinx_mpc_tpu.io import write_gmsh
+
+    p = str(tmp_path / "d.msh")
+    write_gmsh(p, *getattr(jdemo, factory)(*args))
+    got, ref = _both(name, msh_path=p)
+    assert np.abs(got - ref).max() <= 1e-10
+
+
+def test_create_and_export_roundtrip(tmp_path):
+    """tests/test_demos.py's round trip through the port's factory, writer
+    and reader."""
+    from dolfinx_mpc_tpu_torch.demos.create_and_export_mesh import disconnected_plates_2d
+    from dolfinx_mpc_tpu_torch.io import read_gmsh, write_gmsh
+
+    mesh, ct, ft = disconnected_plates_2d(nl=3, nu=2)
+    p = tmp_path / "rt.msh"
+    write_gmsh(str(p), mesh, ct, ft)
+    m2, c2, f2 = read_gmsh(str(p))
+    assert m2.num_cells == mesh.num_cells
+    assert set(np.unique(c2.values).tolist()) == {1, 2}
+    assert f2 is not None and set(np.unique(f2.values).tolist()) == {1, 2, 3}
+
+
+def test_demo_meshes_made_on_demand(tmp_path, monkeypatch):
+    """Without msh_path the disconnect demos read the port's own fixtures,
+    written on first use into the (git-ignored) meshes folder."""
+    from dolfinx_mpc_tpu_torch.demos import create_and_export_mesh as pdemo
+
+    monkeypatch.setattr(pdemo, "MESH_DIR", str(tmp_path / "meshes"))
+    monkeypatch.setattr(pdemo.export_all, "__defaults__", (str(tmp_path / "meshes"),))
+    path = pdemo.mesh_path("disconnect_2d.msh")
+    assert path.startswith(str(tmp_path)) and os.path.exists(path)

@@ -110,3 +110,48 @@ def test_entry_points_default_to_the_card():
             pt.MultiPointConstraint(V)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pt.Function(V)
+
+
+def test_new_entry_points_default_to_the_card():
+    """The normal approximations and the demos' main take device="cuda" by
+    default: without a card they raise RuntimeError naming device='cpu', with
+    one the normals land on cuda; device="cpu" works either way."""
+    import glob
+    import importlib
+    import inspect
+    import os
+
+    import torch
+
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_square, locate_entities_boundary, meshtags
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import create_normal_approximation, facet_normal_approximation
+
+    mesh = create_unit_square(3, 3)
+    V = pt.functionspace(mesh, ("Lagrange", 1, (2,)))
+    mt = meshtags(mesh, 1, locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], 1.0)), 1)
+    fns = (create_normal_approximation, facet_normal_approximation)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        assert fn(V, mt, 1, device="cpu").x.array.device.type == "cpu"
+    names = ("demo_periodic_geometrical", "demo_periodic3d_topological", "demo_linear_wave_problem",
+             "demo_elasticity", "demo_elasticity_disconnect", "demo_elasticity_disconnect_2D",
+             "demo_contact_2D", "demo_contact_3D")
+    mains = [importlib.import_module(f"dolfinx_mpc_tpu_torch.demos.{n}").main for n in names]
+    for main in mains:
+        assert inspect.signature(main).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        for fn in fns:
+            assert fn(V, mt, 1).x.array.device.type == "cuda"
+        return
+    for fn in fns:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(V, mt, 1)
+    meshes = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "demos", "meshes")
+    small = {"demo_periodic_geometrical": dict(n=2), "demo_periodic3d_topological": dict(n=1, degree=1),
+             "demo_linear_wave_problem": dict(n=2, steps=1), "demo_elasticity": dict(n=2),
+             "demo_elasticity_disconnect": dict(msh_path=glob.glob(os.path.join(meshes, "disconnect_3d.msh"))[0]),
+             "demo_elasticity_disconnect_2D": dict(msh_path=glob.glob(os.path.join(meshes, "disconnect_2d.msh"))[0]),
+             "demo_contact_2D": dict(nb=2, nt=1), "demo_contact_3D": dict(nb=1, nt=1)}
+    for name, main in zip(names, mains):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(**small[name])
