@@ -15,7 +15,9 @@ unstructured path's blocked-ELL SpMV K8 are CUDA C++ for sm_90a in
 ``csrc/``, built with nvcc on first use; on CPU tensors their plain PyTorch
 versions run instead.  Constraint generators (periodic, slip, contact slip
 and tied contact, dictionary, point-to-point), exterior-facet integrals,
-the normal approximations (utils), gmsh I/O (io) and the demos
+the normal approximations (utils), gmsh I/O (io), mixed spaces, nest
+blocks, the matrix-free operator (ops.matfree), the Krylov methods and the
+eigensolver (la), the Newton drivers and the demos
 (``dolfinx_mpc_tpu_torch/demos``) run on the same entry points.
 """
 
@@ -28,7 +30,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .fem import cells, forms, mesh  # noqa: E402
-from .fem.forms import BilinearForm, Form, LinearForm  # noqa: E402
+from .fem.forms import BilinearForm, Form, LinearForm, derivative  # noqa: E402
 from .fem.functionspace import (  # noqa: E402
     DirichletBC,
     Function,
@@ -38,6 +40,7 @@ from .fem.functionspace import (  # noqa: E402
     locate_dofs_geometrical,
     locate_dofs_topological,
 )
+from .fem.mixed import MixedFunctionSpace, mixed_functionspace, split  # noqa: E402
 from .la.gmg import LatticeGMG, build_gmg_hierarchy  # noqa: E402
 from .la.solvers import cg  # noqa: E402
 from .multipointconstraint import FinalizedMPC, MPCData, MultiPointConstraint  # noqa: E402
@@ -49,7 +52,13 @@ from .ops.assemble import (  # noqa: E402
     set_bc,
 )
 from .ops.lattice import assemble_matrix_lattice  # noqa: E402
-from .problem import LinearProblem  # noqa: E402
+from .ops.nest import (  # noqa: E402
+    assemble_matrix_nest,
+    assemble_vector_nest,
+    create_matrix_nest,
+    create_vector_nest,
+)
+from .problem import LinearProblem, NonlinearProblem, NonlinearProblemNest  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -57,21 +66,30 @@ from . import io  # noqa: E402  (XDMFFile, read_gmsh, write_gmsh)
 
 __all__ = [
     "assemble_matrix",
+    "create_matrix_nest",
+    "assemble_matrix_nest",
     "create_sparsity_pattern",
     "assemble_matrix_lattice",
     "assemble_vector",
+    "assemble_vector_nest",
+    "create_vector_nest",
     "apply_lifting",
     "set_bc",
     "MultiPointConstraint",
     "MPCData",
     "FinalizedMPC",
     "LinearProblem",
+    "NonlinearProblem",
+    "NonlinearProblemNest",
     "LatticeGMG",
     "build_gmg_hierarchy",
     "cg",
     "Function",
     "FunctionSpace",
     "functionspace",
+    "MixedFunctionSpace",
+    "mixed_functionspace",
+    "split",
     "dirichletbc",
     "DirichletBC",
     "locate_dofs_geometrical",
@@ -79,4 +97,5 @@ __all__ = [
     "BilinearForm",
     "LinearForm",
     "Form",
+    "derivative",
 ]

@@ -13,8 +13,9 @@ Example::
     a = BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)))
     L = LinearForm(V, lambda v, c: 4.0 * v.value)
 
-``derivative`` (forward-mode AD of a residual form) comes with the nonlinear
-slice (ROADMAP queue 1, item 16).
+``derivative`` turns a residual form into its Jacobian form by forward-mode
+AD (``torch.func.jvp``) on the coefficient's value and gradient at each
+quadrature point.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "LinearForm",
     "Form",
     "FormTerm",
+    "derivative",
     "grad",
     "div",
     "sym",
@@ -283,3 +285,56 @@ def LinearForm(
         quad_degree,
     )
     return Form(V, None, [term])
+
+
+def _arg_leaves(a):
+    """The tensors of an Arg, or of a tuple of Args (a mixed-space
+    coefficient), in order."""
+    if isinstance(a, Arg):
+        return [a.value, a.gradient]
+    return [t for x in a for t in _arg_leaves(x)]
+
+
+def _arg_rebuild(like, leaves):
+    """An Arg (or tuple of Args) shaped like `like` from its tensors."""
+    if isinstance(like, Arg):
+        return Arg(leaves[0], leaves[1]), leaves[2:]
+    out = []
+    for x in like:
+        a, leaves = _arg_rebuild(x, leaves)
+        out.append(a)
+    return tuple(out), leaves
+
+
+def derivative(F: Form, u_name: str) -> Form:
+    """Gateaux derivative of a residual form w.r.t. the coefficient named
+    `u_name`: the Jacobian bilinear form, by forward-mode AD
+    (``torch.func.jvp``) on the coefficient's value and gradient at each
+    quadrature point, inside the element kernel's vmaps.  Replaces
+    ``ufl.derivative`` in the nonlinear drivers."""
+    assert F.rank == 1
+    terms = []
+    for t in F.terms:
+        if u_name not in t.coefficients:
+            continue
+
+        def make(jt):
+            def jac_integrand(du, v, ctx):
+                # d/deps integrand(v, ctx with w[u] -> w[u] + eps*du)
+                u0 = ctx.w[u_name]
+
+                def f(*leaves):
+                    w = dict(ctx.w)
+                    w[u_name] = _arg_rebuild(u0, list(leaves))[0]
+                    return jt.integrand(v, Ctx(ctx.x, ctx.n, w))
+
+                primals = tuple(_arg_leaves(u0))
+                tangents = tuple(d.to(p.dtype) for d, p in zip(_arg_leaves(du), primals))
+                return torch.func.jvp(f, primals, tangents)[1]
+
+            return jac_integrand
+
+        terms.append(FormTerm(make(t), t.integral, t.entities, dict(t.coefficients), dict(t.constants),
+                              t.quad_degree))
+    V = F.terms[0].coefficients[u_name].function_space
+    return Form(F.test_space, V, terms)

@@ -111,6 +111,13 @@ class CSRMatrix:
         y = torch.zeros(self.shape[0], dtype=prod.dtype, device=prod.device)
         return y.index_add_(0, self.row_ids, prod)
 
+    def matmat(self, X):
+        """A @ X for an (n_cols, k) block: matvec's gather and row
+        index_add_ on every column at once."""
+        prod = self.data[:, None] * X[self.indices]
+        Y = torch.zeros((self.shape[0], X.shape[1]), dtype=prod.dtype, device=prod.device)
+        return Y.index_add_(0, self.row_ids, prod)
+
     def __matmul__(self, x):
         return self.matvec(x)
 

@@ -1,2 +1,3 @@
-"""Assembly operators: vector assembly, the lattice (DIA) fast path and its
-kernels."""
+"""Assembly operators: matrix and vector assembly, the lattice (DIA) fast
+path and its kernels, nest (block) assembly and the matrix-free K^H A K
+operator."""

@@ -2,13 +2,20 @@
 quadrature x basis functions) with ``torch.func.vmap``.
 
 Counterpart of ``dolfinx_mpc_tpu/ops/kernels.py`` for cell and
-exterior-facet integrals over uniform (non-mixed) Lagrange spaces.  The
+exterior-facet integrals over Lagrange spaces, uniform or mixed.  The
 geometry pullback is batched einsums; the integrand runs under nested vmaps
 exactly as the JAX package runs it under ``jax.vmap``.  A facet integral
 tabulates its bases and geometry once per local facet, at the facet
 quadrature points mapped into the cell, and each facet takes its slice by
-indexing with its local-facet index.  Mixed spaces come with ROADMAP
-queue 1, item 17.
+indexing with its local-facet index, field by field.
+
+A mixed space (fem/mixed.py) is a list of fields; each local basis
+function belongs to one field, its Arg for that field is the usual
+value/gradient and ZERO for the others, and the integrand receives a tuple
+of per-field Args — e.g. Stokes:
+  lambda u, v, c: inner(grad(u[0]), grad(v[0])) - div(v[0]) * conj(u[1].value) - ...
+A coefficient on a mixed space arrives as a tuple of per-field Args too.
+For ordinary spaces the field list has length 1 and a bare Arg is passed.
 """
 
 from __future__ import annotations
@@ -64,6 +71,73 @@ def _coeff_args(phi_w, dphi_w_phys, wlocal, bs):
     return vals, grads
 
 
+def _side_fields(V):
+    """[(element, bs, slot_start)], total unrolled local dofs, is_mixed."""
+    if getattr(V, "is_mixed", False):
+        out, s0 = [], 0
+        for W in V.spaces:
+            out.append((W.element, W.block_size, s0))
+            s0 += W.element.ndofs * W.block_size
+        return out, s0, True
+    return [(V.element, V.block_size, 0)], V.element.ndofs * V.block_size, False
+
+
+class _Side:
+    """Basis tables of one side (test, trial or a coefficient's space): per
+    field (phi, dphi, bs, slot_start) as host arrays, the unrolled local
+    dof count ND and whether the space is mixed."""
+
+    def __init__(self, V, tabulate):
+        fields, self.ND, self.mixed = _side_fields(V)
+        self.fields = [(*tabulate(el), bs, s0) for el, bs, s0 in fields]
+
+    def to(self, T, pick=None):
+        """The tables as tensors (T converts), each sliced by `pick`."""
+        pick = pick or (lambda a: a)
+        return [(pick(T(p)), pick(T(d)), bs, s0) for p, d, bs, s0 in self.fields]
+
+
+def _field_basis_args(tabs, Jinv, ND):
+    """Per-field (values, grads) over q, padded with zeros to ND local-dof
+    rows at the field's slot range.  Returns a tuple of (vals, grads)."""
+    res = []
+    for phi, dphi, bs, s0 in tabs:
+        v, g = _basis_args(phi, torch.einsum("qit,qtg->qig", dphi, Jinv), bs)
+        w = v.shape[1]
+        if w != ND:
+            pad = lambda a, k: a.new_zeros((a.shape[0], k) + tuple(a.shape[2:]))  # noqa: E731
+            v = torch.cat([pad(v, s0), v, pad(v, ND - s0 - w)], dim=1)
+            g = torch.cat([pad(g, s0), g, pad(g, ND - s0 - w)], dim=1)
+        res.append((v, g))
+    return tuple(res)
+
+
+def _mk_arg(mixed):
+    """Tuple of per-field (v, g) -> the integrand's argument (a tuple of
+    Args, or a bare Arg)."""
+    if mixed:
+        return lambda t: tuple(Arg(*p) for p in t)
+    return lambda t: Arg(*t[0])
+
+
+def _coeffs(sides_w, tabs_w, Jinv, wlocals):
+    """Coefficient (value, gradient) pairs over q by name, per field (a
+    tuple of pairs for a mixed coefficient space), in the wider of the
+    geometry's and the coefficient's dtypes (jnp.einsum's promotion).
+    sides_w and tabs_w map each name to its _Side and its field tables."""
+    out = {}
+    for name, tabs in tabs_w.items():
+        side, wl = sides_w[name], wlocals[name]
+        parts = []
+        for p, d, bs, s0 in tabs:
+            dt = torch.promote_types(p.dtype, wl.dtype)
+            dwp = torch.einsum("qit,qtg->qig", d, Jinv).to(dt)
+            nd = p.shape[1]
+            parts.append(_coeff_args(p.to(dt), dwp, wl[s0:s0 + nd * bs].to(dt), bs))
+        out[name] = tuple(parts) if side.mixed else parts[0]
+    return out
+
+
 @dataclass
 class CompiledTerm:
     """A single integral term compiled to a batched element-tensor function.
@@ -87,9 +161,6 @@ class CompiledTerm:
 
 
 def compile_term(term: FormTerm, V_test: FunctionSpace, V_trial: Optional[FunctionSpace]) -> CompiledTerm:
-    for V in (V_test, V_trial):
-        if V is not None and getattr(V, "is_mixed", False):
-            raise NotImplementedError("mixed spaces are not ported yet (ROADMAP queue 1, item 17)")
     mesh = V_test.mesh
     rank = 2 if V_trial is not None else 1
     deg_t = V_test.element.degree
@@ -124,51 +195,41 @@ def compile_term(term: FormTerm, V_test: FunctionSpace, V_trial: Optional[Functi
     raise ValueError(f"unsupported integral type {term.integral}")
 
 
-def _element_tensor(integrand, rank, targs, sargs, xq, normal, wargs, consts, scale):
-    """One entity's element tensor from its basis Args over q (test, and
-    trial for rank 2), its quadrature points, facet normals (None for
-    cells), coefficient Args and the per-point scale."""
+def _element_tensor(integrand, rank, sides, targs, sargs, xq, normal, wargs, consts, scale):
+    """One entity's element tensor from its per-field basis pairs over q
+    (test, and trial for rank 2), its quadrature points, facet normals
+    (None for cells), coefficient pairs and the per-point scale.  `sides`
+    holds the test side, the trial side (or None) and, by name, the
+    coefficients' sides (which say whether each is mixed)."""
     vmap = torch.func.vmap
     with_n = normal is not None
+    side_t, side_s, sides_w = sides
+    mk_t = _mk_arg(side_t.mixed)
 
     def ctx_at(x_q, n_q, w_q):
-        return Ctx(x_q, n_q, {**{n: Arg(*a) for n, a in w_q.items()}, **consts})
+        wd = {n: (tuple(Arg(*p) for p in a) if sides_w[n].mixed else Arg(*a)) for n, a in w_q.items()}
+        return Ctx(x_q, n_q, {**wd, **consts})
 
     if rank == 1:
         def at_q(t_q, x_q, n_q, w_q):
             ctx = ctx_at(x_q, n_q, w_q)
-            return vmap(lambda vt: integrand(Arg(*vt), ctx))(t_q)
+            return vmap(lambda vt: integrand(mk_t(vt), ctx))(t_q)
 
         vals = vmap(at_q, in_dims=(0, 0, 0 if with_n else None, 0))(targs, xq, normal, wargs)
         return torch.einsum("q,qi->i", scale.to(vals.dtype), vals)
+
+    mk_s = _mk_arg(side_s.mixed)
 
     def at_q(t_q, s_q, x_q, n_q, w_q):
         ctx = ctx_at(x_q, n_q, w_q)
 
         def row(vt):  # one test function
-            return vmap(lambda ut: integrand(Arg(*ut), Arg(*vt), ctx))(s_q)
+            return vmap(lambda ut: integrand(mk_s(ut), mk_t(vt), ctx))(s_q)
 
         return vmap(row)(t_q)  # (ndt, nds)
 
     vals = vmap(at_q, in_dims=(0, 0, 0, 0 if with_n else None, 0))(targs, sargs, xq, normal, wargs)
     return torch.einsum("q,qij->ij", scale.to(vals.dtype), vals)
-
-
-def _basis(tab, Jinv):
-    phi, dphi, bs = tab
-    return _basis_args(phi, torch.einsum("qit,qtg->qig", dphi, Jinv), bs)
-
-
-def _coeffs(coeff_names, tw, Jinv, wlocals):
-    """Coefficient Args over q, in the wider of the geometry's and the
-    coefficient's dtypes (jnp.einsum's promotion)."""
-    out = {}
-    for name, (p, d, bs) in zip(coeff_names, tw):
-        wl = wlocals[name]
-        dt = torch.promote_types(p.dtype, wl.dtype)
-        dwp = torch.einsum("qit,qtg->qig", d, Jinv).to(dt)
-        out[name] = _coeff_args(p.to(dt), dwp, wl.to(dt), bs)
-    return out
 
 
 def _converter(dev, rdt):
@@ -186,21 +247,18 @@ def _make_cell_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coeff
     inside a vmap over cells."""
     q, w = quadrature_rule(mesh.ref_cell, qdeg)
     phi_g, dphi_g = geom_tabulation(mesh.cell_type, q)  # (nq, nv), (nq, nv, tdim)
-
-    def tab(V):
-        return (V.element.tabulate(q), V.element.tabulate_grad(q), V.block_size)
-
-    tab_t = tab(V_test)
-    tab_s = None if rank == 1 else tab(V_trial)
-    tabs_w = [tab(W) for W in coeff_spaces]
+    tabulate = lambda el: (el.tabulate(q), el.tabulate_grad(q))  # noqa: E731
+    side_t = _Side(V_test, tabulate)
+    side_s = None if rank == 1 else _Side(V_trial, tabulate)
+    sides_w = {n: _Side(W, tabulate) for n, W in zip(coeff_names, coeff_spaces)}
+    sides = (side_t, side_s, sides_w)
 
     def kernel(coords_b, lf_unused, wlocals_b):
         T = _converter(coords_b.device, coords_b.dtype)
-        Ttab = lambda tab: (T(tab[0]), T(tab[1]), tab[2])  # noqa: E731
         phi_gt, dphi_gt, wq = T(phi_g), T(dphi_g), T(w)
-        tt = Ttab(tab_t)
-        ts = None if tab_s is None else Ttab(tab_s)
-        tw = [Ttab(t) for t in tabs_w]
+        tt = side_t.to(T)
+        ts = None if side_s is None else side_s.to(T)
+        tw = {n: side.to(T) for n, side in sides_w.items()}
         consts = _consts(constants, T)
 
         def kernel_one(coords, wlocals):
@@ -209,9 +267,9 @@ def _make_cell_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coeff
             Jinv = small_inv(J)  # (nq, tdim, gdim)
             xq = phi_gt @ coords  # (nq, gdim)
             scale = wq * torch.abs(detJ)
-            sargs = None if ts is None else _basis(ts, Jinv)
-            return _element_tensor(integrand, rank, _basis(tt, Jinv), sargs, xq, None,
-                                   _coeffs(coeff_names, tw, Jinv, wlocals), consts, scale)
+            sargs = None if ts is None else _field_basis_args(ts, Jinv, side_s.ND)
+            return _element_tensor(integrand, rank, sides, _field_basis_args(tt, Jinv, side_t.ND), sargs, xq,
+                                   None, _coeffs(sides_w, tw, Jinv, wlocals), consts, scale)
 
         return torch.func.vmap(kernel_one)(coords_b, wlocals_b)
 
@@ -221,11 +279,11 @@ def _make_cell_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coeff
 def _make_facet_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coeff_spaces, constants, rank):
     """Batched exterior-facet kernel: bases and geometry tabulated once per
     local facet (stacked on a leading local-facet axis), each facet's slice
-    gathered by its local-facet index, then the outward normal
-    J^{-T} N / |J^{-T} N| and the Nanson measure w |detJ| |J^{-T} N| times
-    the facet's reference embedding.  J^{-T} N is outward whatever the sign
-    of detJ (its dot product with J dX is N . dX); the JAX package also
-    multiplies the normal by sign(detJ), which turns it inward on
+    gathered by its local-facet index, field by field, then the outward
+    normal J^{-T} N / |J^{-T} N| and the Nanson measure w |detJ| |J^{-T} N|
+    times the facet's reference embedding.  J^{-T} N is outward whatever
+    the sign of detJ (its dot product with J dX is N . dX); the JAX package
+    also multiplies the normal by sign(detJ), which turns it inward on
     negatively oriented cells (half the tets of create_box), a defect the
     port does not copy (ROADMAP queue 3)."""
     cell_type = mesh.cell_type
@@ -233,12 +291,9 @@ def _make_facet_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coef
     qf, wf = quadrature_rule(cell.facet_cell, qdeg)
     n_lf = len(cell.facets)
     Xq = [facet_reference_points(cell_type, k, qf) for k in range(n_lf)]
-
-    def stack_tab(V):
-        # (phi (n_lf, nq, nd), dphi (n_lf, nq, nd, tdim), bs)
-        return (np.stack([V.element.tabulate(X) for X in Xq]),
-                np.stack([V.element.tabulate_grad(X) for X in Xq]), V.block_size)
-
+    # per field: (phi (n_lf, nq, nd), dphi (n_lf, nq, nd, tdim))
+    tabulate = lambda el: (np.stack([el.tabulate(X) for X in Xq]),  # noqa: E731
+                           np.stack([el.tabulate_grad(X) for X in Xq]))
     geo = [geom_tabulation(cell_type, X) for X in Xq]
     phi_g = np.stack([g[0] for g in geo])  # (n_lf, nq, nv)
     dphi_g = np.stack([g[1] for g in geo])  # (n_lf, nq, nv, tdim)
@@ -248,21 +303,24 @@ def _make_facet_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coef
         embed.append(np.sqrt(np.linalg.det(Tm.T @ Tm)) if Tm.size else 1.0)
     embed = np.asarray(embed)
     ref_normals = reference_facet_normals(cell_type)  # (n_lf, tdim)
-    tab_t = stack_tab(V_test)
-    tab_s = None if rank == 1 else stack_tab(V_trial)
-    tabs_w = [stack_tab(W) for W in coeff_spaces]
+    side_t = _Side(V_test, tabulate)
+    side_s = None if rank == 1 else _Side(V_trial, tabulate)
+    sides_w = {n: _Side(W, tabulate) for n, W in zip(coeff_names, coeff_spaces)}
+    sides = (side_t, side_s, sides_w)
 
     def kernel(coords_b, lf_b, wlocals_b):
         T = _converter(coords_b.device, coords_b.dtype)
         lf_b = lf_b.to(device=coords_b.device, dtype=torch.int64)
-        at = lambda a: T(a)[lf_b]  # noqa: E731  (n_ent, ...) slices of a local-facet stack
-        sel = lambda tab: (at(tab[0]), at(tab[1]))  # noqa: E731
-        geo_b = (at(phi_g), at(dphi_g), at(ref_normals), at(embed))
-        tabs_b = {"t": sel(tab_t), "w": [sel(t) for t in tabs_w]}
-        if tab_s is not None:
-            tabs_b["s"] = sel(tab_s)
+        at = lambda a: a[lf_b]  # noqa: E731  (n_ent, ...) slices of a local-facet stack
+        geo_b = (at(T(phi_g)), at(T(dphi_g)), at(T(ref_normals)), at(T(embed)))
+        # the batched inputs: per side, per field (phi, dphi) of each facet
+        pairs = lambda side: [(p, d) for p, d, _, _ in side.to(T, at)]  # noqa: E731
+        tabs_b = {"t": pairs(side_t), "w": {n: pairs(side) for n, side in sides_w.items()}}
+        if side_s is not None:
+            tabs_b["s"] = pairs(side_s)
         wq = T(wf)
         consts = _consts(constants, T)
+        with_meta = lambda side, ps: [(p, d, bs, s0) for (p, d), (_, _, bs, s0) in zip(ps, side.fields)]  # noqa: E731
 
         def kernel_one(coords, geo, tabs, wlocals):
             pg, dg, nref, emb = geo
@@ -275,11 +333,12 @@ def _make_facet_kernel(mesh, V_test, V_trial, integrand, qdeg, coeff_names, coef
             nnorm = torch.linalg.vector_norm(nvec, dim=1)
             normal = nvec / nnorm[:, None]
             scale = wq * torch.abs(detJ) * nnorm * emb
-            tt = (*tabs["t"], tab_t[2])
-            sargs = _basis((*tabs["s"], tab_s[2]), Jinv) if tab_s is not None else None
-            tw = [(*p, t[2]) for p, t in zip(tabs["w"], tabs_w)]
-            return _element_tensor(integrand, rank, _basis(tt, Jinv), sargs, xq, normal,
-                                   _coeffs(coeff_names, tw, Jinv, wlocals), consts, scale)
+            targs = _field_basis_args(with_meta(side_t, tabs["t"]), Jinv, side_t.ND)
+            sargs = (None if side_s is None
+                     else _field_basis_args(with_meta(side_s, tabs["s"]), Jinv, side_s.ND))
+            tw = {n: with_meta(sides_w[n], p) for n, p in tabs["w"].items()}
+            return _element_tensor(integrand, rank, sides, targs, sargs, xq, normal,
+                                   _coeffs(sides_w, tw, Jinv, wlocals), consts, scale)
 
         return torch.func.vmap(kernel_one)(coords_b, geo_b, tabs_b, wlocals_b)
 

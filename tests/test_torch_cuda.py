@@ -599,3 +599,171 @@ def test_rotated_slip_contact_on_card_meets_oracle(cuda):
     K = gather_transformation_matrix(mpc)
     u_ref = K @ spla.spsolve((K.T @ A0 @ K).tocsc(), K.T @ b0)
     assert np.abs(u.cpu().numpy() - u_ref).max() < 1e-8
+
+
+def _solver_system(device):
+    """tests/test_torch_krylov.py's 8 x 8 periodic system on `device`."""
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_square
+
+    V = pt.functionspace(create_unit_square(8, 8), ("Lagrange", 1))
+    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[1], 0.0)), V)
+    mpc = pt.MultiPointConstraint(V, device=device)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1]]), [bc])
+    mpc.finalize()
+    a = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)) + inner(u, v))
+    return pt.assemble_matrix(a, mpc, bcs=[bc])
+
+
+@pytest.mark.parametrize("ksp", ["bcgs", "gmres"])
+def test_krylov_on_card_matches_cpu(cuda, ksp):
+    """bicgstab / gmres with Chebyshev (one probe) on the card: the CPU
+    iterate to 1e-10 relative, the count within 2 (another summation
+    order), the Krylov basis and x on the card."""
+    from dolfinx_mpc_tpu_torch.la import solvers as S
+
+    b = np.random.default_rng(2).standard_normal(_solver_system("cpu").shape[0])
+    probe = np.random.default_rng(5).standard_normal(b.shape[0])
+    out = {}
+    for dev in ("cpu", cuda):
+        A = _solver_system(dev)
+        M = S.chebyshev_preconditioner(A.matvec, A.diagonal(), probe=probe)
+        fn = S.bicgstab if ksp == "bcgs" else S.gmres
+        x, its, _ = fn(A.matvec, torch.as_tensor(b, device=dev), M=M, rtol=1e-12, max_it=5000)
+        assert x.device.type == torch.device(dev).type
+        out[str(dev)] = (x.cpu().numpy(), its)
+    (xc, ic), (xg, ig) = out["cpu"], out[str(cuda)]
+    assert abs(ic - ig) <= 2 and np.abs(xg - xc).max() <= 1e-10 * np.abs(xc).max()
+
+
+def test_eigsh_on_card_matches_cpu(cuda):
+    """The shift-and-invert eigensolver on CSR operators on the card: the
+    CPU eigenvalues to 1e-8 relative."""
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_square
+    from dolfinx_mpc_tpu_torch.la import eigsh_shift_invert, jacobi_preconditioner
+
+    lams = []
+    for dev in ("cpu", cuda):
+        V = pt.functionspace(create_unit_square(10, 10), ("Lagrange", 1))
+        bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[1], 0.0)
+                                                            | np.isclose(x[1], 1.0)), V)
+        mpc = pt.MultiPointConstraint(V, device=dev)
+        mpc.create_periodic_constraint_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1]]), [bc])
+        mpc.finalize()
+        K = pt.assemble_matrix(pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v))), mpc, bcs=[bc],
+                               diagval=1e4)
+        M = pt.assemble_matrix(pt.BilinearForm(V, lambda u, v, c: inner(u, v)), mpc, bcs=[bc])
+        lam, U, _ = eigsh_shift_invert(K, M, 3, pc=jacobi_preconditioner(K.diagonal()), tol=1e-9)
+        assert U.device.type == torch.device(dev).type
+        lams.append(np.sort(lam))
+    assert np.allclose(lams[1], lams[0], rtol=1e-8, atol=0)
+
+
+def test_eigsh_on_card_matrix_free_and_callable(cuda):
+    """eigsh_shift_invert without X0 on a MatrixFreeKTAK on the card (no
+    .data tensor: the start block follows its .device) and on plain
+    callables of card tensors (no device given: the card by default): the
+    CSR pencil's eigenvalues on the CPU to 1e-8 relative, vectors on the
+    card."""
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_square
+    from dolfinx_mpc_tpu_torch.la import eigsh_shift_invert, jacobi_preconditioner
+    from dolfinx_mpc_tpu_torch.ops.matfree import MatrixFreeKTAK
+
+    out = {}
+    for dev in ("cpu", cuda):
+        V = pt.functionspace(create_unit_square(10, 10), ("Lagrange", 1))
+        bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[1], 0.0)
+                                                            | np.isclose(x[1], 1.0)), V)
+        mpc = pt.MultiPointConstraint(V, device=dev)
+        mpc.create_periodic_constraint_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1]]), [bc])
+        mpc.finalize()
+        k_form = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)))
+        K = pt.assemble_matrix(k_form, mpc, bcs=[bc], diagval=1e4)
+        M = pt.assemble_matrix(pt.BilinearForm(V, lambda u, v, c: inner(u, v)), mpc, bcs=[bc])
+        pc = jacobi_preconditioner(K.diagonal())
+        out[str(dev)] = eigsh_shift_invert(K, M, 3, pc=pc, tol=1e-9)
+        if dev == cuda:
+            op = MatrixFreeKTAK(k_form, mpc, bcs=[bc], diagval=1e4)
+            out["mf"] = eigsh_shift_invert(op, M, 3, pc=jacobi_preconditioner(op.diagonal()), tol=1e-9)
+            X0 = np.random.default_rng(0).standard_normal((V.num_dofs, 6))
+            out["callable"] = eigsh_shift_invert(K.matvec, M.matvec, 3, X0=X0, pc=pc, tol=1e-9)
+    lam = np.sort(out["cpu"][0])
+    for key in ("mf", "callable"):
+        assert out[key][1].device.type == "cuda"
+        assert np.allclose(np.sort(out[key][0]), lam, rtol=1e-8, atol=0)
+
+
+def test_nest_matvec_through_k8_on_card(cuda):
+    """demo_stokes_nest's nest at 8 x 4 as BELL blocks on the card: one K8
+    launch per block matvec, equal to the CSR nest product to 1e-12; the
+    BiCGStab solve on BELL blocks launches K8 3 + 21 + 16 per iteration and
+    holds the slip wall to 1e-8."""
+    from dolfinx_mpc_tpu_torch.demos import demo_stokes_nest
+    from dolfinx_mpc_tpu_torch.la.bell import bell_matvec
+
+    pb = demo_stokes_nest.problem(8, 4, device=cuda)
+    Ab = pb.A.to_bell()
+    x = torch.randn(pb.rhs.shape[0], dtype=torch.float64, device=cuda)
+    n0 = bell_matvec.launches
+    y = Ab.matvec(x)
+    torch.cuda.synchronize()
+    assert bell_matvec.launches == n0 + 3
+    y_ref = pb.A.matvec(x)
+    assert float((y - y_ref).abs().max()) <= 1e-12 * float(y_ref.abs().max())
+    from dolfinx_mpc_tpu_torch.la.solvers import bicgstab
+
+    n0 = bell_matvec.launches
+    M = demo_stokes_nest.preconditioner(Ab, pb.mass_q, np.random.default_rng(0).standard_normal(pb.V.num_dofs))
+    x, its, _ = bicgstab(Ab.matvec, pb.rhs, M=M, rtol=1e-10, max_it=4000)
+    torch.cuda.synchronize()
+    assert bell_matvec.launches == n0 + 3 + 21 + 16 * its
+    u = pb.mpc.finalized.backsubstitution(x[: pb.V.num_dofs]).cpu().numpy().reshape(-1, 2)
+    nvals = pb.nh.x.array.cpu().numpy().reshape(-1, 2)
+    sb = np.unique(pb.mpc.slaves // 2)
+    assert np.abs((u[sb] * nvals[sb]).sum(1)).max() < 1e-8
+
+
+def test_newton_step_on_card(cuda):
+    """NonlinearProblem on tests/test_nonlinear.py's periodic problem on the
+    card: the CPU's Newton count and solution (1e-10)."""
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_square
+
+    out = []
+    for dev in ("cpu", cuda):
+        V = pt.functionspace(create_unit_square(8, 8), ("Lagrange", 1))
+        bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[1], 0.0)
+                                                            | np.isclose(x[1], 1.0)), V)
+        mpc = pt.MultiPointConstraint(V, device=dev)
+        mpc.create_periodic_constraint_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1]]), [bc])
+        mpc.finalize()
+        u = pt.Function(V, name="u", device=dev)
+        F = pt.LinearForm(V, lambda v, c: inner((1 + c["u"].value ** 2) * grad(c["u"]), grad(v)) - 4.0 * v.value,
+                          coefficients={"u": u})
+        its, converged = pt.NonlinearProblem(F, u, mpc, bcs=[bc]).solve()
+        assert converged and u.x.array.device.type == torch.device(dev).type
+        out.append((its, u.x.array.cpu().numpy()))
+    assert out[0][0] == out[1][0] and np.abs(out[0][1] - out[1][1]).max() <= 1e-10
+
+
+def test_lattice_krylov_on_card_launches_k1_k2(cuda):
+    """LinearProblem with bcgs + Chebyshev on the P1 lattice problem (n=8)
+    on the card: K1 assembles, K2 serves every matvec, the CPU count
+    within 2 and solution to 1e-8."""
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LKm
+
+    out = []
+    for dev in ("cpu", cuda):
+        V, bc, mpc, a, L, _ = _problem((8, 8, 8), np.float64, dev)
+        prob = pt.LinearProblem(a, L, mpc, bcs=[bc], petsc_options={
+            "ksp_type": "bcgs", "pc_type": "chebyshev", "ksp_rtol": 1e-10})
+        prob.options.cheb_probe = np.random.default_rng(0).standard_normal(V.num_dofs)
+        n1, n2 = LKm.assemble_fold_lean_factored.launches, LKm.dia_matvec.launches
+        u = prob.solve().x.array
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert LKm.assemble_fold_lean_factored.launches > n1 and LKm.dia_matvec.launches > n2
+        out.append((prob.its, u.cpu().numpy()))
+    assert abs(out[0][0] - out[1][0]) <= 2 and np.abs(out[0][1] - out[1][1]).max() <= 1e-8

@@ -231,16 +231,25 @@ def test_surface_integral_cases(case, compare, dtype):
 
 
 def test_mixed_spaces_still_raise():
-    """Facet terms compile; mixed spaces still name their ROADMAP item."""
-
-    class Mixed:
-        is_mixed = True
-
+    """Facet terms compile on a uniform space and, since mixed spaces were
+    ported (the test keeps the name it had while they raised), on a mixed
+    Taylor-Hood space: its exterior-facet vector (the normal flux on the
+    velocity field, y times the pressure test function) equals the JAX
+    package's to 1e-12 relative on a 2-D mesh."""
     V = pt.functionspace(pm.create_unit_square(2, 2), ("Lagrange", 1))
     term = pt.LinearForm(V, lambda v, c: v.value, integral="exterior_facet").terms[0]
     assert pt_compile(term, V, None).local_facets is not None
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pt_compile(term, Mixed(), None)
+    out = []
+    for pkg in ("jx", "pt"):
+        mod, F, M = PKGS[pkg]
+        mesh = M.create_unit_square(3, 3)
+        W = mod.mixed_functionspace(mesh, [("Lagrange", 2, (2,)), ("Lagrange", 1)])
+        facets = M.locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], 1.0) | np.isclose(x[1], 0.0))
+        L = mod.LinearForm(W, lambda v, c: F.inner(c.n, v[0]) + c.x[1] * v[1].value, integral="exterior_facet",
+                           entities=facets)
+        out.append(np.asarray(mod.assemble_vector(L, None, **_kw(pkg))))
+    assert out[1].shape == out[0].shape and np.abs(out[0]).max() > 0
+    assert np.abs(out[1] - out[0]).max() <= 1e-12 * np.abs(out[0]).max()
 
 
 def test_tr_outer_identity_forms_match_jax():
