@@ -112,13 +112,31 @@ each (or a few), any failure exits non-zero:
 10. demo_stokes at 16 x 8 (GMRES(100) count within 2 % of the JAX
    package's 3,570), demo_stokes_nonlinear_nest at 12 x 6 and
    NonlinearProblem on tests/test_nonlinear.py's periodic problem (Newton
-   counts equal to the JAX package's), each with its own checks.
+   counts equal to the JAX package's), each with its own checks;
+11. the rest of the lattice path (slice11_phases), counters reset before
+   each run and read after: 11a bench.py's P1 n=64 problem in float32 on
+   the "csr" and "cells" side formats (matvec and diagonal against the fold
+   operator's on three seeded vectors to 5e-6, the side products' time per
+   matvec, then test_gmg's 4-level GMG over "cells" levels and cg, its count
+   against the JAX package's CPU range, the error gates); 11b a coefficient
+   form (kappa = 1 + x0 x1 in P1) on fold at n=64 through LinearProblem with
+   cg + Chebyshev (matvec against the general assembler's MPCMatrix to
+   5e-6, the count, the element kernel's time on 1,572,864 cells, the error
+   gates); 11c demo_periodic_geometrical's problem at n=512 through
+   LinearProblem (the 2-D element-kernel fold path, cg + Chebyshev, the
+   count), 2-D P2 at n=256 and 2-D vector P1 at n=512 through LinearProblem,
+   and K2 (n2 = 1), K6 (s2 = 1) and K7 (bs = 2, n2 = 1) on those operators
+   against their plain versions; 11d vector P2 elasticity on fold in float64
+   at n=32 (823,875 dofs, K7 at 65 offsets against its plain version, the
+   error gates) and at n=16 (the count); 11e float64 oracles of csr, cells,
+   the coefficient fold form, the 2-D square and vector P2.
 
 The last two lines are the card's nvidia-smi line and
 {"ok": true, "device": {...}}; the line before them lists every kernel
 (K1-K8) with its launches on its path (K8 also on the slip-contact path,
 under "slip_contact", and on the nest Stokes path, under "stokes_nest"; K1
-and K2 on the Krylov paths, under "krylov"), its error against the plain version,
+and K2 on the Krylov paths, under "krylov"; K2, K6 and K7 on phase 11's
+paths and their checks on its new grids, under "lattice_formats"), its error against the plain version,
 its time, the plain version's, the cuSPARSE product's for the SpMVs (K2,
 K6, K7, K8; null for the assemblers) and the bound: the larger of the bytes
 it must move over 3.35 TB/s and its operations over 67 TFLOP/s (f32), from
@@ -407,8 +425,9 @@ def blob(x):
     return y_planes(x) | ((x[0] - 0.5) ** 2 + x[1] ** 2 + (x[2] - 0.5) ** 2 < 0.35 ** 2)
 
 
-def make_problem(m, dtype, device, degree=1, marker=y_planes):
-    """bench.py's make_problem for scalar Poisson, through the port."""
+def make_problem(m, dtype, device, degree=1, marker=y_planes, side_format="fold"):
+    """bench.py's make_problem for scalar Poisson, through the port (its
+    lattice operator in `side_format`)."""
     import numpy as np
 
     import dolfinx_mpc_tpu_torch as dmt
@@ -422,7 +441,7 @@ def make_problem(m, dtype, device, degree=1, marker=y_planes):
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
     mpc.finalize()
     a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)), quad_degree=degree)
-    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format="fold",
+    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format=side_format,
                                       device=device)
     return V, bc, mpc, a, clf
 
@@ -489,21 +508,25 @@ def manufactured_u0(clf, device):
 
 
 def cast_operator(A, dtype, absolute=False, dia_types=None):
-    """The fold operator A with its data cast to `dtype` (and made entrywise
-    absolute, diagval too), over dia_types = (scalar DIA class, block-DIA
+    """The lattice operator A with its data and side blocks cast to `dtype`
+    (and made entrywise absolute, diagval too), over dia_types = (scalar DIA class, block-DIA
     class): the package's own by default, whose SpMV is K2 / K6 on the card."""
     from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix, DIAMatrix, LatticeOperator
 
     dia_t, block_t = dia_types or (DIAMatrix, BlockDIAMatrix)
-    data = A.dia.data.to(dtype)
-    if absolute:
-        data = data.abs()
+
+    def cast(v):
+        return None if v is None else (v.to(dtype).abs() if absolute else v.to(dtype))
+
+    data = cast(A.dia.data)
     dv = abs(A.diagval) if absolute else A.diagval
     if isinstance(A.dia, BlockDIAMatrix):
         dia = block_t(data, A.dia.trips, A.dia.vshape, A.dia.r3)
     else:
         dia = dia_t(data, A.dia.offsets, A.dia.vshape, A.dia.bs)
-    return LatticeOperator(dia, dv, A.fold_axis, A.fold_mask, A.fold_pairs, fold_mask_b=A.fold_mask_b)
+    return LatticeOperator(dia, dv, A.fold_axis, A.fold_mask, A.fold_pairs, fold_mask_b=A.fold_mask_b,
+                           side_data=cast(A.side_data), side_cols=A.side_cols, side_rows=A.side_rows,
+                           side_nrows=A.side_nrows, side_Aep=cast(A.side_Aep), side_er=A.side_er, slaves=A.slaves)
 
 
 def plain_operator(A, dtype, absolute=False):
@@ -1944,6 +1967,559 @@ def slice10_phases(dev):
     return counts7, krylov
 
 
+# ---- slice 11: the rest of the lattice path (phase 11): the "csr" and
+# ---- "cells" side formats, the element-kernel paths, GMG's options
+
+# Counts of the JAX package on the CPU of an H100 host (JAX 0.9.0), as
+# (min, max) over the seeds FORMAT_SEEDS, each as assembled (11a: b times
+# 1 + 1.2e-7 r in float32, 1 + 2e-16 r in float64) and with b changed by
+# rounding-level random relative noise, from
+# scripts/jax_lattice_format_counts.py (commands beside each).  A port count
+# is gated as phase 8's: the mean over FORMAT_SEEDS must lie in the range
+# widened by 2 its (float64) or 10 % (float32 Chebyshev-CG) — the card's
+# atomics move counts by rounding (PERF.md §6).  In float32 the JAX
+# package's CPU dot products of 274,625 values accumulate in sequence,
+# whose error grows with n: its CG then needs more iterations than the
+# port's (19 against 16 for 11a, 202-207 against 158 for 11b), and the port
+# with a sequential float32 dot product takes the JAX count (13 for the JAX
+# package's 13 at 11a's n=32 on the CPU, 12 with torch's own dot product:
+# python3 scripts/cg_dot_order.py --n 32).  So the float32
+# counts of 11a and 11b are gated from above only (the port may need fewer
+# iterations, not more), and their float64 counts, where both packages'
+# arithmetic is accurate, both ways.
+FORMAT_SEEDS = (0, 1, 2)
+# 11a: bench.py's P1 problem at n=64 (274,625 dofs), "cells" levels,
+# tests/test_gmg.py's LatticeGMG, cg rtol 1e-6:
+#   python3 scripts/jax_lattice_format_counts.py cells_gmg --n 64 --seeds 0 1 2 --perturb-b=5e-7
+#   (float64: --dtype float64 --perturb-b=5e-16)
+N_FORMATS = 64
+JAX_CPU_CELLS_GMG_ITS = {"float32": (19, 19), "float64": (14, 14)}
+# 11b: inner(kappa grad u, grad v), kappa = 1 + x0 x1 in P1, n=64,
+# LinearProblem (fold) with cg + Chebyshev, rtol 1e-6:
+#   python3 scripts/jax_lattice_format_counts.py coefficient --n 64 --seeds 0 1 2 --perturb-b=1.2e-7
+#   (float64: --dtype float64 --perturb-b=2e-16)
+JAX_CPU_COEFFICIENT_ITS = {"float32": (202, 207), "float64": (158, 158)}
+# 11c: demo_periodic_geometrical's problem at n=512 (263,169 dofs), float64,
+# LinearProblem (fold) with cg + Chebyshev, rtol 1e-12:
+#   python3 scripts/jax_lattice_format_counts.py square --n 512 --seeds 0 1 2 --perturb-b=2e-16
+N_SQUARE = 512
+JAX_CPU_SQUARE_ITS = (810, 810)
+# 2-D P2 (K6 at s2 = 1) and 2-D vector P1 (K7 at bs = 2) operators of the
+# 11c kernel checks: (2 N_SQUARE_P2 + 1)^2 and (N_SQUARE + 1)^2 x 2 dofs
+N_SQUARE_P2 = 256
+# 11d: vector P2 elasticity at n=16 (107,811 dofs), float64, cg + Chebyshev,
+# rtol 1e-10 (the JAX package's general assembler: it has no fold operator
+# for a vector space at degree 2; the port runs its fold operator):
+#   python3 scripts/jax_lattice_format_counts.py p2_elasticity --n 16 --seeds 0 1 2 --perturb-b=2e-16
+N_P2_ELASTICITY, N_P2_ELASTICITY_JAX = 32, 16
+JAX_CPU_P2_ELASTICITY_ITS = (258, 260)
+SIDE_GATE = 5e-6
+
+
+def _seed_vectors(n, dtype, dev):
+    import numpy as np
+    import torch
+
+    return [torch.as_tensor(np.random.default_rng(s).standard_normal(n).astype(dtype), device=dev)
+            for s in FORMAT_SEEDS]
+
+
+def _b_noise(b, seed, eps):
+    """b times (1 + eps r), r from numpy's default_rng(1000 + seed): the
+    JAX count script's rounding-level change of b."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(1000 + seed).standard_normal(b.shape[0])
+    return b * torch.as_tensor(1 + eps * r, dtype=b.dtype, device=b.device)
+
+
+def side_formats_path(dev, n=N_FORMATS):
+    """11a: bench.py's P1 problem in float32 on the "csr" and "cells" side
+    formats: each operator's matvec and diagonal against the fold
+    operator's, the side products' device time per matvec, then
+    tests/test_gmg.py's preconditioner over "cells" levels (4 levels,
+    LatticeGMG's defaults) and cg to rtol 1e-6, one solve per seed, b
+    changed by 1.2e-7 relative noise; the main path's error gates on seed
+    0's solution; then the same GMG-CG in float64 (b changed by 2e-16), the
+    count the JAX package's CPU arithmetic reproduces.  Counters reset
+    before the assembly, read after the solves."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.la.solvers import jacobi_preconditioner
+
+    V, bc, mpc, a, clf_fold = make_problem(n, np.float32, dev)
+    A_fold = clf_fold.assemble()
+    reset_counts()
+    ops, asm_s = {}, {}
+    for fmt in ("csr", "cells"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ops[fmt] = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=np.float32, side_format=fmt,
+                                               device=dev).assemble()
+        torch.cuda.synchronize()
+        asm_s[fmt] = time.time() - t0
+    mv_err = {f: max(_rel_l2(A.matvec(x), A_fold.matvec(x)) for x in _seed_vectors(V.num_dofs, np.float32, dev))
+              for f, A in ops.items()}
+    d_err = {f: _rel_l2(A.diagonal(), A_fold.diagonal()) for f, A in ops.items()}
+    L = dmt.LinearForm(V, lambda v, c: 4.0 * v.value)
+    b0 = dmt.set_bc(dmt.assemble_vector(L, mpc), [bc])
+    t0 = time.time()
+    levels, masks = dmt.build_gmg_hierarchy(lambda m: make_problem(m, np.float32, dev, side_format="cells")[4],
+                                            n, 4, min_n=8)
+    levels[0] = ops["cells"]
+    M = dmt.LatticeGMG(levels, free_masks=masks)
+    torch.cuda.synchronize()
+    gmg_s = time.time() - t0
+    runs = []
+    for seed in FORMAT_SEEDS:
+        b = _b_noise(b0, seed, 1.2e-7)
+        t0 = time.time()
+        x, its, rnorm = dmt.cg(ops["cells"].matvec, b, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+        torch.cuda.synchronize()
+        runs.append(dict(its=its, rnorm=rnorm, s=time.time() - t0, x=x, b=b))
+    V64, bc64, mpc64, a64, clf64 = make_problem(n, np.float64, dev, side_format="cells")
+    b64 = dmt.set_bc(dmt.assemble_vector(dmt.LinearForm(V64, lambda v, c: 4.0 * v.value), mpc64), [bc64])
+    levels64, masks64 = dmt.build_gmg_hierarchy(
+        lambda m: make_problem(m, np.float64, dev, side_format="cells")[4], n, 4, min_n=8)
+    M64 = dmt.LatticeGMG(levels64, free_masks=masks64)
+    its64 = [dmt.cg(levels64[0].matvec, _b_noise(b64, seed, 2e-16), M=M64, rtol=1e-6, atol=1e-12, max_it=3000)[1]
+             for seed in FORMAT_SEEDS]
+    counts = read_counts(("K2",))
+    A = ops["cells"]
+    A64 = plain_operator(A, torch.float64)
+    x_ref, _, _ = dmt.cg(A64.matvec, runs[0]["b"].double(), M=jacobi_preconditioner(A64.diagonal()), rtol=1e-12,
+                         atol=0.0, max_it=5000)
+    eta, rel_res, fwd = error_gates(A, runs[0]["b"], runs[0]["x"], x_ref)
+    xr = b0 / torch.linalg.vector_norm(b0)
+    times = {f: dict(matvec_ms=cuda_ms(lambda: B.matvec(xr), 50), dia_ms=cuda_ms(lambda: B.dia.matvec(xr), 50),
+                     side_ms=cuda_ms(lambda: B._add_side(xr, torch.zeros_like(xr)), 50)) for f, B in ops.items()}
+    its = [r["its"] for r in runs]
+    n_sc = int(A.side_Aep.shape[0])
+    return counts, dict(n=n, dofs=V.num_dofs, mv_err=mv_err, d_err=d_err, asm_s=asm_s, gmg_s=gmg_s,
+                        levels=[o.dia.vshape for o in levels], its=its, mean_its=float(np.mean(its)), its64=its64,
+                        rnorm=runs[0]["rnorm"], solve_s=[r["s"] for r in runs], eta=eta, rel_res=rel_res, fwd=fwd,
+                        times=times, n_sc=n_sc, W=int(A.side_Aep.shape[1]), nnz=int(ops["csr"].side_data.shape[0]))
+
+
+def coefficient_path(dev, n=N_FORMATS):
+    """11b: inner(kappa grad u, grad v), kappa = 1 + x0 x1 in P1, on
+    bench.py's mesh and constraint in float32 through LinearProblem (the
+    fold format's element-kernel path: the kernel on the real cell
+    coordinates with kappa gathered per cell), cg + Chebyshev (one solve
+    per probe seed), rtol 1e-6; the operator's matvec against the general
+    assembler's MPCMatrix on the card; the element kernel's time on every
+    cell; then the same solves in float64, the count the JAX package's CPU
+    arithmetic reproduces.  Counters reset before LinearProblem, read after
+    the solves."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import grad, inner
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+    from dolfinx_mpc_tpu_torch.la.solvers import jacobi_preconditioner
+    from dolfinx_mpc_tpu_torch.ops.assemble import _coeff_vectors
+
+    V = dmt.functionspace(create_unit_cube(n, n, n), ("Lagrange", 1))
+    bc = dmt.dirichletbc(0.0, dmt.locate_dofs_geometrical(V, y_planes), V)
+    kappa = dmt.Function(V, device=dev)
+    kappa.interpolate(lambda x: 1.0 + x[0] * x[1])
+    a = dmt.BilinearForm(V, lambda u, v, c: c["kappa"].value * inner(grad(u), grad(v)), coefficients={"kappa": kappa})
+    L = dmt.LinearForm(V, lambda v, c: 4.0 * v.value)
+
+    def solves(dtype):
+        mpc = dmt.MultiPointConstraint(V, dtype, device=dev)
+        mpc.create_periodic_constraint_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+        mpc.finalize()
+        t0 = time.time()
+        prob = dmt.LinearProblem(a, L, mpc, bcs=[bc], petsc_options={
+            "ksp_type": "cg", "pc_type": "chebyshev", "ksp_rtol": 1e-6, "ksp_atol": 1e-12})
+        its, times = [], []
+        for seed in FORMAT_SEEDS:
+            prob.options.cheb_probe = np.random.default_rng(seed).standard_normal(V.num_dofs).astype(dtype)
+            u = prob.solve().x.array
+            torch.cuda.synchronize()
+            its.append(prob.its)
+            times.append(time.time() - t0)
+            t0 = time.time()
+        return mpc, prob, u, its, times
+
+    reset_counts()
+    mpc, prob, u, its, times = solves(np.float32)
+    its64 = solves(np.float64)[3]
+    counts = read_counts(KERNELS)
+    A, b = prob.A, prob.b
+    if getattr(A, "fold_axis", None) is None:
+        fail(f"coefficient path: LinearProblem took {type(A).__name__}, not the fold operator")
+    G = dmt.assemble_matrix(a, mpc, bcs=[bc], dtype=np.float32, device=dev)
+    mv_err = max(_rel_l2(A.matvec(x), G.matvec(x)) for x in _seed_vectors(V.num_dofs, np.float32, dev))
+    x = mpc.finalized.homogenize(u)
+    A64 = plain_operator(A, torch.float64)
+    x_ref, _, _ = dmt.cg(A64.matvec, b.double(), M=jacobi_preconditioner(A64.diagonal()), rtol=1e-12, atol=0.0,
+                         max_it=5000)
+    eta, rel_res, fwd = error_gates(A, b, x, x_ref)
+    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=np.float32, side_format="fold", device=dev)
+    wl = {k: _coeff_vectors(clf.term, dev)[k][dm] for k, dm in clf._wdofmaps.items()}
+    kernel_ms = cuda_ms(lambda: clf._element_tensors(clf._coords, wl), 3, 1)
+    lattice_ms = cuda_ms(lambda: clf.assemble(), 3, 1)
+    general_ms = cuda_ms(lambda: dmt.assemble_matrix(a, mpc, bcs=[bc], dtype=np.float32, device=dev), 3, 1)
+    return counts, dict(n=n, dofs=V.num_dofs, cells=V.mesh.num_cells, its=its, mean_its=float(np.mean(its)), its64=its64,
+                        first_s=times[0], solve_s=times[1:], rnorm=prob.rnorm, mv_err=mv_err, eta=eta,
+                        rel_res=rel_res, fwd=fwd, kernel_ms=kernel_ms, lattice_ms=lattice_ms, general_ms=general_ms)
+
+
+def _spmv_check(name, A, gen, dev, counter_name):
+    """A lattice operator's DIA (K2 / K7) or blocked (K6) part against its
+    plain version on the card in float32 and float64 (relative L2 <= 5e-6
+    and 1e-12), one counted launch each, with the f32 warm and profiler
+    device times, the plain version's and the bound.  Returns the f32
+    numbers."""
+    import torch
+
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+
+    dia = A.dia
+    out = {}
+    for dt, tol in ((torch.float32, 5e-6), (torch.float64, 1e-12)):
+        data = dia.data.to(dt).contiguous()
+        if counter_name == "K6":
+            x = torch.randn((len(dia.classes),) + dia.cdims, generator=gen, device=dev, dtype=torch.float64).to(dt)
+            run = lambda: LK.blocked_matvec(data, dia.trips, dia.classes, x)  # noqa: E731
+            plain = lambda: LK.blocked_matvec_plain(data, dia.trips, dia.classes, x)  # noqa: E731
+        else:
+            x = torch.randn(dia.shape[0], generator=gen, device=dev, dtype=torch.float64).to(dt)
+            run = ((lambda: LK.dia_matvec(data, dia.offsets, dia.vshape, x)) if dia.bs == 1  # noqa: E731
+                   else (lambda: LK.dia_matvec_bs(data, dia.offsets, dia.vshape, dia.bs, x)))
+            plain = lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, dia.bs, x)  # noqa: E731
+        n0 = wrapper(counter_name).launches
+        got = run()
+        torch.cuda.synchronize()
+        if wrapper(counter_name).launches != n0 + 1:
+            fail(f"{name}: {counter_name} did not launch once")
+        ref = plain()
+        rel = _rel_l2(got, ref)
+        if not rel <= tol:
+            fail(f"{name}: {counter_name} disagrees with its plain version in {dt}: {rel:.3e} > {tol:g}")
+        if dt == torch.float32:
+            bms, by = spmv_bound(data.numel(), x, got)
+            kernel = "blocked_matvec_kernel" if counter_name == "K6" else "dia_matvec_kernel"
+            out = dict(err=rel, max_abs_err=float((got - ref).abs().max()), ms=cuda_ms(run, 50),
+                       device_ms=profiler_ms(run, 50, kernel), plain_ms=cuda_ms(plain, 5), bound_ms=bms, bound_by=by)
+        else:
+            out["err64"] = rel
+    return out
+
+
+def square_path(dev, gen, n=N_SQUARE, n_p2=N_SQUARE_P2):
+    """11c: demo_periodic_geometrical's problem on the n x n square in
+    float64 through LinearProblem (the fold format's element-kernel lean
+    path, K2 on the n2 = 1 grid) with cg + Chebyshev, one solve per probe
+    seed, rtol 1e-12; then a 2-D P2 problem on the n_p2 square (the
+    parity-blocked fold operator, K6 at s2 = 1) and 2-D vector P1
+    elasticity on the n square (K7 at bs = 2, n2 = 1) through LinearProblem
+    with Jacobi-CG to rtol 1e-8; counters reset before each and read after.
+    Then each kernel on its operator against its plain version."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_square
+
+    def problem(m, degree=1, bs=None):
+        V = dmt.functionspace(create_unit_square(m, m), ("Lagrange", degree, (bs,)) if bs else ("Lagrange", degree))
+        bc = dmt.dirichletbc(np.zeros(bs) if bs else 0.0, dmt.locate_dofs_geometrical(V, y_planes), V)
+        mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+        mpc.create_periodic_constraint_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1]]), [bc])
+        mpc.finalize()
+        return V, bc, mpc
+
+    V, bc, mpc = problem(n)
+    a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)))
+    L = dmt.LinearForm(V, lambda v, c: (c.x[0] * torch.sin(5.0 * np.pi * c.x[1])
+                                        + torch.exp(-((c.x[0] - 0.5) ** 2 + (c.x[1] - 0.5) ** 2) * 50.0)) * v.value)
+    reset_counts()
+    t0 = time.time()
+    prob = dmt.LinearProblem(a, L, mpc, bcs=[bc], petsc_options={
+        "ksp_type": "cg", "pc_type": "chebyshev", "ksp_rtol": 1e-12})
+    its, times = [], []
+    for seed in FORMAT_SEEDS:
+        prob.options.cheb_probe = np.random.default_rng(seed).standard_normal(V.num_dofs)
+        u = prob.solve().x.array
+        torch.cuda.synchronize()
+        its.append(prob.its)
+        times.append(time.time() - t0)
+        t0 = time.time()
+    counts = {"P1": read_counts(KERNELS)}
+    A = prob.A
+    if getattr(A, "fold_axis", None) is None or A.dia.vshape[2] != 1:
+        fail(f"2-D path: LinearProblem took {type(A).__name__}, not the 2-D fold operator")
+    if not bool(torch.isfinite(u).all()):
+        fail("2-D path: the solution is not finite")
+    ops, solves = {"K2": A}, {}
+    for key, m, degree, bs in (("K6", n_p2, 2, None), ("K7", n, 1, 2)):
+        Vk, bck, mpck = problem(m, degree, bs)
+        if bs:
+            ak = dmt.BilinearForm(Vk, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v)))
+                                  + 1.25 * div(u) * conj(div(v)))
+            Lk = dmt.LinearForm(Vk, lambda v, c: c.x[0] * v.value[..., 0] - v.value[..., 1])
+        else:
+            ak = dmt.BilinearForm(Vk, lambda u, v, c: inner(grad(u), grad(v)))
+            Lk = dmt.LinearForm(Vk, lambda v, c: (1.0 + c.x[0] * c.x[1]) * v.value)
+        reset_counts()
+        t0 = time.time()
+        pk = dmt.LinearProblem(ak, Lk, mpck, bcs=[bck], petsc_options={
+            "ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-8, "ksp_max_it": 20000})
+        uk = pk.solve().x.array
+        torch.cuda.synchronize()
+        counts["P2" if key == "K6" else "vector P1"] = read_counts(KERNELS)
+        if getattr(pk.A, "fold_axis", None) is None or not bool(torch.isfinite(uk).all()) or pk.its >= 20000:
+            fail(f"2-D path {key}: {type(pk.A).__name__}, {pk.its} its, finite {bool(torch.isfinite(uk).all())}")
+        ops[key] = pk.A
+        solves[key] = dict(dofs=Vk.num_dofs, its=pk.its, s=time.time() - t0, rnorm=pk.rnorm)
+    checks = {k: _spmv_check(f"2-D {k}", B, gen, dev, k) for k, B in ops.items()}
+    shapes = dict(K2=A.dia.vshape, K6=(len(ops["K6"].dia.classes),) + ops["K6"].dia.cdims,
+                  K7=ops["K7"].dia.vshape + (2,))
+    return counts, dict(n=n, n_p2=n_p2, dofs=V.num_dofs, its=its, mean_its=float(np.mean(its)), first_s=times[0],
+                        solve_s=times[1:], rnorm=prob.rnorm, checks=checks, shapes=shapes, solves=solves)
+
+
+def p2_elasticity_path(dev, gen, n=N_P2_ELASTICITY, check=True):
+    """11d: linear elasticity (mu = 1, lambda = 1.25, quad_degree 2) in
+    ("Lagrange", 2, (3,)) on bench.py's mesh and constraint, float64, on
+    the fold format (the element-kernel lean path onto the refined grid,
+    65 offsets, halo 2): assemble_matrix_lattice -> assemble_vector +
+    apply_lifting + set_bc -> cg + Chebyshev to rtol 1e-10, one solve per
+    probe seed, counters reset before and read after; the main path's
+    error gates on seed 0's solution; with `check`, K7 on that operator
+    against its plain version."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+    from dolfinx_mpc_tpu_torch.la.solvers import chebyshev_preconditioner
+
+    V = dmt.functionspace(create_unit_cube(n, n, n), ("Lagrange", 2, (3,)))
+    bc = dmt.dirichletbc(np.zeros(3), dmt.locate_dofs_geometrical(V, y_planes), V)
+    mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    a = dmt.BilinearForm(V, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v))) + 1.25 * div(u) * conj(div(v)),
+                         quad_degree=2)
+    L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0] + 0.5 * c.x[1] * v.value[..., 1]
+                       - v.value[..., 2])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    A = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], side_format="fold", device=dev).assemble()
+    b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [[bc]], mpc), [bc])
+    torch.cuda.synchronize()
+    asm_s = time.time() - t0
+    runs = []
+    for seed in FORMAT_SEEDS:
+        t0 = time.time()
+        M = chebyshev_preconditioner(A.matvec, A.diagonal(), probe=np.random.default_rng(seed).standard_normal(
+            V.num_dofs))
+        x, its, rnorm = dmt.cg(A.matvec, b, M=M, rtol=1e-10, max_it=10000)
+        torch.cuda.synchronize()
+        runs.append(dict(its=its, rnorm=rnorm, s=time.time() - t0, x=x))
+    counts = read_counts(("K7", "K2"))
+    by_grid = dict(wrapper("K7").launches_by_grid)
+    its = [r["its"] for r in runs]
+    out = dict(n=n, dofs=V.num_dofs, offsets=len(A.dia.offsets), vshape=A.dia.vshape, asm_s=asm_s, its=its,
+               mean_its=float(np.mean(its)), rnorm=runs[0]["rnorm"], solve_s=[r["s"] for r in runs], by_grid=by_grid)
+    if check:
+        M = chebyshev_preconditioner(A.matvec, A.diagonal(), probe=np.random.default_rng(0).standard_normal(V.num_dofs))
+        x_ref, _, _ = dmt.cg(A.matvec, b, M=M, rtol=1e-13, atol=0.0, max_it=20000)
+        out["eta"], out["rel_res"], out["fwd"] = error_gates(A, b, runs[0]["x"], x_ref)
+        out["K7"] = _spmv_check(f"vector P2 n={n}", A, gen, dev, "K7")
+        out["data_mb"] = A.dia.data.numel() * A.dia.data.element_size() / 1e6
+    return counts, out
+
+
+def oracle_lattice_f64(dev, kind):
+    """11e: float64 on the card against u = K (K^T A K)^-1 K^T b from scipy:
+    "csr" and "cells" (P1 n=6, the operator of that format, Jacobi-CG,
+    backsubstitution), the coefficient form on fold and the 2-D periodic
+    square (LinearProblem, Jacobi-CG) and vector P2 elasticity on fold
+    (n=3).  Returns (max error, CG iterations, launches)."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube, create_unit_square
+    from dolfinx_mpc_tpu_torch.la.solvers import jacobi_preconditioner
+    from dolfinx_mpc_tpu_torch.utils import assemble_matrix_scipy, gather_transformation_matrix
+
+    bs = 3 if kind == "vector P2" else None
+    degree = 2 if kind == "vector P2" else 1
+    mesh = (create_unit_square(12, 12) if kind == "2-D" else
+            create_unit_cube(3, 3, 3) if kind == "vector P2" else create_unit_cube(6, 6, 6))
+    V = dmt.functionspace(mesh, ("Lagrange", degree, (bs,)) if bs else ("Lagrange", degree))
+    bc = dmt.dirichletbc(np.zeros(bs) if bs else 0.0, dmt.locate_dofs_geometrical(V, y_planes), V)
+    mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+    rel = (lambda x: np.stack([1.0 - x[0], x[1]])) if kind == "2-D" else (lambda x: np.stack([1.0 - x[0], x[1], x[2]]))
+    mpc.create_periodic_constraint_geometrical(V, lambda x: np.isclose(x[0], 1.0), rel, [bc])
+    mpc.finalize()
+    if kind == "vector P2":
+        a = dmt.BilinearForm(V, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v))) + 1.25 * div(u) * conj(div(v)),
+                             quad_degree=2)
+        L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0] - v.value[..., 2])
+    elif kind == "coefficient fold":
+        kappa = dmt.Function(V, device=dev)
+        kappa.interpolate(lambda x: 1.0 + x[0] * x[1])
+        a = dmt.BilinearForm(V, lambda u, v, c: c["kappa"].value * inner(grad(u), grad(v)),
+                             coefficients={"kappa": kappa})
+        L = dmt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[2]) * v.value)
+    else:
+        a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)))
+        L = dmt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[1]) * v.value)
+    reset_counts()
+    if kind in ("coefficient fold", "2-D"):
+        prob = dmt.LinearProblem(a, L, mpc, bcs=[bc],
+                                 petsc_options={"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-12})
+        u, its = prob.solve().x.array, prob.its
+        if getattr(prob.A, "fold_axis", None) is None:
+            fail(f"f64 oracle {kind}: LinearProblem did not take the fold operator")
+    else:
+        fmt = "fold" if kind == "vector P2" else kind
+        A = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], side_format=fmt, device=dev).assemble()
+        b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [[bc]], mpc), [bc])
+        x, its, _ = dmt.cg(A.matvec, b, M=jacobi_preconditioner(A.diagonal()), rtol=1e-12, max_it=20000)
+        u = mpc.finalized.backsubstitution(x)
+    counts = read_counts(KERNELS)
+    A = assemble_matrix_scipy(a, [bc])
+    b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, None, device="cpu"), [a], [[bc]], None, device="cpu"),
+                   [bc]).numpy()
+    K = gather_transformation_matrix(mpc)
+    u_ref = K @ spla.spsolve((K.T @ A @ K).tocsc(), K.T @ b)
+    return float(np.abs(u.cpu().numpy() - u_ref).max()), its, counts
+
+
+def _count_gate(name, its, ref, relative, from_above=False):
+    """Print-ready text of a count gate and fail if the mean is outside the
+    JAX range widened by 10 % (relative) or else by 2 its (from_above: only
+    above it)."""
+    import numpy as np
+
+    mean = float(np.mean(its))
+    if ref is None:
+        fail(f"{name}: no JAX CPU count recorded")
+    lo, hi, ok = _within(mean, ref, 0.1 if relative else 2, relative=relative)
+    if from_above:
+        lo, ok = 0.0, mean <= hi
+    if not ok:
+        fail(f"{name}: mean {mean:.1f} its outside [{lo:.1f}, {hi:.1f}] (JAX CPU {ref})")
+    return f"{its} its at seeds {list(FORMAT_SEEDS)} (mean {mean:.1f}; JAX CPU {ref}, gate [{lo:.1f}, {hi:.1f}])"
+
+
+def _gates(name, s):
+    if not s["eta"] <= BACKWARD_ERROR_GATE or not s["fwd"] <= FORWARD_ERROR_GATE:
+        fail(f"{name}: backward error {s['eta']:.3e} / forward error {s['fwd']:.3e}")
+    return (f"recomputed in f64: |b-Ax|/|b| {s['rel_res']:.3e}, backward error {s['eta']:.3e} (gate "
+            f"{BACKWARD_ERROR_GATE:g}), |x-x64|/|x64| {s['fwd']:.3e} (gate {FORWARD_ERROR_GATE:g})")
+
+
+def _check_text(c):
+    dev = "not measured" if c["device_ms"] is None else f"{c['device_ms']:.4f} ms"
+    return (f"rel L2 {c['err']:.3e} (f32, tol 5e-06) / {c['err64']:.3e} (f64, tol 1e-12), {c['ms']:.4f} ms warm, "
+            f"device {dev}, plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+
+
+def slice11_phases(dev, gen):
+    """Phase 11 with its gates and report lines.  Returns the launches of
+    K2, K6 and K7 by sub-phase and the kernel checks, for the kernels
+    line."""
+    launches = {"K2": {}, "K6": {}, "K7": {}}
+    c, s = side_formats_path(dev)
+    t = s["times"]
+    print(f"11a side formats, P1 n={s['n']} ({s['dofs']} dofs, f32; {s['n_sc']} slave cells of width {s['W']}, "
+          f"{s['nnz']} csr side entries): assembly csr {s['asm_s']['csr']:.2f} s, cells {s['asm_s']['cells']:.2f} s "
+          f"(host tables included); matvec vs fold: csr {s['mv_err']['csr']:.2e}, cells {s['mv_err']['cells']:.2e}, "
+          f"diagonal csr {s['d_err']['csr']:.2e}, cells {s['d_err']['cells']:.2e} (gate {SIDE_GATE:g}); matvec "
+          f"csr {t['csr']['matvec_ms']:.4f} ms = DIA (K2) {t['csr']['dia_ms']:.4f} + side product "
+          f"{t['csr']['side_ms']:.4f} ms, cells {t['cells']['matvec_ms']:.4f} = {t['cells']['dia_ms']:.4f} + "
+          f"{t['cells']['side_ms']:.4f} ms; GMG over cells levels {s['levels']} built in {s['gmg_s']:.2f} s, CG "
+          + _count_gate("11a cells GMG-CG f32", s["its"], JAX_CPU_CELLS_GMG_ITS["float32"], False, from_above=True)
+          + f" in {[round(v, 3) for v in s['solve_s']]} s, rnorm {s['rnorm']:.3e}; " + _gates("11a", s)
+          + "; in f64 " + _count_gate("11a cells GMG-CG f64", s["its64"], JAX_CPU_CELLS_GMG_ITS["float64"], False)
+          + f"; launches {c}", flush=True)
+    if max(max(s["mv_err"].values()), max(s["d_err"].values())) > SIDE_GATE:
+        fail(f"11a: a side format disagrees with the fold operator: {s['mv_err']}, {s['d_err']}")
+    if c["K2"] <= 0:
+        fail(f"11a: K2 did not launch: {c}")
+    launches["K2"]["11a"] = c["K2"]
+
+    c, s = coefficient_path(dev)
+    print(f"11b coefficient form on fold, P1 n={s['n']} ({s['dofs']} dofs, f32) through LinearProblem, cg + "
+          f"Chebyshev: " + _count_gate("11b coefficient cg f32", s["its"], JAX_CPU_COEFFICIENT_ITS["float32"], True,
+                                       from_above=True)
+          + "; in f64 " + _count_gate("11b coefficient cg f64", s["its64"], JAX_CPU_COEFFICIENT_ITS["float64"], False)
+          + f", first solve with assembly {s['first_s']:.2f} s, then {[round(v, 3) for v in s['solve_s']]} s, rnorm "
+          f"{s['rnorm']:.3e}; matvec vs the general assembler's MPCMatrix {s['mv_err']:.2e} (gate {SIDE_GATE:g}); "
+          f"element kernel on {s['cells']} cells {s['kernel_ms']:.2f} ms, the lattice assembly {s['lattice_ms']:.2f} "
+          f"ms, the general assembler {s['general_ms']:.2f} ms; " + _gates("11b", s) + f"; launches {c}", flush=True)
+    if s["mv_err"] > SIDE_GATE:
+        fail(f"11b: the fold operator disagrees with the general assembler: {s['mv_err']:.3e}")
+    if c["K2"] <= 0 or max(c[k] for k in ("K1", "K3", "K4", "K5")) != 0:
+        fail(f"11b: K2 must launch and no assembler kernel: {c}")
+    launches["K2"]["11b"] = c["K2"]
+
+    c, s = square_path(dev, gen)
+    print(f"11c 2-D, demo_periodic_geometrical's problem at n={s['n']} ({s['dofs']} dofs, f64) through "
+          f"LinearProblem (element-kernel lean fold), cg + Chebyshev: "
+          + _count_gate("11c 2-D cg", s["its"], JAX_CPU_SQUARE_ITS, False)
+          + f", first solve with assembly {s['first_s']:.2f} s, then {[round(v, 3) for v in s['solve_s']]} s, "
+          f"rnorm {s['rnorm']:.3e}; launches {c['P1']}", flush=True)
+    for (k, sv), name in zip(s["solves"].items(), (f"P2 n={s['n_p2']}", f"vector P1 n={s['n']}")):
+        print(f"11c 2-D {name} ({sv['dofs']} dofs, f64) through LinearProblem, Jacobi-CG {sv['its']} its to rtol "
+              f"1e-8 in {sv['s']:.2f} s with assembly, rnorm {sv['rnorm']:.3e}; launches "
+              f"{c['P2' if k == 'K6' else 'vector P1']}", flush=True)
+    for k, chk in s["checks"].items():
+        print(f"11c {k} on {s['shapes'][k]}: {_check_text(chk)}", flush=True)
+    for key, need in (("P1", "K2"), ("P2", "K6"), ("vector P1", "K7")):
+        if c[key][need] <= 0 or max(c[key][k] for k in ("K1", "K3", "K4", "K5")) != 0:
+            fail(f"11c 2-D {key}: {need} must launch and no assembler kernel: {c[key]}")
+        launches[need][f"11c 2-D {key}"] = c[key][need]
+    checks = {k: dict(v, shape=s["shapes"][k]) for k, v in s["checks"].items()}
+
+    for n in (N_P2_ELASTICITY, N_P2_ELASTICITY_JAX):
+        c, s = p2_elasticity_path(dev, gen, n, check=n == N_P2_ELASTICITY)
+        line = (f"11d vector P2 elasticity on fold, n={n} ({s['dofs']} dofs, f64, {s['offsets']} offsets on "
+                f"{s['vshape']}): assembly + rhs {s['asm_s']:.2f} s, cg + Chebyshev {s['its']} its at seeds "
+                f"{list(FORMAT_SEEDS)} in {[round(v, 3) for v in s['solve_s']]} s, rnorm {s['rnorm']:.3e}")
+        if n == N_P2_ELASTICITY:
+            line += "; " + _gates("11d", s) + f"; K7 on {s['vshape']} x 3 ({s['data_mb']:.0f} MB): " + _check_text(s["K7"])
+            checks["K7 65 offsets"] = dict(s["K7"], shape=s["vshape"] + (3,))
+        else:
+            line += "; " + _count_gate("11d P2 elasticity cg", s["its"], JAX_CPU_P2_ELASTICITY_ITS, False)
+        print(line + f"; launches {c}, K7 by grid {s['by_grid']}", flush=True)
+        if c["K7"] <= 0 or c["K2"] != 0:
+            fail(f"11d n={n}: K7 must launch and K2 must not: {c}")
+        launches["K7"][f"11d n={n}"] = c["K7"]
+
+    for kind, need in (("csr", "K2"), ("cells", "K2"), ("coefficient fold", "K2"), ("2-D", "K2"),
+                       ("vector P2", "K7")):
+        err, its, c = oracle_lattice_f64(dev, kind)
+        print(f"11e f64 oracle {kind} on the card: Jacobi-CG {its} its, max|u - K(K^T A K)^-1 K^T b| {err:.3e} "
+              f"(tol 1e-8); launches {c}", flush=True)
+        if not err <= 1e-8:
+            fail(f"11e f64 oracle {kind}: error {err:.3e} > 1e-8")
+        if c[need] <= 0 or max(c[k] for k in ("K1", "K3", "K4", "K5")) != 0:
+            fail(f"11e f64 oracle {kind}: {need} must launch and no assembler kernel: {c}")
+        launches[need][f"11e {kind}"] = c[need]
+    return launches, checks
+
+
 def main():
     if not (ROOT / "dolfinx_mpc_tpu_torch" / "__init__.py").is_file():
         fail(f"the dolfinx_mpc_tpu_torch package is not beside {Path(__file__).name}")
@@ -2140,6 +2716,7 @@ def main():
               f"{read_counts(KERNELS)}", flush=True)
 
     counts7, krylov = slice10_phases(dev)
+    launches11, checks11 = slice11_phases(dev, gen)
 
     src = "dolfinx_mpc_tpu_torch/csrc/lattice_kernels.cu"
     pl = "dolfinx_mpc_tpu/ops/pallas_lattice.py"
@@ -2149,7 +2726,8 @@ def main():
              krylov={f"{k}_{d}": c["K1"] for (k, d), c in krylov.items()}),
         dict(name="K2 dia_matvec (P1 main path; error and times at 65^3 f32)", route="cuda", source=src,
              replaces=f"{pl}:766", launches=counts["K2"], **cmp["K2"],
-             krylov={f"{k}_{d}": c["K2"] for (k, d), c in krylov.items()}),
+             krylov={f"{k}_{d}": c["K2"] for (k, d), c in krylov.items()},
+             lattice_formats=dict(launches=launches11["K2"], n2_1=checks11["K2"])),
         dict(name="K3 assemble_fold_lean_masked (launches: f64 oracle P1 n=6 with the non-separable "
                   "set, 15 x 7^3; error and times: P2 n=64 with that set, 230 x 65^3 f32)", route="cuda",
              source=src, replaces=f"{pl}:526", launches=counts3["K3"], **cmp["K3"]),
@@ -2160,10 +2738,13 @@ def main():
                   "its three n=64 tables under 'tables')", route="cuda", source=src,
              replaces=f"{pl}:611", launches=counts5["K5"], **cmp["K5"]),
         dict(name="K6 blocked_matvec (P2 main path; error and times at 8 x 65^3 f32)", route="cuda", source=src,
-             replaces=f"{pl}:916", launches=counts2["K6"], **cmp["K6"]),
+             replaces=f"{pl}:916", launches=counts2["K6"], **cmp["K6"],
+             lattice_formats=dict(launches=launches11["K6"], s2_1=checks11["K6"])),
         dict(name=f"K7 dia_matvec_bs (bs=3 path n=64, launches by grid {k7_by_grid}; error and times at 65^3 x 3 "
                   f"f32)", route="cuda", source=src, replaces=f"{pl}:835", launches=counts4["K7"],
-             launches_by_grid=k7_by_grid, **cmp["K7"]),
+             launches_by_grid=k7_by_grid, **cmp["K7"],
+             lattice_formats=dict(launches=launches11["K7"], bs2_n2_1=checks11["K7"],
+                                  offsets_65=checks11["K7 65 offsets"])),
         dict(name=f"K8 bell_matvec (contact path NB={NB_CONTACT}/NT={NT_CONTACT}; error and times on the packed "
                   f"layout of its operator, {s8['packed_nnz']} nonzeros, f32)", route="cuda",
              source="dolfinx_mpc_tpu_torch/csrc/bell_kernels.cu", replaces="dolfinx_mpc_tpu/la/bell.py:164",

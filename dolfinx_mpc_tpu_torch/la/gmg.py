@@ -12,10 +12,11 @@ level operators' SpMV: kernel K2 on the card for scalar DIA levels, K7 for
 vector (bs > 1) ones, K6 for a blocked fine level.  Vector levels keep the
 components interleaved and transfer each component alike.  With
 ``blocked_io`` the fine level works on the padded class stack of its
-BlockDIAMatrix, converting at the level-0/1 transfer.
-
-Not ported: the legacy inner-CG coarse solve, whose nonlinearity the JAX
-package itself warns against.
+BlockDIAMatrix, converting at the level-0/1 transfer.  Levels may be of
+any side format ("fold", "csr", "cells"): their matvec and diagonal carry
+the side blocks, and so does the Gershgorin bound.  The JAX package's
+constructor options are all accepted, with its defaults, the legacy
+inner-CG coarse solve (coarse="cg") among them.
 """
 
 from __future__ import annotations
@@ -60,8 +61,14 @@ def _abs_dia(dia):
 
 def _abs_rowsum(A: LatticeOperator):
     """Upper bound on |A| . 1 per row (the Gershgorin numerator): the
-    operator's own flat matvec on all-ones with |data| and |diagval|."""
-    B = LatticeOperator(_abs_dia(A.dia), abs(A.diagval), A.fold_axis, A.fold_mask, A.fold_pairs)
+    operator's own flat matvec on all-ones with |data|, |diagval| and the
+    side blocks made entrywise absolute (every matvec path is an additive
+    gather, so the result bounds the row sums of |K^H A K|;
+    dolfinx_mpc_tpu/la/gmg.py:58-79)."""
+    ab = lambda v: None if v is None else torch.abs(v)  # noqa: E731
+    B = LatticeOperator(_abs_dia(A.dia), abs(A.diagval), A.fold_axis, A.fold_mask, A.fold_pairs,
+                        side_data=ab(A.side_data), side_cols=A.side_cols, side_rows=A.side_rows,
+                        side_nrows=A.side_nrows, side_Aep=ab(A.side_Aep), side_er=A.side_er, slaves=A.slaves)
     return B.matvec(torch.ones(A.shape[0], dtype=A.dtype, device=A.device))
 
 
@@ -98,13 +105,23 @@ def dense_coarse_inverse(A):
 
 
 class LatticeGMG:
-    """Symmetric V-cycle over a list of LatticeOperators (fine -> coarse).
+    """Symmetric V-cycle over a list of LatticeOperators (fine -> coarse),
+    with the JAX package's constructor (dolfinx_mpc_tpu/la/gmg.py:146-240).
 
     Smoothing is weighted Jacobi or a degree-(n_sweeps+1) Chebyshev-Jacobi
-    polynomial, with equal pre/post sweeps; transfers satisfy R = P^T.  The
-    JAX package's options that only its callers' caches or probes set
-    (omega, coarse mode, precomputed bounds and coarse inverse) are not
-    carried: damping and coarse mode follow from the operators.
+    polynomial, with equal pre/post sweeps; transfers satisfy R = P^T.
+    omega="auto" damps Jacobi by 1.6 / max(lmax, 2) per level, lmax the
+    Gershgorin bound of D^-1 A (a number applies to every level).  bounds:
+    precomputed per-level bounds (computed when omega, the smoother or the
+    coarse solve needs them and none are given).  coarse: "auto" (a dense
+    inverse up to dense_max dofs, else Chebyshev), "dense" (coarse_inv if
+    given, else the coarsest operator inverted on the host), "chebyshev"
+    (a fixed degree-cheb_degree polynomial on [lmax/64, lmax] of D^-1 A) or
+    "cg": the legacy inner solve, coarse_iters Jacobi-CG iterations.  The
+    other modes keep the cycle a fixed linear symmetric operator, as plain
+    CG requires; "cg" does not — an inner Krylov solve is nonlinear and
+    slightly nonsymmetric, valid only under a flexible outer method, and
+    the JAX package measured it stalling its bs=3 elasticity CG in float32.
 
     blocked_io: the fine level works on the padded class stack (n_cls, s0,
     s1, s2) of its BlockDIAMatrix — __call__ takes and returns that layout,
@@ -113,10 +130,13 @@ class LatticeGMG:
     fine level, the cycle takes flat vectors and every fine matvec converts
     (CG on ``A.matvec``, as tests/test_gmg.py compares with blocked I/O)."""
 
-    def __init__(self, ops, n_pre=2, n_post=2, free_masks=None, smoother="jacobi",
-                 dense_max=8192, blocked_io=False):
+    def __init__(self, ops, n_pre=2, n_post=2, omega="auto", coarse_iters=30, free_masks=None, coarse="auto",
+                 coarse_inv=None, dense_max=8192, cheb_degree=40, bounds=None, blocked_io=False,
+                 smoother="jacobi"):
         if smoother not in ("jacobi", "chebyshev"):
             raise ValueError(f"unknown smoother {smoother!r}")
+        if coarse not in ("auto", "dense", "chebyshev", "cg"):
+            raise ValueError(f"unknown coarse mode {coarse!r}")
         if blocked_io and not ops[0].supports_blocked():
             raise ValueError("blocked_io: the fine operator has no blocked layout")
         if blocked_io and len(ops) < 2:
@@ -127,6 +147,7 @@ class LatticeGMG:
                     raise ValueError(f"levels do not nest: {Af.dia.vshape} -> {Ac.dia.vshape}")
         self.ops = ops
         self.n_pre, self.n_post = n_pre, n_post
+        self.coarse_iters = coarse_iters
         self.smoother = smoother
         self.blocked_io = blocked_io
         # free_masks[l]: 1 on unconstrained dofs, 0 on bc/slave rows —
@@ -144,18 +165,22 @@ class LatticeGMG:
         # (from the flat matvec and inverse diagonal on every level):
         # weighted-Jacobi damping keeps omega * lmax < 2 (Poisson lmax = 2 ->
         # the classic 0.8), the Chebyshev polynomials work on [lmax/4, lmax]
-        self._bounds = _gershgorin_bounds(ops, flat_inv)
-        self.omegas = tuple(1.6 / max(l, 2.0) for l in self._bounds)
-        self._cheb_sm = tuple(_cheb_interval(b, 4.0) for b in self._bounds)
-        # coarse solve: a dense inverse up to dense_max dofs, else a
-        # fixed-degree-40 Chebyshev polynomial on [lmax/64, lmax] of D^-1 A
-        # (linear and symmetric, unlike an inner Krylov solve)
-        if ops[-1].shape[0] <= dense_max:
-            self.coarse_mode = "dense"
-            self.coarse_inv = dense_coarse_inverse(ops[-1])
-        else:
-            self.coarse_mode = "chebyshev"
-            self._cheb = _cheb_interval(self._bounds[-1], 64.0) + (40,)
+        if bounds is None and (omega == "auto" or coarse in ("auto", "chebyshev") or smoother == "chebyshev"):
+            bounds = _gershgorin_bounds(ops, flat_inv)
+        self._bounds = bounds
+        self.omegas = (tuple(1.6 / max(b, 2.0) for b in bounds) if omega == "auto"
+                       else (float(omega),) * len(ops))
+        self._cheb_sm = tuple(_cheb_interval(b, 4.0) for b in bounds) if smoother == "chebyshev" else None
+        if coarse == "auto":
+            coarse = "dense" if ops[-1].shape[0] <= dense_max else "chebyshev"
+        self.coarse_mode = coarse
+        self.coarse_inv = None
+        self._cheb = None
+        if coarse == "dense":
+            self.coarse_inv = (dense_coarse_inverse(ops[-1]) if coarse_inv is None
+                               else torch.as_tensor(coarse_inv, dtype=ops[-1].dtype, device=ops[-1].device))
+        elif coarse == "chebyshev":
+            self._cheb = _cheb_interval(bounds[-1], 64.0) + (int(cheb_degree),)
 
     def _to_grid(self, A, x):
         n0, n1, n2 = A.dia.vshape
@@ -218,6 +243,8 @@ class LatticeGMG:
             return self.coarse_inv @ b
         A = self.ops[-1]
         inv = self._inv_diag[-1]
+        if self.coarse_mode == "cg":
+            return self._coarse_cg(A, inv, b)
         theta, delta, degree = self._cheb
 
         def DA(x):
@@ -235,6 +262,26 @@ class LatticeGMG:
             x = x + d
             res = res - DA(d)
             rho = rho_new
+        return x
+
+    def _coarse_cg(self, A, inv, b):
+        """coarse_iters Jacobi-CG iterations from zero
+        (dolfinx_mpc_tpu/la/gmg.py:348-368): nonlinear in b."""
+        x = torch.zeros_like(b)
+        r = b
+        z = inv * r
+        p = z
+        rz = torch.vdot(r, z)
+        for _ in range(self.coarse_iters):
+            Ap = A.matvec(p)
+            pAp = torch.vdot(p, Ap)
+            alpha = rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = inv * r
+            rzn = torch.vdot(r, z)
+            p = z + (rzn / torch.where(rz == 0, torch.ones_like(rz), rz)) * p
+            rz = rzn
         return x
 
     def _mask(self, lvl, v):

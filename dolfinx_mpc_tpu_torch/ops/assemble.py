@@ -11,9 +11,10 @@ run to a few ulps (relative ~1e-6 in float32, ~1e-14 in float64), which is
 the tolerance the tests and ``chip_smoke.py`` allow.
 
 The host tables (``_build_cell_transforms``, the slave-cell split and the
-slot pattern) are the JAX package's numpy code.  The lattice meshes of the
-periodic paths assemble through the fold fast path (ops/lattice.py); every
-other mesh and constraint through ``assemble_matrix`` here.
+slot pattern) are the JAX package's numpy code.  Lattice meshes assemble
+through the lattice fast path (ops/lattice.py), whose "csr" and "cells"
+side formats reuse these per-cell tables; every other mesh through
+``assemble_matrix`` here.
 """
 
 from __future__ import annotations

@@ -1,31 +1,43 @@
 """Lattice fast path (torch): scatter-free assembly and stencil SpMV for
-structured box meshes, lean "fold" format.
+structured box meshes.
 
-Counterpart of ``dolfinx_mpc_tpu/ops/lattice.py`` for the fold path.  On a
-structured box mesh the sparsity is a stencil: the (cell, a, b) -> entry map
-collapses to a fixed set of lattice diagonal offsets, so the matrix is a DIA
-array and SpMV is a sum of shifted products.  Degree 2 keeps the same idea
-on the parity-blocked layout (``BlockDIAMatrix``): the refined grid splits
-into 8 parity classes, and each (row class, column class, coarse offset)
-triple holds one value per coarse box.  A periodic constraint that
-identifies the last lattice plane of one axis with the first ("fold") is
-applied inside the operator: u = K x copies the master plane onto the slave
-plane, y = A u, the slave-plane rows fold back onto the masters (K^T), and
-slave rows get diagval — K^T A K without any irregular operation.
+Counterpart of ``dolfinx_mpc_tpu/ops/lattice.py``.  On a structured box
+mesh the sparsity is a stencil: the (cell, a, b) -> entry map collapses to a
+fixed set of lattice diagonal offsets, so the matrix is a DIA array and SpMV
+is a sum of shifted products.  Degree 2 keeps the same idea on the
+parity-blocked layout (``BlockDIAMatrix``): the refined grid splits into
+parity classes (8 in 3-D, 4 in 2-D), and each (row class, column class,
+coarse offset) triple holds one value per coarse box.  The constraint
+enters in one of three side formats:
 
-The lean fold branch assembles from a per-plane table reduced on the host
-(ops/lattice_kernels.py: build_fold_table) through kernel K1 (degree 1, any
-bs <= 3) or K4 (degree 2) when the Dirichlet set is separable, through K3
-when it is not, and through K5 when the form has no Dirichlet dof; every
+- "fold": a periodic constraint that identifies the last lattice plane of
+  one axis with the first is applied inside the operator: u = K x copies
+  the master plane onto the slave plane, y = A u, the slave-plane rows fold
+  back onto the masters (K^T), and slave rows get diagval — K^T A K without
+  any irregular operation;
+- "csr" (the default): the slave cells leave the stencil and their
+  eliminated K^H A_e K blocks, with the slave diagonal, are assembled over
+  static slots into a small CSR side matrix;
+- "cells": the same blocks kept per slave cell, applied as a gather, a
+  batched product and an index_add_.
+
+The lean fold forms of 3-D tetrahedra with a constant feature matrix (scalar
+at degree 1 or 2, bs <= 3 at degree 1) assemble from a per-plane table
+reduced on the host (ops/lattice_kernels.py: build_fold_table) through
+kernel K1 or K4 when the Dirichlet set is separable, K3 when it is not and
+K5 when the form has none.  Every other form — 2-D meshes, x-dependent or
+coefficient integrands, non-uniform geometry, vector spaces at degree 2,
+and the "csr" and "cells" formats — runs the element kernel of ops/kernels.py
+and packs its tensors into the DIA data with strided slice adds.  Every
 scalar DIA matvec on the card runs kernel K2, every vector (bs > 1) one K7
-and every blocked one K6.  Not ported yet, each raising NotImplementedError
-with its ROADMAP item: the "csr"/"cells" side formats, x-dependent or
-coefficient forms and vector spaces at degree 2 (the element-kernel lean
-path) and non-uniform geometry (slice 4).
+and every blocked one K6; the side products are plain torch, as the JAX
+package's segment_sum is XLA.  Complex dtypes raise NotImplementedError
+(ROADMAP queue 1, item 18b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Optional
 
@@ -36,8 +48,11 @@ from .._device import DEFAULT_DEVICE, resolve_device
 from .._dtypes import torch_dtype
 from ..fem.forms import Form
 from ..fem.lattice_info import LatticeInfo, get_lattice_info
+from ..fem.quadrature import quadrature_rule
+from ..la.sparse import build_slot_pattern
 from ..multipointconstraint import MultiPointConstraint
-from .assemble import _bc_masks, _mpc_pair, _real_dtype
+from .assemble import _bc_masks, _build_cell_transforms, _coeff_vectors, _mpc_pair, _real_dtype
+from .kernels import compile_term
 from .lattice_kernels import (
     BlockedMatvecLaunch,
     DiaBsMatvecLaunch,
@@ -55,7 +70,7 @@ from .lattice_kernels import (
 )
 
 __all__ = ["DIAMatrix", "BlockDIAMatrix", "LatticeOperator", "CompiledLatticeForm",
-           "assemble_matrix_lattice"]
+           "assemble_matrix_lattice", "soa_kernel_supported"]
 
 
 # ---------------------------------------------------------------------------
@@ -234,23 +249,44 @@ class BlockDIAMatrix:
 
 
 class LatticeOperator:
-    """DIA (or parity-blocked) stencil with the periodic fold: K^T A K with
-    the slave plane's rows and columns replaced by diagval on the diagonal.
+    """DIA (or parity-blocked) stencil plus the constraint's corrections, in
+    one of three forms:
 
-    fold_axis: lattice axis whose last plane holds the slaves; fold_mask:
-    bool (plane shape + (bs,)) marking the slaves of that plane; fold_pairs:
-    host (slaves, masters) arrays, needed only by to_scipy(); fold_mask_b:
-    on a BlockDIAMatrix, the blocked fold mask (n_cls, sA, sB) over the
-    class grids of the two other axes, which the blocked-native
-    matvec_blocked needs."""
+    - the periodic fold (fold_axis set): K^T A K with the slave plane's rows
+      and columns replaced by diagval on the diagonal.  fold_mask: bool
+      (plane shape + (bs,)) marking the slaves of that plane; fold_pairs:
+      host (slaves, masters) arrays, needed only by to_scipy(); fold_mask_b:
+      on a BlockDIAMatrix, the blocked fold mask (n_cls, sA, sB) over the
+      class grids of the two other axes, which the blocked-native
+      matvec_blocked needs;
+    - the "csr" side: the slave cells' eliminated K^H A_e K blocks and the
+      slave diagonal assembled over static slots (side_data at side_rows,
+      side_cols), a gather, a product and an index_add_ per matvec (the JAX
+      package's segment_sum);
+    - the "cells" side: the same blocks unassembled, side_Aep (n_sc, W, W)
+      over the dof table side_er (n_sc, W), -1 replaced by the trash index
+      N, plus diagval on `slaves`: a gather, a batched product and an
+      index_add_ per matvec.
 
-    def __init__(self, dia, diagval, fold_axis, fold_mask, fold_pairs=None, fold_mask_b=None):
+    The DIA part of either side format holds every non-slave cell and the
+    Dirichlet diagonal (dolfinx_mpc_tpu/ops/lattice.py:407-613)."""
+
+    def __init__(self, dia, diagval=1.0, fold_axis=None, fold_mask=None, fold_pairs=None, fold_mask_b=None, *,
+                 side_data=None, side_cols=None, side_rows=None, side_nrows=None, side_Aep=None, side_er=None,
+                 slaves=None):
         self.dia = dia
         self.diagval = float(diagval)
-        self.fold_axis = int(fold_axis)
+        self.fold_axis = None if fold_axis is None else int(fold_axis)
         self.fold_mask = fold_mask
         self.fold_pairs = fold_pairs
         self.fold_mask_b = fold_mask_b
+        self.side_data = side_data
+        self.side_cols = side_cols
+        self.side_rows = side_rows
+        self.side_nrows = side_nrows
+        self.side_Aep = side_Aep
+        self.side_er = side_er
+        self.slaves = slaves
 
     @property
     def shape(self):
@@ -264,41 +300,87 @@ class LatticeOperator:
     def device(self):
         return self.dia.data.device
 
+    def _unassembled(self):
+        return self.side_Aep is not None
+
+    def _has_csr_side(self):
+        return self.side_data is not None and self.side_data.shape[0] > 0
+
     def _plane_view(self, x):
         """View of the flat vector x as (n_ax, ..., bs) with the fold axis
         first; writes through it land in x."""
         n0, n1, n2 = self.dia.vshape
         return torch.movedim(x.view(n0, n1, n2, self.dia.bs), self.fold_axis, 0)
 
+    def _cells_product(self, x):
+        """sum over the slave cells of Aep_c x[er_c], scattered to er_c
+        (length N + 1: the trash row N collects the padded entries)."""
+        n = self.shape[0]
+        xe = torch.cat([x, x.new_zeros(1)])[self.side_er]  # (n_sc, W)
+        ye = torch.bmm(self.side_Aep, xe.unsqueeze(-1)).squeeze(-1)
+        yp = x.new_zeros(n + 1)
+        return yp.index_add_(0, self.side_er.reshape(-1), ye.reshape(-1))[:n]
+
     def matvec(self, x):
-        m = self.fold_mask
-        u = x.clone()
-        ug = self._plane_view(u)
-        ug[-1] = torch.where(m, ug[0], ug[-1])
-        y = self.dia.matvec(u)
-        yg = self._plane_view(y)
-        yg[0] += torch.where(m, yg[-1], 0)
-        yg[-1] = torch.where(m, self.diagval * self._plane_view(x)[-1], yg[-1])
+        if self.fold_axis is not None:
+            m = self.fold_mask
+            u = x.clone()
+            ug = self._plane_view(u)
+            ug[-1] = torch.where(m, ug[0], ug[-1])
+            y = self.dia.matvec(u)
+            yg = self._plane_view(y)
+            yg[0] += torch.where(m, yg[-1], 0)
+            yg[-1] = torch.where(m, self.diagval * self._plane_view(x)[-1], yg[-1])
+            return y
+        return self._add_side(x, self.dia.matvec(x))
+
+    def _add_side(self, x, y):
+        """y += the side blocks' product with x ("csr" or "cells"); y."""
+        if self._unassembled():
+            if self.side_Aep.shape[0]:
+                y += self._cells_product(x)
+            if self.slaves is not None and self.slaves.shape[0]:
+                y.index_add_(0, self.slaves, self.diagval * x[self.slaves])
+        elif self._has_csr_side():
+            y.index_add_(0, self.side_rows, self.side_data * x[self.side_cols])
         return y
 
     def diagonal(self):
-        m = self.fold_mask
         d = self.dia.diagonal()
-        dg = self._plane_view(d)
-        dg[0] += torch.where(m, dg[-1], 0)
-        dg[-1] = torch.where(m, self.diagval, dg[-1])
+        if self.fold_axis is not None:
+            m = self.fold_mask
+            dg = self._plane_view(d)
+            dg[0] += torch.where(m, dg[-1], 0)
+            dg[-1] = torch.where(m, self.diagval, dg[-1])
+            return d
+        if self._unassembled():
+            if self.side_Aep.shape[0]:
+                de = torch.diagonal(self.side_Aep, dim1=1, dim2=2)  # (n_sc, W)
+                dp = d.new_zeros(self.shape[0] + 1)
+                d = d + dp.index_add_(0, self.side_er.reshape(-1), de.reshape(-1))[: self.shape[0]]
+            if self.slaves is not None and self.slaves.shape[0]:
+                d.index_add_(0, self.slaves, torch.full(self.slaves.shape, self.diagval, dtype=d.dtype,
+                                                        device=d.device))
+            return d
+        if self._has_csr_side():
+            on_diag = torch.where(self.side_rows == self.side_cols, self.side_data, 0)
+            d.index_add_(0, self.side_rows, on_diag)
         return d
 
     def supports_blocked(self):
         """True when the blocked-native solve layout applies: a blocked
-        operator whose fold carries its blocked mask."""
-        return isinstance(self.dia, BlockDIAMatrix) and self.fold_mask_b is not None
+        operator without side blocks, whose fold (if any) carries its
+        blocked mask."""
+        return (isinstance(self.dia, BlockDIAMatrix) and not self._unassembled() and not self._has_csr_side()
+                and (self.fold_axis is None or self.fold_mask_b is not None))
 
     def matvec_blocked(self, xb):
         """K^T A K matvec on the padded blocked class stack (n_cls, s0, s1,
         s2).  The fold runs per class on the class grids: only classes of
         parity 0 along the fold axis carry the end planes (the refined dims
         are odd), so fold_mask_b is False everywhere else."""
+        if self.fold_axis is None:
+            return self.dia.matvec_blocked(xb)
         ax = self.fold_axis
         mb = self.fold_mask_b
         xg = torch.movedim(xb, 1 + ax, 1)  # (n_cls, s_ax, sA, sB)
@@ -312,9 +394,11 @@ class LatticeOperator:
 
     def diagonal_blocked(self):
         """diagonal() in the blocked class-stack layout."""
+        d = self.dia.diagonal_blocked()
+        if self.fold_axis is None:
+            return d
         ax = self.fold_axis
         mb = self.fold_mask_b
-        d = self.dia.diagonal_blocked()
         dg = torch.movedim(d, 1 + ax, 1)
         dg[:, 0] += torch.where(mb, dg[:, -1], 0)
         dg[:, -1] = torch.where(mb, self.diagval, dg[:, -1])
@@ -323,23 +407,48 @@ class LatticeOperator:
     def to_scipy(self):
         import scipy.sparse as sp
 
-        if self.fold_pairs is None:
-            raise ValueError("to_scipy needs the host-side fold pairs")
         N = self.shape[0]
-        slaves, masters = self.fold_pairs
+        if self.fold_axis is not None:
+            if self.fold_pairs is None:
+                raise ValueError("to_scipy needs the host-side fold pairs")
+            slaves, masters = self.fold_pairs
+            A = self.dia.to_scipy()
+            K = sp.lil_matrix((N, N))
+            K.setdiag(1.0)
+            for s, mm in zip(slaves, masters):
+                K[s, s] = 0.0
+                K[s, mm] = 1.0
+            K = K.tocsr()
+            A2 = (K.T @ A @ K).tolil()
+            A2[slaves, :] = 0.0
+            A2[:, slaves] = 0.0
+            for s in slaves:
+                A2[s, s] = self.diagval
+            return A2.tocsr()
         A = self.dia.to_scipy()
-        K = sp.lil_matrix((N, N))
-        K.setdiag(1.0)
-        for s, mm in zip(slaves, masters):
-            K[s, s] = 0.0
-            K[s, mm] = 1.0
-        K = K.tocsr()
-        A2 = (K.T @ A @ K).tolil()
-        A2[slaves, :] = 0.0
-        A2[:, slaves] = 0.0
-        for s in slaves:
-            A2[s, s] = self.diagval
-        return A2.tocsr()
+        rows, cols, vals = [], [], []
+        if self._unassembled():
+            er = self.side_er.cpu().numpy()
+            Aep = self.side_Aep.detach().cpu().numpy()
+            for c in range(er.shape[0]):
+                ok = er[c] < N
+                ii = er[c][ok]
+                vals.append(Aep[c][np.ix_(ok, ok)].ravel())
+                rows.append(np.repeat(ii, len(ii)))
+                cols.append(np.tile(ii, len(ii)))
+            if self.slaves is not None and self.slaves.shape[0]:
+                sl = self.slaves.cpu().numpy()
+                rows.append(sl)
+                cols.append(sl)
+                vals.append(np.full(len(sl), self.diagval))
+        elif self._has_csr_side():
+            rows.append(self.side_rows.cpu().numpy())
+            cols.append(self.side_cols.cpu().numpy())
+            vals.append(self.side_data.detach().cpu().numpy())
+        if not rows:
+            return A.tocsr()
+        side = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(N, N))
+        return (A.tocsr() + side).tocsr()
 
 
 # ---------------------------------------------------------------------------
@@ -452,27 +561,85 @@ def _uniform_lattice_geometry(mesh, lat: LatticeInfo):
 # ---------------------------------------------------------------------------
 
 
+def soa_kernel_supported(mesh, V_test, V_trial, term) -> bool:
+    """Where the JAX package builds its cells-last SoA element kernel: the
+    support test of compile_cell_kernel_soa (dolfinx_mpc_tpu/ops/
+    soa_kernels.py:59-88) — a cell integral of a square form on one uniform
+    space with gdim == tdim, and at most 10,000 unrolled terms
+    nq * nd^2 * bs^2 * (1 + gdim)^2 at its quadrature degree (the term's,
+    else 2 * degree).  The JAX package takes its "cells" side format and its
+    fold paths only where this holds, and so does LinearProblem's lattice
+    dispatch here.  The port computes the same element tensors with its
+    cell-first kernel (ops/kernels.py) at that quadrature degree."""
+    if term.integral != "cell" or V_trial is None or V_trial is not V_test:
+        return False
+    if getattr(V_test, "is_mixed", False) or mesh.gdim != mesh.ref_cell.tdim:
+        return False
+    el, bs, g = V_test.element, V_test.block_size, mesh.gdim
+    nq = len(quadrature_rule(mesh.ref_cell, _soa_quad_degree(term, el.degree))[1])
+    return nq * el.ndofs ** 2 * bs ** 2 * (1 + g) ** 2 <= 10_000
+
+
+def _soa_quad_degree(term, degree):
+    return term.quad_degree if term.quad_degree is not None else 2 * degree
+
+
+# values of the element kernel's vmapped intermediates per chunk of cells,
+# counted as nq nd^2 (1 + gdim) bs per cell: bounds the working set of the
+# element-kernel paths (vector P2 elasticity at n=32 has 196,608 cells of
+# 30 x 30 tensors)
+ELEMENT_CHUNK_VALUES = 2 ** 27
+
+
 def assemble_matrix_lattice(
     form: Form,
     constraint: Optional[MultiPointConstraint] = None,
     bcs=None,
     diagval=1.0,
     dtype=np.float64,
-    side_format="fold",
+    side_format="csr",
     device=DEFAULT_DEVICE,
 ):
-    """Compile a bilinear form on a lattice mesh into the lean fold operator
-    on `device`; call `.assemble()` for the LatticeOperator.  Raises
-    ValueError when the constraint is not an axis-plane wrap, and
-    NotImplementedError for the formats and forms not ported yet."""
+    """Compile a bilinear form on a lattice mesh into DIA + side block on
+    `device`; call `.assemble()` for the LatticeOperator.
+
+    side_format "csr" assembles the constraint's side into static-slot CSR;
+    "cells" keeps it as per-slave-cell eliminated blocks (the same operator;
+    only where soa_kernel_supported holds, as in the JAX package); "fold"
+    collapses a periodic plane-wrap constraint into the stencil and raises
+    ValueError for any other constraint.  Complex dtypes raise
+    NotImplementedError (ROADMAP queue 1, item 18b)."""
     return CompiledLatticeForm(form, constraint, bcs or [], diagval, dtype, side_format, device)
 
 
 class CompiledLatticeForm:
-    def __init__(self, form, constraint, bcs, diagval, dtype, side_format="fold", device=DEFAULT_DEVICE):
-        if side_format != "fold":
-            raise NotImplementedError(
-                f"side_format={side_format!r} is not ported yet (ROADMAP queue 1, item 14)")
+    """The host tables of one lattice form and the route its assembly takes
+    (dolfinx_mpc_tpu/ops/lattice.py:745-1001):
+
+    - "kernel": fold, uniform geometry, a constant feature matrix in 3-D at
+      degree 1 (bs <= 3) or scalar degree 2 — the CUDA assemblers K1, K3,
+      K4 and K5 (_assemble_fold_lean_kernel);
+    - "lean": every other fold form on uniform geometry without
+      coefficients (2-D meshes, x-dependent integrands, vector spaces at
+      degree 2) — the element kernel on coordinates synthesized on the
+      device, packed without any scatter, the Dirichlet rows and columns
+      zeroed on the grid (_assemble_fold_lean, and at scalar degree 2 the
+      parity-blocked _assemble_fold_lean_blocked);
+    - "cells": coefficient forms, non-uniform geometry and the "csr" and
+      "cells" side formats — the element kernel on the real cell
+      coordinates, element-level Dirichlet masks, and for the side formats
+      the slave cells out of the stencil and their K^H A_e K into the side
+      (_assemble_impl).
+
+    The element kernel is ops/kernels.py's cell-first vmapped one (the JAX
+    package's cells-last SoA kernel answered the TPU's tiling), at the SoA
+    kernel's quadrature degree wherever the JAX package would use that
+    kernel, and at compile_term's default in the generic csr path where it
+    would not."""
+
+    def __init__(self, form, constraint, bcs, diagval, dtype, side_format="csr", device=DEFAULT_DEVICE):
+        if side_format not in ("csr", "cells", "fold"):
+            raise ValueError(f"unknown side_format {side_format!r}")
         mpc_r, mpc_c = _mpc_pair(constraint)
         if mpc_r is not mpc_c:
             raise ValueError("lattice path supports square forms with one MPC")
@@ -497,8 +664,9 @@ class CompiledLatticeForm:
             raise ValueError("degree-2 lattice path needs a grid-numbered space (pristine box mesh)")
         self.dtype = np.dtype(dtype)
         if self.dtype.kind == "c":
-            raise NotImplementedError("complex lattice assembly is ROADMAP queue 1, item 18")
+            raise NotImplementedError("complex lattice assembly is ROADMAP queue 1, item 18b")
         self.device = resolve_device(device)
+        self.side_format = side_format
         self.V, self.mesh, self.lat = V, mesh, lat
         self.bcs = bcs
         self.diagval = diagval
@@ -510,6 +678,9 @@ class CompiledLatticeForm:
         bs = V.block_size
         self.bs = bs
         self.term = form.terms[0]
+        self.soa = soa_kernel_supported(mesh, V, V, self.term)
+        if side_format == "cells" and not self.soa:
+            raise ValueError("side_format='cells' needs a form the SoA kernel takes (soa_kernel_supported)")
 
         # node deltas (refined-grid units) and diagonal offsets
         deltas = _dof_delta_table(mesh, V.element, lat)  # (T, ns, 3)
@@ -530,43 +701,108 @@ class CompiledLatticeForm:
         bc_dofs = np.unique(np.concatenate([bc.dofs for bc in bcs])) if bcs else np.zeros(0, np.int64)
         self._bc_dofs_grid = bc_dofs
         self.mpc = mpc_r
+        self._fold_axis = self._fold_mask = self._fold_pairs = self._fold_mask_blocked = None
+        self._blocked = False
+        rdt = torch_dtype(_real_dtype(self.dtype))
 
-        # lean fold: periodic identification collapses into the stencil and
-        # the geometry is a pristine uniform grid, so assembly needs no
-        # per-cell arrays at all
-        self._fold_axis, fold_mask, self._fold_pairs = _detect_lattice_wrap(mpc_r, self.vshape, bs)
-        self._fold_mask = torch.as_tensor(fold_mask, device=self.device)
-        geo = None if self.term.coefficients else _uniform_lattice_geometry(mesh, lat)
-        if geo is None or not fold_kernel_supported(self):
-            raise NotImplementedError(
-                "fold forms with coefficients, x-dependent integrands, non-uniform geometry or "
-                "a vector space at degree 2 need the element-kernel lean path "
-                "(ROADMAP queue 1, item 14)")
-        self._origin, self._spacing = geo
-        n0, n1, n2 = self.vshape
-        keep = (1.0 - bc_mask_np).reshape(n0, n1, n2, bs)
-        self._keep_grid = np.moveaxis(keep, -1, 0).astype(_real_dtype(self.dtype))
-        # bc-dof multiplicity grid: the diagval weight of the masked assembler,
-        # and what the factored ones check against pad - keep
-        indg = np.zeros(V.num_dofs, np.float64)
-        np.add.at(indg, bc_dofs, 1.0)
-        self._bc_ind_grid = np.moveaxis(indg.reshape(n0, n1, n2, bs), -1, 0).copy()
-        # degree 2 takes the parity-blocked layout (bs == 1 here)
-        self._blocked = r > 1
-        self._fold_mask_blocked = None
+        if side_format == "fold":
+            self._fold_axis, fold_mask, self._fold_pairs = _detect_lattice_wrap(mpc_r, self.vshape, bs)
+            self._fold_mask = torch.as_tensor(fold_mask, device=self.device)
+            geo = None if self.term.coefficients else _uniform_lattice_geometry(mesh, lat)
+            if geo is not None:
+                # lean fold: the geometry is a pristine uniform grid, so
+                # assembly needs no per-cell host arrays at all
+                self._origin, self._spacing = geo
+                n0, n1, n2 = self.vshape
+                keep = (1.0 - bc_mask_np).reshape(n0, n1, n2, bs)
+                self._keep_grid = np.moveaxis(keep, -1, 0).astype(_real_dtype(self.dtype))
+                # bc-dof multiplicity grid: the diagval weight of the masked
+                # assembler, and what the factored ones check against pad - keep
+                indg = np.zeros(V.num_dofs, np.float64)
+                np.add.at(indg, bc_dofs, 1.0)
+                self._bc_ind_grid = np.moveaxis(indg.reshape(n0, n1, n2, bs), -1, 0).copy()
+                # degree 2 at bs = 1 takes the parity-blocked layout
+                self._blocked = r > 1 and bs == 1
+                if self._blocked:
+                    self._build_blocked_structure(keep.reshape(n0, n1, n2).astype(_real_dtype(self.dtype)),
+                                                  fold_mask)
+                if fold_kernel_supported(self):
+                    self._route = "kernel"
+                    self._build_kernel_table(bc_dofs)
+                else:
+                    self._route = "lean"
+                    self._compile_element_kernel(True)
+                return
+        self._route = "cells"
+        self._compile_element_kernel(self.soa or side_format == "fold")
+        # cells t-major (t, i, j, k), the JAX package's SoA order: each grid
+        # slice of the element tensors is then one box-grid block
+        nzc = 1 if is2d else nz_
+        perm = np.arange(mesh.num_cells).reshape(nx, ny, nzc, T).transpose(3, 0, 1, 2).reshape(-1)
+        inv_perm = np.empty_like(perm)
+        inv_perm[perm] = np.arange(len(perm))
+        as_t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.device)  # noqa: E731
+        self._coords = as_t(mesh.points[mesh.cells[perm]], rdt)  # (c, nv, gdim)
+        self._keep_cells = as_t(1.0 - bc_mask_np[V.dofmap[perm]], rdt)  # (c, nd)
+        self._wdofmaps = {n: as_t(f.function_space.dofmap[perm]) for n, f in self.term.coefficients.items()}
+        if side_format == "fold":
+            return
+
+        # the constraint's side over the slave cells (JAX :912-946)
+        tr = _build_cell_transforms(V, mpc_r, self.dtype)
+        sc = np.flatnonzero(tr.slave_cell_mask)
+        self._slave_cells = as_t(tr.slave_cell_mask[perm], rdt)  # (c,) 1.0 on slave cells
+        self._sc = as_t(inv_perm[sc])  # t-major positions of the slave cells, mesh order
+        N = V.num_dofs
+        slaves_row = (np.asarray(mpc_r.slaves, np.int64) if (mpc_r is not None and mpc_r.num_local_slaves)
+                      else np.zeros(0, np.int64))
+        self._Tr = as_t(tr.T, rdt) if len(sc) else torch.zeros((0, V.ndofs_cell, 1), dtype=rdt, device=self.device)
+        if side_format == "cells":
+            er = tr.ext_dofs if len(sc) else np.zeros((0, 1), np.int64)
+            self._er = as_t(np.where(er >= 0, er, N))
+            self._slaves = as_t(slaves_row)
+            return
+        batches, masks = [], []
+        if len(sc):
+            er = tr.ext_dofs  # (n_sc, W)
+            rr = np.broadcast_to(er[:, :, None], (len(sc), er.shape[1], er.shape[1]))
+            cc = np.broadcast_to(er[:, None, :], rr.shape)
+            batches.append((rr, cc))
+            masks.append((rr >= 0) & (cc >= 0))
+        else:
+            batches.append((np.zeros((0, 1, 1), np.int64), np.zeros((0, 1, 1), np.int64)))
+            masks.append(None)
+        batches.append((slaves_row, slaves_row))
+        masks.append(None)
+        self.pattern = build_slot_pattern((N, N), batches, masks)
+        self._slots = as_t(np.concatenate(self.pattern.slots))
+        self._side_cols = as_t(self.pattern.indices)
+        self._side_rows = as_t(self.pattern.row_ids)
+        self.n_slaves_diag = slaves_row.shape[0]
+
+    def _build_kernel_table(self, bc_dofs):
+        """The host table of the CUDA assemblers (ops/lattice_kernels.py:
+        build_fold_table): K5's raw table without Dirichlet dofs, else the
+        separable masks of K1 / K4 or K3's stacks."""
         if self._blocked:
-            self._build_blocked_structure(keep.reshape(n0, n1, n2).astype(_real_dtype(self.dtype)),
-                                          fold_mask)
             keep_s, ind_s, pads = self._keep_blocked, self._bc_ind_blocked, self._blocked_pads()
         else:
             keep_s, ind_s, pads = self._keep_grid, self._bc_ind_grid, None
         if len(bc_dofs) == 0:
-            # no Dirichlet dof: every mask is the identity, K5's raw table
             self.table = build_fold_table(self)
         else:
-            # separable masks go to K1 / K4, any other Dirichlet set to K3
             factors = _detect_factored_masks(keep_s, ind_s, pads)
             self.table = build_fold_table(self, factors, keep_s, ind_s)
+
+    def _compile_element_kernel(self, soa_degree):
+        """The cell-first element kernel of the form, at the SoA kernel's
+        quadrature degree (soa_degree) or at compile_term's default."""
+        term = self.term
+        if soa_degree:
+            term = dataclasses.replace(term, quad_degree=_soa_quad_degree(term, self.refine))
+        self._kernel = compile_term(term, self.V, self.V).kernel
+        qdeg = term.quad_degree if term.quad_degree is not None else 3 * self.refine
+        self._nq = len(quadrature_rule(self.mesh.ref_cell, qdeg)[1])
 
     # ------------------------------------------------------------------
     # parity-blocked (degree-2) structure: see BlockDIAMatrix
@@ -730,5 +966,143 @@ class CompiledLatticeForm:
         return LatticeOperator(dia, diagval, self._fold_axis, self._fold_mask, self._fold_pairs,
                                fold_mask_b=self._fold_mask_blocked)
 
+    # ------------------------------------------------------------------
+    # the element-kernel paths
+    # ------------------------------------------------------------------
+    def _element_tensors(self, coords, wlocals):
+        """(c, nd, nd) element tensors of the cells `coords` (c, nv, gdim)
+        with their local coefficient values, ELEMENT_CHUNK_VALUES of the
+        kernel's intermediates at a time."""
+        n = coords.shape[0]
+        nd = self.V.ndofs_cell
+        chunk = max(1, ELEMENT_CHUNK_VALUES // (self._nq * nd * nd * (1 + self.mesh.gdim) * self.bs))
+        out = torch.empty((n, nd, nd), dtype=coords.dtype, device=coords.device)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            out[lo:hi] = self._kernel(coords[lo:hi], None, {k: v[lo:hi] for k, v in wlocals.items()})
+        return out
+
+    def _synth_coords(self, jitter):
+        """Cell-corner coordinates (c, nv, gdim) of the pristine uniform
+        lattice, cells t-major, made on the device from aranges
+        (dolfinx_mpc_tpu/ops/lattice.py:1236-1272); `jitter` scales the
+        geometry, as bench.py's does."""
+        nx, ny, nz_ = self.lat.dims
+        nzc = 1 if self.mesh.tdim == 2 else nz_
+        T = self.lat.cells_per_box
+        nv = self._geo_deltas.shape[1]
+        dt = torch_dtype(_real_dtype(self.dtype))
+        base = [torch.arange(m, dtype=dt, device=self.device).reshape(shape)
+                for m, shape in ((nx, (1, nx, 1, 1)), (ny, (1, 1, ny, 1)), (nzc, (1, 1, 1, nzc)))]
+        scale = 1.0 + float(jitter)
+        comps = []
+        for d in range(self.mesh.gdim):
+            deltas_d = torch.as_tensor(self._geo_deltas[:, :, d].T.reshape(nv, T, 1, 1, 1), dtype=dt,
+                                       device=self.device)
+            # Python-float origin and spacing: numpy f64 scalars would
+            # promote a float32 assembly to float64
+            x_d = scale * (float(self._origin[d]) + float(self._spacing[d]) * (base[d][None] + deltas_d))
+            comps.append(x_d.expand(nv, T, nx, ny, nzc).reshape(nv, -1))
+        return torch.stack(comps, dim=1).permute(2, 0, 1)
+
+    def _cells_last(self, Ae):
+        """(c, nd, nd) element tensors, cells t-major -> the contiguous
+        (nd, nd, T, nx, ny, nzc) stack whose slices _pack sums."""
+        nx, ny, nz_ = self.lat.dims
+        nzc = 1 if self.mesh.tdim == 2 else nz_
+        nd = Ae.shape[1]
+        return Ae.permute(1, 2, 0).contiguous().reshape(nd, nd, self.lat.cells_per_box, nx, ny, nzc)
+
+    def _grouped(self, moves):
+        grouped = {}
+        for t, a, b, m, sh in moves:
+            grouped.setdefault((m, sh), []).append((t, a, b))
+        return grouped
+
+    def _pack(self, Ae_grid):
+        """Accumulate the element tensors' (offset, corner-delta) groups into
+        the DIA data (n_off, bs, bs, n0, n1, n2): each group's summed box-grid
+        block lands at da + r * box, one strided slice add per (group, ci,
+        cj) — the JAX package's lax.pad with interior padding r - 1
+        (dolfinx_mpc_tpu/ops/lattice.py:1010-1048)."""
+        bs, r3 = self.bs, self.r3
+        nb = Ae_grid.shape[3:]
+        data = Ae_grid.new_zeros((len(self.offsets), bs, bs) + self.vshape)
+        for (oid, da), tab in self._grouped(self.moves).items():
+            t, a, b = (torch.as_tensor(v, device=Ae_grid.device) for v in zip(*tab))
+            dst = tuple(slice(da[d], da[d] + r3[d] * (nb[d] - 1) + 1, r3[d]) for d in range(3))
+            for ci in range(bs):
+                for cj in range(bs):
+                    data[(oid, ci, cj) + dst] += Ae_grid[a * bs + ci, b * bs + cj, t].sum(0)
+        return data
+
+    def _pack_blocked(self, Ae_grid):
+        """Blocked analogue of _pack: each (triple, corner-shift) group's
+        box-grid block lands on the padded class grids at its shift, no
+        stride (dolfinx_mpc_tpu/ops/lattice.py:1395-1409)."""
+        nb = Ae_grid.shape[3:]
+        data = Ae_grid.new_zeros((len(self.trips),) + self._cdims)
+        for (m, sh), tab in self._grouped(self._bmoves).items():
+            t, a, b = (torch.as_tensor(v, device=Ae_grid.device) for v in zip(*tab))
+            data[m, sh[0]:sh[0] + nb[0], sh[1]:sh[1] + nb[1], sh[2]:sh[2] + nb[2]] += Ae_grid[a, b, t].sum(0)
+        return data
+
+    def _fold_operator(self, dia, diagval):
+        return LatticeOperator(dia, diagval, self._fold_axis, self._fold_mask, self._fold_pairs,
+                               fold_mask_b=self._fold_mask_blocked)
+
+    def _assemble_fold_lean(self, jitter, diagval):
+        """Lean fold operator through the element kernel on device-made
+        coordinates: the groups packed into the DIA data, Dirichlet rows and
+        columns zeroed on the grid, diagval on their diagonal
+        (dolfinx_mpc_tpu/ops/lattice.py:1499-1520)."""
+        Ae_grid = self._cells_last(self._element_tensors(self._synth_coords(jitter), {}))
+        keep = torch.as_tensor(self._keep_grid, device=self.device)
+        data = self._diag_adds(self._zero_bc_on_grid(self._pack(Ae_grid), keep), diagval)
+        return self._fold_operator(DIAMatrix(data, self.offsets, self.vshape, self.bs), diagval)
+
+    def _assemble_fold_lean_blocked(self, jitter, diagval):
+        """_assemble_fold_lean on the parity-blocked layout (scalar degree
+        2; dolfinx_mpc_tpu/ops/lattice.py:1455-1478)."""
+        Ae_grid = self._cells_last(self._element_tensors(self._synth_coords(jitter), {}))
+        keep = torch.as_tensor(self._keep_blocked, device=self.device)
+        data = self._diag_adds_blocked(self._zero_bc_blocked(self._pack_blocked(Ae_grid), keep), diagval)
+        return self._fold_operator(BlockDIAMatrix(data, self.trips, self.vshape, self.r3), diagval)
+
+    def _assemble_impl(self, diagval):
+        """The element kernel on the real cell coordinates, with the
+        coefficients gathered per cell: Dirichlet rows and columns masked
+        per element, the DIA part packed, diagval on the Dirichlet diagonal,
+        then by side format (dolfinx_mpc_tpu/ops/lattice.py:1051-1175):
+        fold keeps the slave cells in the stencil and has no side; csr and
+        cells leave them out of it and put their K^H A_e K into the side,
+        assembled over the slots (csr) or kept per cell (cells)."""
+        coeffs = _coeff_vectors(self.term, self.device)
+        wl = {n: coeffs[n][dm] for n, dm in self._wdofmaps.items()}
+        Ae = self._element_tensors(self._coords, wl)
+        keep = self._keep_cells
+        Ae.mul_(keep[:, :, None]).mul_(keep[:, None, :])
+        if self.side_format == "fold":
+            data = self._diag_adds(self._pack(self._cells_last(Ae)), diagval)
+            return self._fold_operator(DIAMatrix(data, self.offsets, self.vshape, self.bs), diagval)
+        Aep = torch.einsum("ciw,cij,cjv->cwv", self._Tr, Ae[self._sc], self._Tr)  # real: conj(T) = T
+        Ae.mul_((1.0 - self._slave_cells)[:, None, None])
+        data = self._diag_adds(self._pack(self._cells_last(Ae)), diagval)
+        del Ae
+        dia = DIAMatrix(data, self.offsets, self.vshape, self.bs)
+        N = self.V.num_dofs
+        if self.side_format == "cells":
+            return LatticeOperator(dia, diagval, side_Aep=Aep, side_er=self._er, slaves=self._slaves)
+        vals = torch.cat([Aep.reshape(-1), torch.full((self.n_slaves_diag,), float(diagval), dtype=Aep.dtype,
+                                                       device=self.device)])
+        side = Aep.new_zeros(self.pattern.nnz + 1).index_add_(0, self._slots, vals)[: self.pattern.nnz]
+        return LatticeOperator(dia, diagval, side_data=side, side_cols=self._side_cols, side_rows=self._side_rows,
+                               side_nrows=N)
+
     def assemble(self) -> LatticeOperator:
-        return self._assemble_fold_lean_kernel(0.0, self.diagval)
+        if self._route == "kernel":
+            return self._assemble_fold_lean_kernel(0.0, self.diagval)
+        if self._route == "lean":
+            lean = self._assemble_fold_lean_blocked if self._blocked else self._assemble_fold_lean
+            return lean(0.0, self.diagval)
+        return self._assemble_impl(self.diagval)

@@ -174,11 +174,14 @@ def _probe_constant_M(term, gdim, bs=1):
 
 
 def fold_kernel_supported(clf) -> bool:
-    """The lean fold forms the assemblers cover: 3D, scalar at degree 1 or
-    2 and block size <= 3 at degree 1, constant feature matrix
-    (``pallas_supported`` without its backend and f32 conditions)."""
+    """The lean fold forms the assemblers cover: 3D tetrahedra, scalar at
+    degree 1 or 2 and block size <= 3 at degree 1, constant feature matrix
+    (``pallas_supported`` without its backend and f32 conditions; the JAX
+    package reaches it only through its SoA kernel, which no hexahedron
+    mesh gets, and build_fold_table's geometry is the affine one of a
+    simplex)."""
     if not (clf.refine in (1, 2) and (clf.bs == 1 or (clf.bs <= 3 and clf.refine == 1))
-            and clf.mesh.tdim == 3):
+            and clf.mesh.tdim == 3 and clf.mesh.ref_cell.is_simplex):
         return False
     return _probe_constant_M(clf.term, clf.mesh.gdim, clf.bs) is not None
 

@@ -1,11 +1,13 @@
 """Solver drivers (torch): LinearProblem (Krylov), NonlinearProblem and
 NonlinearProblemNest (Newton).
 
-Counterpart of ``dolfinx_mpc_tpu/problem.py``.  LinearProblem: the matrix
-comes from the lattice fast path (lean fold operator; at degree 2 the
-parity-blocked one, whose flat ``matvec`` the solve uses) on lattice meshes
-with a plane-wrap constraint, and from the general slot-CSR assembler
-otherwise; an optional preconditioner form ``P`` is assembled the same way
+Counterpart of ``dolfinx_mpc_tpu/problem.py``.  LinearProblem: on lattice
+meshes the matrix comes from the lattice fast path, tried as the JAX package
+tries it — the fold operator (at scalar degree 2 the parity-blocked one,
+whose flat ``matvec`` the solve uses) for a plane-wrap constraint, else the
+"cells" side format — wherever the JAX package's SoA element kernel would
+take the form; from the general slot-CSR assembler otherwise.  An optional
+preconditioner form ``P`` is assembled the same way
 and the preconditioner is built from it; the right-hand side from
 ``assemble_vector`` + ``apply_lifting`` + ``set_bc``, the solve from
 la/solvers.py (with the rigid-body near-nullspace attached to AMG on
@@ -93,27 +95,31 @@ class LinearProblem:
         return self._A, self._b
 
     def _assemble_A(self, dtype, form=None):
-        """The lattice fold operator on structured box meshes with a
-        plane-wrap constraint, else the general slot-CSR matrix.  The JAX
-        package tries its "cells" lattice format between the two; the port
-        has no "cells" format yet (ROADMAP queue 1, item 14), so a form or
-        mesh the fold path does not cover (NotImplementedError) goes straight
-        to the general assembler, which gives the same matrix on the same
-        device."""
+        """On a lattice mesh the fold operator, else the "cells" side
+        format, else — and whenever the form is one the JAX package's SoA
+        element kernel would not take (soa_kernel_supported), where the JAX
+        package falls back too — the general slot-CSR matrix
+        (dolfinx_mpc_tpu/problem.py:71-98).  Each lattice form compiles
+        once per value-keyed constraint, bcs and dtype; a complex dtype
+        (ROADMAP queue 1, item 18b) takes the general assembler."""
         a = self._a if form is None else form
+        general = lambda: assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)  # noqa: E731
         if get_lattice_info(a.test_space.mesh) is None:
-            return assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)
+            return general()
         key = _lattice_key(self.mpc, self.bcs, dtype)
         cache = a.__dict__.setdefault("_compiled_cache", {})
-        clf = cache.get(key)
-        if clf is None:
-            try:
-                clf = assemble_matrix_lattice(a, self.mpc, bcs=self.bcs, dtype=dtype,
-                                              side_format="fold", device=self.mpc.device)
-            except (ValueError, NotImplementedError):  # not a plane wrap, or not a fold form
-                return assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)
-            cache[key] = clf
-        return clf.assemble()
+        if key not in cache:
+            clf = None
+            for fmt in ("fold", "cells"):
+                try:
+                    clf = assemble_matrix_lattice(a, self.mpc, bcs=self.bcs, dtype=dtype, side_format=fmt,
+                                                  device=self.mpc.device)
+                    break
+                except (ValueError, NotImplementedError):  # not a plane wrap / no SoA kernel / complex
+                    clf = None
+            cache[key] = clf if clf is not None and clf.soa else None
+        clf = cache[key]
+        return general() if clf is None else clf.assemble()
 
     @property
     def A(self):

@@ -44,7 +44,7 @@ def _problem(dims, dtype, device, degree=1, marker=_y_planes):
     mpc.finalize()
     a = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)), quad_degree=degree)
     L = pt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0]) * v.value)
-    clf = pt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, device=device)
+    clf = pt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format="fold", device=device)
     return V, bc, mpc, a, L, clf
 
 
@@ -135,7 +135,7 @@ def _elasticity_problem(dims, dtype, device):
                         + 1.25 * div(u) * conj(div(v)), quad_degree=1)
     L = pt.LinearForm(V, lambda v, c: (1.0 + c.x[0] * c.x[2]) * v.value[..., 0]
                       + 0.5 * c.x[1] * v.value[..., 1] - v.value[..., 2])
-    clf = pt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, device=device)
+    clf = pt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format="fold", device=device)
     return V, [bc], mpc, a, L, clf
 
 
@@ -150,7 +150,7 @@ def _free_problem(dims, dtype, device, degree):
     a = pt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)) + 0.5 * inner(u, v),
                         quad_degree=degree + 1)
     L = pt.LinearForm(V, lambda v, c: 4.0 * (1.0 + c.x[0] * c.x[2]) * v.value)
-    clf = pt.assemble_matrix_lattice(a, mpc, bcs=[], dtype=dtype, device=device)
+    clf = pt.assemble_matrix_lattice(a, mpc, bcs=[], dtype=dtype, side_format="fold", device=device)
     return V, [], mpc, a, L, clf
 
 
@@ -767,3 +767,84 @@ def test_lattice_krylov_on_card_launches_k1_k2(cuda):
             assert LKm.assemble_fold_lean_factored.launches > n1 and LKm.dia_matvec.launches > n2
         out.append((prob.its, u.cpu().numpy()))
     assert abs(out[0][0] - out[1][0]) <= 2 and np.abs(out[0][1] - out[1][1]).max() <= 1e-8
+
+
+def _lattice_case(case, device, side_format="fold"):
+    """The element-kernel lattice operators of the 2-D and refined grids:
+    2-D P1 (K2 at n2 = 1), 2-D vector P1 (K7 at bs = 2, n2 = 1), 2-D P2 on
+    the parity-blocked layout (K6 at s2 = 1) and 3-D vector P2 on the
+    refined grid (K7 at 65 offsets, halo 2), periodic in x, Dirichlet on
+    y = 0, float64."""
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube, create_unit_square
+
+    degree, bs, make = {"K2 2-D": (1, None, lambda: create_unit_square(9, 7)),
+                        "K7 2-D bs=2": (1, 2, lambda: create_unit_square(9, 7)),
+                        "K6 2-D P2": (2, None, lambda: create_unit_square(6, 5)),
+                        "K7 P2 bs=3": (2, 3, lambda: create_unit_cube(3, 3, 2))}[case]
+    mesh = make()
+    V = pt.functionspace(mesh, ("Lagrange", degree, (bs,)) if bs else ("Lagrange", degree))
+    g = mesh.gdim
+    bc = pt.dirichletbc(np.zeros(bs) if bs else 0.0, pt.locate_dofs_geometrical(V, lambda x: np.isclose(x[1], 0.0)),
+                        V)
+    mpc = pt.MultiPointConstraint(V, np.float64, device=device)
+    rel = (lambda x: np.stack([1.0 - x[0], x[1]])) if g == 2 else (lambda x: np.stack([1.0 - x[0], x[1], x[2]]))
+    mpc.create_periodic_constraint_geometrical(V, lambda x: np.isclose(x[0], 1.0), rel, [bc])
+    mpc.finalize()
+    if bs:
+        a = pt.BilinearForm(V, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v))) + 1.25 * div(u) * conj(div(v)),
+                            quad_degree=2)
+    else:
+        a = pt.BilinearForm(V, lambda u, v, c: (1.0 + c.x[0] * c.x[1]) * inner(grad(u), grad(v)), quad_degree=2)
+    return pt.assemble_matrix_lattice(a, mpc, bcs=[bc], side_format=side_format, device=device).assemble()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", ["K2 2-D", "K7 2-D bs=2", "K6 2-D P2", "K7 P2 bs=3"])
+def test_lattice_spmvs_on_new_grids_match_plain_on_card(cuda, case, dtype, tol):
+    """K2 and K7 on grids with n2 = 1, K6 with s2 = 1 and K7 with the
+    refined grid's 65 offsets against their plain versions, one launch
+    each, on operators the element-kernel lean path assembled on the card
+    (equal to the CPU's)."""
+    A = _lattice_case(case, cuda)
+    A_cpu = _lattice_case(case, "cpu")
+    assert float((A.dia.data.cpu() - A_cpu.dia.data).abs().max()) <= 1e-12 * float(A_cpu.dia.data.abs().max())
+    data = A.dia.data.to(dtype).contiguous()
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    if case == "K6 2-D P2":
+        assert A.dia.cdims[2] == 1 and len(A.dia.classes) == 4
+        x = torch.randn((4,) + A.dia.cdims, generator=g, device=cuda, dtype=torch.float64).to(dtype)
+        counter, n0 = LK.blocked_matvec, LK.blocked_matvec.launches
+        y = LK.blocked_matvec(data, A.dia.trips, A.dia.classes, x)
+        y_ref = LK.blocked_matvec_plain(data, A.dia.trips, A.dia.classes, x)
+    else:
+        dia = A.dia
+        assert dia.vshape[2] == 1 or len(dia.offsets) == 65
+        x = torch.randn(dia.shape[0], generator=g, device=cuda, dtype=torch.float64).to(dtype)
+        counter = LK.dia_matvec if dia.bs == 1 else LK.dia_matvec_bs
+        n0 = counter.launches
+        y = (LK.dia_matvec(data, dia.offsets, dia.vshape, x) if dia.bs == 1
+             else LK.dia_matvec_bs(data, dia.offsets, dia.vshape, dia.bs, x))
+        y_ref = LK.dia_matvec_plain(data, dia.offsets, dia.vshape, dia.bs, x)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= tol
+
+
+@pytest.mark.parametrize("side_format", ["csr", "cells"])
+def test_side_formats_on_card_match_cpu(cuda, side_format):
+    """The "csr" and "cells" operators assembled on the card: their side
+    products (gather, product, index_add_) and diagonals equal the CPU's to
+    float64 rounding, and the DIA part runs K2."""
+    ops = {}
+    for dev in (cuda, "cpu"):
+        V, bc, mpc, a, L, _ = _problem((5, 6, 7), np.float64, dev)
+        ops[str(dev)] = pt.assemble_matrix_lattice(a, mpc, bcs=[bc], side_format=side_format, device=dev).assemble()
+    A, A_cpu = ops[str(cuda)], ops["cpu"]
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(A.shape[0]))
+    n2 = LK.dia_matvec.launches
+    y = A.matvec(x.to(cuda))
+    assert LK.dia_matvec.launches == n2 + 1
+    y_ref = A_cpu.matvec(x)
+    assert float((y.cpu() - y_ref).abs().max()) <= 1e-13 * float(y_ref.abs().max())
+    assert float((A.diagonal().cpu() - A_cpu.diagonal()).abs().max()) <= 1e-13 * float(A_cpu.diagonal().abs().max())

@@ -178,32 +178,46 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
 
 
 def test_unported_lattice_forms_raise():
-    """Forms the assemblers do not cover (x-dependent integrands, the
-    "cells" side format, a vector space at degree 2) raise
-    NotImplementedError naming their ROADMAP item instead of silently
-    taking another path; a non-separable Dirichlet set goes to K3's plain
-    version on the CPU and equals the grid masking, and a degree-2 form
-    assembles (K4)."""
+    """Forms the assemblers do not cover take the element-kernel paths
+    without any assembler launch (an x-dependent integrand on fold, the
+    "cells" side format, a vector space at degree 2 on the refined
+    65-offset grid), and the one the port does not assemble yet, a complex
+    dtype, raises NotImplementedError naming its ROADMAP item instead of
+    silently taking another path; a non-separable Dirichlet set goes to
+    K3's plain version on the CPU and equals the grid masking, and a
+    degree-2 form assembles (K4)."""
     mesh = pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 3, 3))
     V = pt.functionspace(mesh, ("Lagrange", 1))
     mpc = pt.MultiPointConstraint(V, np.float64, device="cpu")
     mpc.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
     mpc.finalize()
+    launches = lambda: tuple(getattr(LK, f).launches for f in (  # noqa: E731
+        "assemble_fold_lean_factored", "assemble_fold_lean_masked", "assemble_fold_lean_blocked",
+        "assemble_fold_lean_raw"))
+    n0 = launches()
     a_x = pt.BilinearForm(V, lambda u, v, c: (1.0 + c.x[0]) * pinner(pgrad(u), pgrad(v)))
     assert LK._probe_constant_M(a_x.terms[0], 3) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_lattice(a_x, mpc, side_format="fold", device="cpu")
+    clf_x = pt_lattice(a_x, mpc, side_format="fold", device="cpu")
+    assert clf_x._route == "lean" and clf_x.assemble().fold_axis == 0
     a = pt.BilinearForm(V, lambda u, v, c: pinner(pgrad(u), pgrad(v)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_lattice(a, mpc, side_format="cells", device="cpu")
+    A_cells = pt_lattice(a, mpc, side_format="cells", device="cpu").assemble()
+    assert A_cells.side_Aep.shape[0] > 0
     V3 = pt.functionspace(pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2)), ("Lagrange", 2, (3,)))
     mpc3 = pt.MultiPointConstraint(V3, np.float64, device="cpu")
     mpc3.create_periodic_constraint_geometrical(
         V3, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
     mpc3.finalize()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pt_lattice(pt.BilinearForm(V3, lambda u, v, c: pinner(pgrad(u), pgrad(v))), mpc3, side_format="fold", device="cpu")
+    A3 = pt_lattice(pt.BilinearForm(V3, lambda u, v, c: pinner(pgrad(u), pgrad(v))), mpc3, side_format="fold",
+                    device="cpu").assemble()
+    assert len(A3.dia.offsets) == 65 and A3.dia.bs == 3
+    assert launches() == n0
+    mpc_c = pt.MultiPointConstraint(V, np.complex128, device="cpu")
+    mpc_c.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
+    mpc_c.finalize()
+    with pytest.raises(NotImplementedError, match="item 18b"):
+        pt_lattice(a, mpc_c, dtype=np.complex128, side_format="fold", device="cpu")
     blob = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: x.sum(axis=0) < 0.35), V)
     clf = pt_lattice(a, mpc, bcs=[blob], side_format="fold", device="cpu")
     assert clf.table.factors is None
