@@ -8,7 +8,7 @@ each (or a few), any failure exits non-zero:
 
 1. the card: torch.cuda.is_available() must hold (there is no CPU path);
    name and power limit from nvidia-smi;
-2. build the CUDA kernels (csrc/lattice_kernels.cu, nvcc -> ctypes);
+2. build the CUDA kernels (csrc/*.cu, one nvcc per source in parallel, -> ctypes);
 3. each kernel against its plain PyTorch version on the card, at the paths'
    shapes, in float32 and float64, with CUDA-event times: K1 and K2 on the
    P1 n=64 operator and on P1 n=128 (the P2 path's level 1; K2 also at
@@ -129,11 +129,29 @@ each (or a few), any failure exits non-zero:
    against their plain versions; 11d vector P2 elasticity on fold in float64
    at n=32 (823,875 dofs, K7 at 65 offsets against its plain version, the
    error gates) and at n=16 (the count); 11e float64 oracles of csr, cells,
-   the coefficient fold form, the 2-D square and vector P2.
+   the coefficient fold form, the 2-D square and vector P2;
+12. complex scalars (slice12_phases), counters reset before each run and
+   read after: 12a bench.py's P1 mesh at n=64 with a Bloch phase
+   u(1, y, z) = e^{i pi/3} u(0, y, z), Dirichlet 0 at y=0/1 and a complex
+   source on the "csr" format, in complex64 and complex128: cg + Chebyshev
+   per probe seed against the JAX package's CPU range, cg + GMG over "csr"
+   levels (Hermitian complex coarse inverse) against the port's own
+   complex128 count, complex64's backward error in complex128 and its
+   forward error against a complex128 solve, K2's launches by dtype; 12b
+   K2 (65^3, 12a's operator), K7 (65^3 x 3), K6 (8 x 65^3) and K8 (the
+   contact operator times e^{0.3 i}) in complex64 and complex128 against
+   their plain versions (relative 5e-6 / 1e-12) with their times, bounds
+   and the cuSPARSE complex CSR product's time; 12c six complex128 oracles
+   (test_dtypes' lattice problem, the Bloch problem through LinearProblem
+   and on "csr", bs=3 elasticity, P2, tied contact through BELL + AMG + CG),
+   K2, K7, K6 and K8 each launched in complex128; 12d the list_timings()
+   table of phase 12, every "~MPC:" span opened.
 
 The last two lines are the card's nvidia-smi line and
 {"ok": true, "device": {...}}; the line before them lists every kernel
-(K1-K8) with its launches on its path (K8 also on the slip-contact path,
+(K1-K8, then K2, K7, K6 and K8 again for their complex instantiations,
+with their phase-12 launches and complex64's numbers, complex128's under
+"complex128") with its launches on its path (K8 also on the slip-contact path,
 under "slip_contact", and on the nest Stokes path, under "stokes_nest"; K1
 and K2 on the Krylov paths, under "krylov"; K2, K6 and K7 on phase 11's
 paths and their checks on its new grids, under "lattice_formats"), its error against the plain version,
@@ -148,6 +166,7 @@ JAX.
 
 from __future__ import annotations
 
+import cmath
 import ctypes
 import json
 import subprocess
@@ -545,16 +564,18 @@ def plain_operator(A, dtype, absolute=False):
     return cast_operator(A, dtype, absolute, (PlainDIA, PlainBlockDIA))
 
 
-def error_gates(A, b, x, x_ref):
+def error_gates(A, b, x, x_ref, wide=None):
     """(backward error, |b - A x| / |b|, forward error) of the float32
-    solution x (flat) of A x = b, recomputed in float64 with the plain
-    SpMV; x_ref is a float64 solution of the same system."""
+    (complex64) solution x (flat) of A x = b, recomputed in float64
+    (complex128: `wide`) with the plain SpMV; x_ref is a solution of the
+    same system in the wide dtype."""
     import torch
 
-    A64 = plain_operator(A, torch.float64)
-    b64, x64 = b.double(), x.double()
+    wide = wide or torch.float64
+    A64 = plain_operator(A, wide)
+    b64, x64 = b.to(wide), x.to(wide)
     r = b64 - A64.matvec(x64)
-    a_inf = float(plain_operator(A, torch.float64, absolute=True).matvec(torch.ones_like(b64)).max())
+    a_inf = float(plain_operator(A, wide, absolute=True).matvec(torch.ones_like(b64).real).max())
     eta = float(r.abs().max()) / (a_inf * float(x64.abs().max()) + float(b64.abs().max()))
     rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
     fwd = float(torch.linalg.vector_norm(x64 - x_ref) / torch.linalg.vector_norm(x_ref))
@@ -572,7 +593,10 @@ def wrapper(kid):
 
 def reset_counts():
     for k in KERNELS:
-        wrapper(k).launches = 0
+        w = wrapper(k)
+        w.launches = 0
+        if hasattr(w, "launches_by_dtype"):  # the SpMVs
+            w.launches_by_dtype.clear()
     wrapper("K7").launches_by_grid.clear()
 
 
@@ -687,9 +711,10 @@ def rate_text(label, dofs, ms, nbytes):
 
 def spmv_bound(stored, x, y, index_bytes=0):
     """Bound of an SpMV: its stored values, x and y moved once (plus index
-    bytes), two operations per stored value."""
+    bytes) at their element size (a complex value twice its real part's),
+    two real operations per stored value, eight if complex."""
     nbytes = (stored + x.numel() + y.numel()) * x.element_size() + index_bytes
-    return bound(nbytes, 2 * stored)
+    return bound(nbytes, (8 if x.dtype.is_complex else 2) * stored)
 
 
 def csr_library_ms(S, x, reps):
@@ -699,9 +724,11 @@ def csr_library_ms(S, x, reps):
     import numpy as np
     import torch
 
+    from dolfinx_mpc_tpu_torch._dtypes import numpy_dtype
+
     S = S.tocsr()
     idx = np.int32 if S.nnz < 2 ** 31 else np.int64
-    vals = S.data.astype(np.float32 if x.dtype == torch.float32 else np.float64)
+    vals = S.data.astype(numpy_dtype(x.dtype))
     A = torch.sparse_csr_tensor(torch.as_tensor(S.indptr.astype(idx)), torch.as_tensor(S.indices.astype(idx)),
                                 torch.as_tensor(vals), size=S.shape, device=x.device)
     return cuda_ms(lambda: A @ x, reps), A @ x
@@ -2520,6 +2547,468 @@ def slice11_phases(dev, gen):
     return launches, checks
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: complex scalars
+# ---------------------------------------------------------------------------
+
+# 12a: bench.py's P1 mesh at n=64 (274,625 dofs) with a Bloch phase
+# u(1, y, z) = e^{i pi/3} u(0, y, z), Dirichlet 0 at y=0/1, the source
+# (4 + 2i x0) v, on the "csr" side format (fold refuses the phase), complex64;
+# cg to rtol 1e-6 with the Chebyshev preconditioner (one probe seed per
+# solve) and with test_gmg's LatticeGMG over "csr" levels (b changed by
+# rounding-level noise per seed), then the same in complex128.  The JAX
+# package's CPU counts of the Chebyshev solves, from
+#   JAX_PLATFORMS=cpu python3 scripts/jax_complex_counts.py --n 64 --dtype complex128 --seeds 0 1 2 --perturb-b=2e-16
+#   JAX_PLATFORMS=cpu python3 scripts/jax_complex_counts.py --n 64 --dtype complex64 --seeds 0 1 2 --perturb-b=1.2e-7
+# run on the CPU of the card's host: complex128 gated to the JAX range +-2,
+# complex64 from above, to the JAX range + 10 % (the JAX package's CPU dot
+# products accumulate in sequence: PERF.md, PR 11).  The JAX package's GMG
+# preconditions a complex coarse level with the inverse of its real part
+# (ROADMAP queue 3), so the GMG counts are gated against the port's own
+# complex128 count +-2 instead.
+N_COMPLEX = 64
+# (JAX 0.9.0 on the CPU of an H100 host: 133 / 133 / 134 / 134 / 134 / 134 its
+# in complex128, 173 / 174 / 169 / 173 / 173 / 173 in complex64)
+JAX_CPU_BLOCH_CHEB_ITS = {"complex64": (169, 174), "complex128": (133, 134)}
+BLOCH = cmath.exp(1j * cmath.pi / 3)
+COMPLEX_TOL = {"complex64": 5e-6, "complex128": 1e-12}
+C64_GATE = 0.1
+
+
+def make_bloch(m, dtype, device, side_format="csr"):
+    """12a's problem through the port: (V, bc, mpc, a, L, clf)."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import grad, inner
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+
+    V = dmt.functionspace(create_unit_cube(m, m, m), ("Lagrange", 1))
+    bc = dmt.dirichletbc(0.0, dmt.locate_dofs_geometrical(V, y_planes), V)
+    mpc = dmt.MultiPointConstraint(V, dtype, device=device)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc], scale=BLOCH)
+    mpc.finalize()
+    a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)), quad_degree=1)
+    L = dmt.LinearForm(V, lambda v, c: (4.0 + 2j * c.x[0]) * v.value)
+    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=dtype, side_format=side_format, device=device)
+    return V, bc, mpc, a, L, clf
+
+
+def _bloch_solves(dev, n, dtype, eps):
+    """One dtype of 12a: assembly, Chebyshev-CG per probe seed, the GMG
+    hierarchy over "csr" levels and GMG-CG per seed (b changed by eps);
+    the solves' times and counts."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.la.solvers import chebyshev_preconditioner
+
+    t0 = time.time()
+    V, bc, mpc, a, L, clf = make_bloch(n, dtype, dev)
+    setup_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    A = clf.assemble()
+    b = dmt.set_bc(dmt.assemble_vector(L, mpc), [bc])
+    torch.cuda.synchronize()
+    asm_s = time.time() - t0
+    cheb = []
+    for seed in FORMAT_SEEDS:
+        M = chebyshev_preconditioner(A.matvec, A.diagonal(), probe=np.random.default_rng(seed).standard_normal(
+            V.num_dofs))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        x, its, rnorm = dmt.cg(A.matvec, b, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+        torch.cuda.synchronize()
+        cheb.append(dict(its=its, rnorm=rnorm, s=time.time() - t0, x=x))
+    t0 = time.time()
+    levels, masks = dmt.build_gmg_hierarchy(lambda m: make_bloch(m, dtype, dev)[5], n, 4, min_n=8)
+    levels[0] = A
+    G = dmt.LatticeGMG(levels, free_masks=masks)
+    torch.cuda.synchronize()
+    gmg_s = time.time() - t0
+    gmg = []
+    for seed in FORMAT_SEEDS:
+        t0 = time.time()
+        x, its, rnorm = dmt.cg(A.matvec, _b_noise(b, seed, eps), M=G, rtol=1e-6, atol=1e-12, max_it=3000)
+        torch.cuda.synchronize()
+        gmg.append(dict(its=its, rnorm=rnorm, s=time.time() - t0))
+    return dict(V=V, A=A, b=b, mpc=mpc, cheb=cheb, gmg=gmg, setup_s=setup_s, asm_s=asm_s, gmg_s=gmg_s,
+                levels=[o.dia.vshape for o in levels], coarse=str(G.coarse_inv.dtype)[6:],
+                masks=str(masks[0].dtype)[6:], n_side=int(A.side_data.shape[0]))
+
+
+def bloch_path(dev, n=N_COMPLEX):
+    """12a in complex64 and complex128, counters reset before and read
+    after; complex64's backward error in complex128 and its forward error
+    against a complex128 Jacobi-CG solve of the same operator, and the warm
+    ms per iteration of its Chebyshev-CG."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.la.solvers import chebyshev_preconditioner, jacobi_preconditioner
+
+    reset_counts()
+    runs = {"complex64": _bloch_solves(dev, n, np.complex64, 1.2e-7),
+            "complex128": _bloch_solves(dev, n, np.complex128, 2e-16)}
+    counts = read_counts(("K2", "K6", "K7", "K8"))
+    by_dtype = dict(wrapper("K2").launches_by_dtype)
+    r = runs["complex64"]
+    A, b, x = r["A"], r["b"], r["cheb"][0]["x"]
+    A128 = plain_operator(A, torch.complex128)
+    x_ref, its_ref, _ = dmt.cg(A128.matvec, b.to(torch.complex128), M=jacobi_preconditioner(A128.diagonal()),
+                               rtol=1e-12, atol=0.0, max_it=5000)
+    eta, rel_res, fwd = error_gates(A, b, x, x_ref, wide=torch.complex128)
+    M = chebyshev_preconditioner(A.matvec, A.diagonal(), probe=np.random.default_rng(0).standard_normal(b.shape[0]))
+    dmt.cg(A.matvec, b, M=M, rtol=1e-6, atol=1e-12, max_it=3000)  # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, its_w, _ = dmt.cg(A.matvec, b, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
+    torch.cuda.synchronize()
+    ms_per_it = 1e3 * (time.time() - t0) / max(its_w, 1)
+    slaves = np.asarray(r["mpc"].slaves)
+    masters = r["mpc"]._np_masters[:, 0]
+    u = r["mpc"].finalized.backsubstitution(x).cpu().numpy()
+    phase_err = float(np.abs(u[slaves] - BLOCH * u[masters]).max() / np.abs(u).max())
+    summary = dict(n=n, dofs=r["V"].num_dofs, eta=eta, rel_res=rel_res, fwd=fwd, its_ref=its_ref,
+                   ms_per_it=ms_per_it, phase_err=phase_err, by_dtype=by_dtype, imag=float(b.imag.abs().max()))
+    for dt, rr in runs.items():
+        summary[dt] = {k: rr[k] for k in ("setup_s", "asm_s", "gmg_s", "levels", "coarse", "masks", "n_side")}
+        summary[dt].update(cheb=[c["its"] for c in rr["cheb"]], gmg=[g["its"] for g in rr["gmg"]],
+                           cheb_s=[c["s"] for c in rr["cheb"]], gmg_s_solve=[g["s"] for g in rr["gmg"]],
+                           rnorm=rr["cheb"][0]["rnorm"])
+    return counts, summary, A
+
+
+def _complex_randn(gen, shape, dev, dtype):
+    import torch
+
+    re = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    im = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    return torch.complex(re, im).to(dtype)
+
+
+def _dia_csr(data, offsets, vshape, bs):
+    """The DIA operator (n_off, bs, bs, n0, n1, n2) as a torch sparse CSR on
+    its device, built there (cuSPARSE's operand for the library time)."""
+    import torch
+
+    n0, n1, n2 = vshape
+    dev = data.device
+    I, J, K = torch.meshgrid(*(torch.arange(m, device=dev) for m in vshape), indexing="ij")
+    vid = (I * n1 + J) * n2 + K
+    rows, cols, vals = [], [], []
+    for d, (di, dj, dk) in enumerate(offsets):
+        m = ((I + di >= 0) & (I + di < n0) & (J + dj >= 0) & (J + dj < n1) & (K + dk >= 0) & (K + dk < n2))
+        r, c = vid[m], (((I + di) * n1 + (J + dj)) * n2 + (K + dk))[m]
+        for ci in range(bs):
+            for cj in range(bs):
+                rows.append(r * bs + ci)
+                cols.append(c * bs + cj)
+                vals.append(data[d, ci, cj][m])
+    N = n0 * n1 * n2 * bs
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals), (N, N))
+    return coo.coalesce().to_sparse_csr()
+
+
+def _blocked_csr(data, trips, classes, cdims, r3=(2, 2, 2)):
+    """The blocked operator on the flat dof vector of its (2s - 1)^3 grid as
+    a torch sparse CSR on its device (BlockDIAMatrix.to_scipy's entries)."""
+    import torch
+
+    s0, s1, s2 = cdims
+    n0, n1, n2 = (r * s - (r - 1) for r, s in zip(r3, cdims))
+    dev = data.device
+    Q0, Q1, Q2 = torch.meshgrid(*(torch.arange(m, device=dev) for m in cdims), indexing="ij")
+    rows, cols, vals = [], [], []
+    for m, (cr, cc, off) in enumerate(trips):
+        fi, fj, fk = r3[0] * Q0 + cr[0], r3[1] * Q1 + cr[1], r3[2] * Q2 + cr[2]
+        gi, gj, gk = (r3[0] * (Q0 + off[0]) + cc[0], r3[1] * (Q1 + off[1]) + cc[1], r3[2] * (Q2 + off[2]) + cc[2])
+        ok = ((fi < n0) & (fj < n1) & (fk < n2) & (gi >= 0) & (gi < n0) & (gj >= 0) & (gj < n1) & (gk >= 0)
+              & (gk < n2))
+        rows.append(((fi * n1 + fj) * n2 + fk)[ok])
+        cols.append(((gi * n1 + gj) * n2 + gk)[ok])
+        vals.append(data[m][ok])
+    N = n0 * n1 * n2
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals), (N, N))
+    return coo.coalesce().to_sparse_csr(), (n0, n1, n2)
+
+
+def _complex_check(name, kernel, run, plain, stored, x, index_bytes, lib):
+    """One complex kernel at one dtype: one counted launch against its
+    plain version (fails beyond COMPLEX_TOL), warm and profiler device
+    times, the plain version's, the bound and, where `lib` gives one, the
+    cuSPARSE CSR product's warm time: lib() gives (S, its x, the map of
+    the kernel's output to S's layout)."""
+    import torch
+
+    dt = str(x.dtype)[6:]
+    kid = name.split()[0]
+    n0 = wrapper(kid).launches
+    got = run()
+    torch.cuda.synchronize()
+    if wrapper(kid).launches != n0 + 1:
+        fail(f"12b {name}: {kid} did not launch once")
+    ref = plain()
+    rel = _rel_l2(got, ref)
+    if not rel <= COMPLEX_TOL[dt]:
+        fail(f"12b {name} {dt}: {kid} disagrees with its plain version: {rel:.3e} > {COMPLEX_TOL[dt]:g}")
+    bms, by = spmv_bound(stored, x, got, index_bytes)
+    lib_ms = None
+    if lib is not None:
+        S, xl, to_lib = lib()
+        lib_ms = cuda_ms(lambda: S @ xl, 50)
+        lib_err = _rel_l2(S @ xl, to_lib(got))
+        del S
+    out = dict(err=rel, max_abs_err=float((got - ref).abs().max()), ms=cuda_ms(run, 50),
+               device_ms=profiler_ms(run, 50, kernel), plain_ms=cuda_ms(plain, 5), bound_ms=bms, bound_by=by,
+               library_ms=lib_ms)
+    dev_txt = "not measured" if out["device_ms"] is None else f"{out['device_ms']:.4f} ms"
+    lib_txt = ("none" if lib_ms is None else f"{lib_ms:.4f} ms warm (rel L2 to the kernel {lib_err:.1e})")
+    print(f"12b {name} {dt}: rel L2 {rel:.3e} (tol {COMPLEX_TOL[dt]:g}), warm {out['ms']:.4f} ms, device {dev_txt}, "
+          f"plain {out['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}; {100 * bms / out['ms']:.0f} % of warm), "
+          f"cuSPARSE complex CSR {lib_txt}", flush=True)
+    return out
+
+
+def compare_complex_lattice_kernels(dev, gen, A_bloch):
+    """12b: K2 on the 12a operator's DIA (65^3), K7 on complex random planes
+    with the P1 path's 15 offsets on 65^3 x 3 and K6 on complex random
+    planes with the 230 P2 triples on 8 x 65^3, each in complex64 (the
+    12a data) and complex128, against its plain version.  Returns
+    {kernel: {dtype: numbers}}."""
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+    from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix, DIAMatrix
+
+    out = {"K2": {}, "K7": {}, "K6": {}}
+    dia = A_bloch.dia
+    offs = make_problem(2, np.float64, "cpu")[4].offsets
+    trips = make_problem(2, np.float64, "cpu", degree=2)[4].trips
+    n = N_MAIN + 1
+    for ct in (torch.complex64, torch.complex128):
+        dt = str(ct)[6:]
+        data = dia.data.to(ct).contiguous()
+        op = DIAMatrix(data, dia.offsets, dia.vshape, 1)
+        x = _complex_randn(gen, (dia.shape[0],), dev, ct)
+        out["K2"][dt] = _complex_check(
+            f"K2 dia_matvec {dia.vshape}", "dia_matvec_kernel", lambda: op.matvec(x),
+            lambda: LK.dia_matvec_plain(data, dia.offsets, dia.vshape, 1, x), data.numel(), x, 0,
+            lambda: (_dia_csr(data, dia.offsets, dia.vshape, 1), x, lambda y: y))
+        del op, data
+        data = _complex_randn(gen, (len(offs), 3, 3, n, n, n), dev, ct)
+        op = DIAMatrix(data, offs, (n, n, n), 3)
+        x = _complex_randn(gen, (3 * n ** 3,), dev, ct)
+        out["K7"][dt] = _complex_check(
+            f"K7 dia_matvec_bs {(n, n, n)} x 3", "dia_matvec_kernel", lambda: op.matvec(x),
+            lambda: LK.dia_matvec_plain(data, offs, (n, n, n), 3, x), data.numel(), x, 0,
+            lambda: (_dia_csr(data, offs, (n, n, n), 3), x, lambda y: y))
+        del op, data
+        data = _complex_randn(gen, (len(trips), n, n, n), dev, ct)
+        op = BlockDIAMatrix(data, trips, (2 * n - 1,) * 3, (2, 2, 2))
+        # x zero on the class grids' padding, as the solve path's is
+        xf = _complex_randn(gen, ((2 * n - 1) ** 3,), dev, ct)
+        xb = op._to_blocked(xf).contiguous()
+        pts = LK.blocked_launch_params(trips, op.classes, (n, n, n), data.element_size()).pts
+        out["K6"][dt] = _complex_check(
+            f"K6 blocked_matvec 8 x {(n, n, n)} ({len(trips)} triples, {pts} plane points per block)",
+            "blocked_matvec_kernel", lambda: op.matvec_blocked(xb),
+            lambda: LK.blocked_matvec_plain(data, trips, op.classes, xb), data.numel(), xb, 8 * len(trips),
+            lambda: (_blocked_csr(data, trips, op.classes, (n, n, n))[0], xf, op._from_blocked))
+        del op, data, xb
+    return out
+
+
+def compare_complex_k8(dev, gen, As):
+    """12b: K8 on the packed layout of the NB=24/NT=20 contact operator made
+    complex (its values times e^{0.3 i}), complex64 and complex128, against
+    its plain version, with the cuSPARSE complex CSR product of the same
+    operator."""
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.la import bell as BL
+
+    out = {}
+    Sc = (As * cmath.exp(0.3j)).tocsr()
+    Sc.eliminate_zeros()
+    for ndt in (np.complex64, np.complex128):
+        B = BL.bell_from_scipy(Sc, dtype=ndt, device=dev)
+        P = B.packed
+        ct = P.vals.dtype
+        x = _complex_randn(gen, (B.shape[1],), dev, ct)
+        out[str(ct)[6:]] = _complex_check(
+            f"K8 bell_matvec (contact NB={NB_CONTACT}/NT={NT_CONTACT} x e^(0.3i), {P.nnz} nonzeros)",
+            "bell_csr_matvec_kernel", lambda: B.matvec(x), lambda: BL.bell_packed_matvec_plain(P, x),
+            P.nnz, x, P.nnz * 4 + P.row_ptr.numel() * 4,
+            lambda: (torch.sparse_csr_tensor(torch.as_tensor(Sc.indptr.astype(np.int32)),
+                                             torch.as_tensor(Sc.indices.astype(np.int32)),
+                                             torch.as_tensor(Sc.data.astype(ndt)), size=Sc.shape, device=dev),
+                     x, lambda y: y))
+        del B, P
+    return out
+
+
+def oracle_c128(dev, kind):
+    """12c: complex128 on the card against u = K (K^H A K)^-1 K^H b from
+    scipy, counters reset before the solve and read after: "dtypes" (the
+    lattice problem of tests/test_dtypes.py: unit cube 3^3, periodic,
+    Dirichlet 0.3, LinearProblem on the lean fold path, K2), "Bloch
+    LinearProblem" and "Bloch csr" (12a's problem at n=6 through
+    LinearProblem, which takes "cells", and on "csr" with Jacobi-CG, K2),
+    "elasticity" (bs=3 P1 n=4 through LinearProblem, K7), "P2" (degree 2
+    n=3 through LinearProblem, K6), "contact" (tied contact NB=4/NT=3 with a
+    body force: BELL + AMG + CG, K8).  Returns (max error, its, launches
+    with K2/K6/K7/K8's by dtype)."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+    from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+    from dolfinx_mpc_tpu_torch.la.bell import bell_from_scipy
+    from dolfinx_mpc_tpu_torch.la.solvers import jacobi_preconditioner
+    from dolfinx_mpc_tpu_torch.utils import gather_transformation_matrix
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import rigid_motions_nullspace
+
+    c128 = np.complex128
+    opts = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": 1e-12}
+    if kind == "contact":
+        V, bcs, mpc, a, L = make_contact(4, 3, c128, dev, body_force=True)
+    elif kind.startswith("Bloch"):
+        V, bc, mpc, a, L, clf = make_bloch(6, c128, dev)
+        bcs = [bc]
+    else:
+        m, degree, bs = {"dtypes": (3, 1, None), "elasticity": (4, 1, 3), "P2": (3, 2, None)}[kind]
+        V = dmt.functionspace(create_unit_cube(m, m, m), ("Lagrange", degree, (bs,)) if bs else ("Lagrange", degree))
+        bcs = [dmt.dirichletbc(np.zeros(bs) if bs else (0.3 if kind == "dtypes" else 0.0),
+                               dmt.locate_dofs_geometrical(V, y_planes), V)]
+        mpc = dmt.MultiPointConstraint(V, c128, device=dev)
+        mpc.create_periodic_constraint_geometrical(
+            V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), bcs)
+        mpc.finalize()
+        if kind == "elasticity":
+            a = dmt.BilinearForm(V, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v)))
+                                 + 1.25 * div(u) * conj(div(v)), quad_degree=1)
+            L = dmt.LinearForm(V, lambda v, c: (1.0 + 1j * c.x[0] * c.x[2]) * v.value[..., 0] - v.value[..., 2])
+        else:
+            # P2 at quad_degree 2, where the lattice path takes it (soa_kernel_supported)
+            a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)) + inner(u, v),
+                                 quad_degree=2 if kind == "P2" else None)
+            L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] + 0.5j * c.x[1]) * v.value)
+    reset_counts()
+    if kind in ("Bloch csr", "contact"):
+        if kind == "contact":
+            A = dmt.assemble_matrix(a, mpc, bcs)
+            As = A.to_scipy()
+            op = bell_from_scipy(As, dtype=c128, device=dev)
+            M = smoothed_aggregation_amg(As, bs=3, dtype=c128, nullspace=rigid_motions_nullspace(V), coarse_size=100,
+                                         device=dev)
+        else:
+            op = clf.assemble()
+            M = jacobi_preconditioner(op.diagonal())
+        b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+        x, its, _ = dmt.cg(op.matvec, b, M=M, rtol=1e-12, atol=0.0, max_it=5000)
+        u = mpc.finalized.backsubstitution(x)
+    else:
+        prob = dmt.LinearProblem(a, L, mpc, bcs=bcs, petsc_options=opts)
+        u, its = prob.solve().x.array, prob.its
+        if (kind == "Bloch LinearProblem") != (getattr(prob.A, "side_Aep", None) is not None):
+            fail(f"12c {kind}: LinearProblem took the wrong lattice route")
+    counts = read_counts(KERNELS)
+    counts.update({f"{k} by dtype": dict(wrapper(k).launches_by_dtype) for k in ("K2", "K6", "K7", "K8")})
+    A0 = dmt.assemble_matrix(a, None, bcs, dtype=c128, device="cpu").to_scipy()
+    b0 = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, None, dtype=c128, device="cpu"), [a], [bcs],
+                                      dtype=c128, device="cpu"), bcs).numpy()
+    K = gather_transformation_matrix(mpc)
+    u_ref = K @ spla.spsolve((K.conj().T @ A0 @ K).tocsc(), K.conj().T @ b0)
+    return float(np.abs(u.cpu().numpy() - u_ref).max()), its, counts
+
+
+def _gmg_gate(its, ref):
+    """12a's GMG gate: the complex64 mean within the port's own complex128
+    range +-2 (the JAX package's GMG drops the imaginary part of its
+    coarse level, ROADMAP queue 3)."""
+    import numpy as np
+
+    mean = float(np.mean(its))
+    lo, hi = ref[0] - 2, ref[1] + 2
+    if not lo <= mean <= hi:
+        fail(f"12a GMG-CG c64: mean {mean:.1f} its outside [{lo}, {hi}] (the port's c128 counts {ref})")
+    return (f"{its} its at seeds {list(FORMAT_SEEDS)} (mean {mean:.1f}; the port's c128 range {ref}, gate "
+            f"[{lo}, {hi}])")
+
+
+def slice12_phases(dev, gen, k8c):
+    """Phase 12 with its gates and report lines (k8c: 12b's K8 numbers,
+    measured beside the contact path).  Returns the complex launches of
+    K2, K6, K7 and K8 by sub-phase and the 12b numbers, for the kernels
+    line."""
+    import io
+
+    import numpy as np
+
+    from dolfinx_mpc_tpu_torch.utils import timing
+
+    timing.reset_timings()
+    launches = {"K2": {}, "K6": {}, "K7": {}, "K8": {}}
+    c, s, A = bloch_path(dev)
+    s64, s128 = s["complex64"], s["complex128"]
+    gmg128 = (min(s128["gmg"]), max(s128["gmg"]))
+    print(f"12a Bloch phase e^(i pi/3), P1 n={s['n']} ({s['dofs']} dofs, csr side {s64['n_side']} entries, complex "
+          f"source: max|Im b| {s['imag']:.3e}): complex64 set-up {s64['setup_s']:.2f} s, assembly + rhs "
+          f"{s64['asm_s']:.2f} s, cg + Chebyshev "
+          + _count_gate("12a Chebyshev-CG c64", s64["cheb"], JAX_CPU_BLOCH_CHEB_ITS["complex64"], True,
+                        from_above=True)
+          + f" in {[round(v, 3) for v in s64['cheb_s']]} s, {s['ms_per_it']:.4f} ms/it warm, rnorm {s64['rnorm']:.3e}; "
+          + _gates("12a", s).replace("in f64", "in c128").replace("x64", "x128")
+          + f", max|u_s - e^(i pi/3) u_m| / max|u| {s['phase_err']:.1e}; GMG over csr levels {s64['levels']} "
+          f"(coarse inverse {s64['coarse']}, masks {s64['masks']}) built in {s64['gmg_s']:.2f} s, cg "
+          + _gmg_gate(s64["gmg"], gmg128)
+          + f" in {[round(v, 3) for v in s64['gmg_s_solve']]} s; complex128: assembly {s128['asm_s']:.2f} s, cg + "
+          f"Chebyshev " + _count_gate("12a Chebyshev-CG c128", s128["cheb"], JAX_CPU_BLOCH_CHEB_ITS["complex128"],
+                                      False)
+          + f", GMG-CG {s128['gmg']} its (coarse inverse {s128['coarse']}); launches {c}, K2 by dtype "
+          f"{s['by_dtype']} (the real ones: the levels' Gershgorin bounds)", flush=True)
+    # the real launches are the GMG levels' Gershgorin bounds, |A| . 1 in the
+    # real dtype (the JAX package's, la/gmg.py:70, 78)
+    if min(s["by_dtype"].get(k, 0) for k in ("complex64", "complex128")) <= 0:
+        fail(f"12a: K2 must launch in complex64 and complex128: {c}, {s['by_dtype']}")
+    if not s["phase_err"] <= 1e-5:
+        fail(f"12a: the solution does not carry the Bloch phase: {s['phase_err']:.3e}")
+    launches["K2"]["12a"] = s["by_dtype"]["complex64"] + s["by_dtype"]["complex128"]
+    checks = compare_complex_lattice_kernels(dev, gen, A)
+    del A
+    checks["K8"] = k8c
+    for kind, need in (("dtypes", "K2"), ("Bloch LinearProblem", "K2"), ("Bloch csr", "K2"), ("elasticity", "K7"),
+                       ("P2", "K6"), ("contact", "K8")):
+        err, its, cc = oracle_c128(dev, kind)
+        print(f"12c complex128 oracle {kind} on the card: CG {its} its, max|u - K(K^H A K)^-1 K^H b| {err:.3e} "
+              f"(tol 1e-8); launches {cc}", flush=True)
+        if not err <= 1e-8:
+            fail(f"12c complex128 oracle {kind}: error {err:.3e} > 1e-8")
+        if cc[need] <= 0 or cc[f"{need} by dtype"].get("complex128", 0) != cc[need] or max(
+                cc[k] for k in ("K1", "K3", "K4", "K5")) != 0:
+            fail(f"12c complex128 oracle {kind}: {need} must launch in complex128 and no assembler kernel: {cc}")
+        launches[need][f"12c {kind}"] = cc[need]
+    buf = io.StringIO()
+    timing.list_timings(file=buf)
+    names = ("~MPC: Assemble matrix", "~MPC: Assemble vector", "~MPC: Finalize MPC", "~MPC: Solve linear problem",
+             "~MPC: Backsubstitution")
+    print("12d list_timings() over phase 12 (host spans; the card ran each span's work asynchronously):\n"
+          + buf.getvalue().rstrip(), flush=True)
+    got = timing.timings()
+    if any(got.get(k, (0,))[0] <= 0 for k in names):
+        fail(f"12d: a span was not opened: {sorted(got)}")
+    return launches, checks
+
+
 def main():
     if not (ROOT / "dolfinx_mpc_tpu_torch" / "__init__.py").is_file():
         fail(f"the dolfinx_mpc_tpu_torch package is not beside {Path(__file__).name}")
@@ -2641,6 +3130,7 @@ def main():
     if abs(s8["its"] - JAX_CPU_CONTACT_CG_ITS) > 2:
         fail(f"contact CG took {s8['its']} its, JAX-CPU takes {JAX_CPU_CONTACT_CG_ITS} (+-2 allowed)")
     cmp.update(compare_bell_kernel(dev, gen, B, As))
+    k8c = compare_complex_k8(dev, gen, As)  # phase 12b's K8, on this operator
     del B, As
 
     counts9, s9, B9, As9 = contact_path(dev, slip=True)
@@ -2717,6 +3207,7 @@ def main():
 
     counts7, krylov = slice10_phases(dev)
     launches11, checks11 = slice11_phases(dev, gen)
+    launches12, checks12 = slice12_phases(dev, gen, k8c)
 
     src = "dolfinx_mpc_tpu_torch/csrc/lattice_kernels.cu"
     pl = "dolfinx_mpc_tpu/ops/pallas_lattice.py"
@@ -2752,6 +3243,23 @@ def main():
              slip_contact=dict(launches=counts9["K8"], packed_nnz=s9["packed_nnz"], **k8_slip),
              stokes_nest=dict(launches=counts7["K8"])),
     ]
+    # the complex instantiations (phase 12): launches on 12a / 12c, numbers
+    # of complex64 at 12b's shapes, complex128's beside them
+    shapes = {"K2": f"{N_COMPLEX + 1}^3 (12a's operator)", "K7": f"{N_MAIN + 1}^3 x 3, random planes",
+              "K6": f"8 x {N_MAIN + 1}^3, 230 triples, random planes",
+              "K8": f"contact NB={NB_CONTACT}/NT={NT_CONTACT} x e^(0.3i)"}
+    for kid, name, source, replaces in (
+            ("K2", "dia_matvec", src, f"{pl}:766"), ("K7", "dia_matvec_bs", src, f"{pl}:835"),
+            ("K6", "blocked_matvec", src, f"{pl}:916"),
+            ("K8", "bell_matvec", "dolfinx_mpc_tpu_torch/csrc/bell_kernels.cu", "dolfinx_mpc_tpu/la/bell.py:164")):
+        c64, c128 = checks12[kid]["complex64"], checks12[kid]["complex128"]
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        kernels.append(dict(
+            name=f"{kid} {name} complex64 / complex128 (launches: phase 12 {sorted(launches12[kid])}; error and times "
+                 f"at {shapes[kid]}, complex64; complex128 under 'complex128')",
+            route="cuda", source=source, replaces=replaces, launches=sum(launches12[kid].values()),
+            **{k: c64[k] for k in keys}, device_ms=c64["device_ms"], launches_by_phase=launches12[kid],
+            complex128={k: c128[k] for k in keys + ("device_ms",)}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,7 @@ from .problem import LinearProblem, NonlinearProblem, NonlinearProblemNest  # no
 __version__ = "0.1.0"
 
 from . import io  # noqa: E402  (XDMFFile, read_gmsh, write_gmsh)
+from .utils.timing import Timer, list_timings, timed  # noqa: E402
 
 __all__ = [
     "assemble_matrix",
@@ -98,4 +99,7 @@ __all__ = [
     "LinearForm",
     "Form",
     "derivative",
+    "Timer",
+    "timed",
+    "list_timings",
 ]

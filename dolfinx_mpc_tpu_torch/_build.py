@@ -3,9 +3,10 @@ K1-K7 and the BELL SpMV K8) with nvcc + ctypes.
 
 The kernels are compiled on first use, on the machine with the card, into
 ``build/dolfinx_mpc_tpu_torch/`` at the repository root (git-ignored), as a
-shared library with a plain C interface.  The library name carries a hash of
-the sources, so an edited kernel is rebuilt and a stale one is never loaded.
-A missing nvcc or a failed build raises: nothing falls back.
+shared library with a plain C interface: one nvcc per source, all started
+together, then one link.  The library name carries a hash of the sources,
+so an edited kernel is rebuilt and a stale one is never loaded.  A missing
+nvcc or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ BUILD_DIR = REPO_ROOT / "build" / "dolfinx_mpc_tpu_torch"
 CSRC = PKG_DIR / "csrc"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 
 def _nvcc() -> str:
@@ -56,12 +57,27 @@ def load_kernels() -> ctypes.CDLL:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for src, obj in zip(sources, objs)]
+        try:
+            outs = [proc.communicate(timeout=900) for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for proc, (out, err) in zip(procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}\n{err}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True,
+                             timeout=900)
+        for obj in objs:
+            obj.unlink()
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
         # ptxas' per-kernel register / spill report, kept beside the library
-        so.with_suffix(".log").write_text(res.stderr)
+        so.with_suffix(".log").write_text("".join(err for _, err in outs))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     from .la import bell

@@ -12,7 +12,17 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["launch_check", "on_device"]
+__all__ = ["count_launch", "launch_check", "on_device"]
+
+
+def count_launch(wrapper, dtype):
+    """One launch of the SpMV wrapper's kernel: its count, and its count
+    under the dtype's name in ``wrapper.launches_by_dtype`` ("float32",
+    "complex64", ...), so that a run can show which instantiation ran."""
+    wrapper.launches += 1
+    by = wrapper.launches_by_dtype
+    key = str(dtype).removeprefix("torch.")
+    by[key] = by.get(key, 0) + 1
 
 
 def launch_check(rc, name):

@@ -8,8 +8,10 @@
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so that a refused launch reaches the Python wrapper
 // (la/bell.py:bell_matvec), which raises on any non-zero code.  Templated on
-// float (the CG operator of the contact path) and double (the f64 oracle on
-// the card).
+// float (the CG operator of the contact path), double (the f64 oracle on
+// the card) and complex64 / complex128 (dmt::cplx of complex.cuh, torch's
+// interleaved values read as they stand: a value is 8 or 16 B beside its
+// 4 B column).
 //
 // K8 replaces dolfinx_mpc_tpu/la/bell.py:_bell_matvec_pallas (:147-189,
 // `kernel` :164) together with the JAX segment_sum of the COO remainder
@@ -40,7 +42,13 @@
 
 #include <cuda_runtime.h>
 
+#include "complex.cuh"
+
 namespace {
+
+using dmt::cplx;
+using dmt::ld_ro;
+using dmt::shfl_xor;
 
 constexpr int kThreads = 256;
 
@@ -60,11 +68,11 @@ bell_csr_matvec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ 
   }
   T acc = T(0);
 #pragma unroll 4
-  for (; p < e; p += G) acc += __ldg(val + p) * __ldg(x + __ldg(col + p));
+  for (; p < e; p += G) acc += ld_ro(val + p) * ld_ro(x + __ldg(col + p));
   // every thread of the warp reaches the shuffles (rows past the end carry
   // 0), and xor partners within G stay inside the sub-warp
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  for (int o = G / 2; o > 0; o >>= 1) acc += shfl_xor(acc, o);
   if (row < n_rows && lane == 0) y[row] = acc;
 }
 
@@ -109,6 +117,21 @@ int dmt_bell_csr_matvec_f32(const int* row_ptr, const int* col, const float* val
 int dmt_bell_csr_matvec_f64(const int* row_ptr, const int* col, const double* val, const double* x,
                             double* y, int n_rows, int g, void* stream) {
   return launch_bell_csr_matvec<double>(row_ptr, col, val, x, y, n_rows, g, stream);
+}
+
+// complex64 / complex128: val, x and y are torch's interleaved (re, im) tensors
+int dmt_bell_csr_matvec_c64(const int* row_ptr, const int* col, const void* val, const void* x, void* y,
+                            int n_rows, int g, void* stream) {
+  using C = cplx<float>;
+  return launch_bell_csr_matvec<C>(row_ptr, col, static_cast<const C*>(val), static_cast<const C*>(x),
+                                   static_cast<C*>(y), n_rows, g, stream);
+}
+
+int dmt_bell_csr_matvec_c128(const int* row_ptr, const int* col, const void* val, const void* x, void* y,
+                             int n_rows, int g, void* stream) {
+  using C = cplx<double>;
+  return launch_bell_csr_matvec<C>(row_ptr, col, static_cast<const C*>(val), static_cast<const C*>(x),
+                                   static_cast<C*>(y), n_rows, g, stream);
 }
 
 }  // extern "C"

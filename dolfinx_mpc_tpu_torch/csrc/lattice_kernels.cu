@@ -11,11 +11,19 @@
 // synchronise, allocates nothing, and returns cudaGetLastError() so that a
 // refused launch reaches the Python wrapper (ops/lattice_kernels.py), which
 // raises on any non-zero code.  All kernels are templated on float (the
-// main path) and double (the f64 oracles on the card).
+// main path) and double (the f64 oracles on the card); the SpMVs (K2, K7,
+// K6) also on complex64 and complex128 (dmt::cplx of complex.cuh, torch's
+// interleaved layout read as it stands).
 
 #include <cuda_runtime.h>
 
+#include "complex.cuh"
+
 namespace {
+
+using dmt::cplx;
+using dmt::ld_cs;
+using dmt::ld_ro;
 
 // ---------------------------------------------------------------------------
 // K1 / K4 / K3 and K5: fused lean-fold assemblers.
@@ -464,7 +472,8 @@ fold_assemble_raw_kernel(T* __restrict__ out, const int* __restrict__ planes, co
 
 // ---------------------------------------------------------------------------
 // cp.async helpers and the shared-memory opt-in of the plane-staged SpMVs
-// (K2, K7, K6).
+// (K2, K7, K6).  One copy per value: 4 bytes (f32), 8 (f64, c64) or 16
+// (c128), each aligned to its size in device and shared memory.
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src, bool in) {
@@ -472,8 +481,11 @@ __device__ __forceinline__ void cp_async_or_zero(T* dst, const T* src, bool in) 
   const int n = in ? static_cast<int>(sizeof(T)) : 0;
   if constexpr (sizeof(T) == 4) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n) : "memory");
-  } else {
+  } else if constexpr (sizeof(T) == 8) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n) : "memory");
+  } else {
+    static_assert(sizeof(T) == 16, "cp.async copies 4, 8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n) : "memory");
   }
 }
 
@@ -490,9 +502,9 @@ __device__ __forceinline__ void cp_async_wait_all_but_one() {
 template <bool STREAM, typename T>
 __device__ __forceinline__ T ld_plane(const T* p) {
   if constexpr (STREAM) {
-    return __ldcs(p);
+    return ld_cs(p);
   } else {
-    return __ldg(p);
+    return ld_ro(p);
   }
 }
 
@@ -562,6 +574,10 @@ inline int smem_opt_in(const void* kernel, size_t smem, size_t* granted) {
 constexpr int kMaxOffsets = 128;
 constexpr int kDiaPoints = 256;  // plane points per block, one per thread
 constexpr int kDiaChunk = 3;     // K7: offsets whose loads are issued together
+// K7's chunk for a scalar T: c128 (16 B) issues two offsets' loads at a
+// time, so that its 4-register values keep about the f64 chunk's registers
+template <typename T>
+constexpr int kDiaChunkOf = sizeof(T) > 8 ? 2 : kDiaChunk;
 
 struct DiaParams {
   int n;   // offsets
@@ -584,6 +600,7 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
                   const DiaParams p) {
   constexpr int NP = 2 * W + 2;  // ring slots
   constexpr int BB = BS * BS;
+  constexpr int CH = kDiaChunkOf<T>;
   extern __shared__ __align__(16) unsigned char dia_smem[];
   T* ring = reinterpret_cast<T*>(dia_smem);
   const int P = p.n1 * p.n2;
@@ -637,7 +654,7 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
         for (int d = 0; d < p.n; ++d) {
           // loads unconditional (both stay in bounds), the add masked, so
           // that the unrolled loads can be in flight together
-          const T a = __ldg(dd + d * N);
+          const T a = ld_ro(dd + d * N);
           int slot = rot + W + p.di[d];
           slot -= slot >= NP ? NP : 0;
           const T xv = xc[slot * seg + p.sh[d]];
@@ -648,12 +665,12 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
         T acc[BS];
 #pragma unroll
         for (int c = 0; c < BS; ++c) acc[c] = T(0);
-        for (int d0 = 0; d0 < p.n; d0 += kDiaChunk) {
-          T a[kDiaChunk][BB];
-          T xv[kDiaChunk][BS];
-          bool on[kDiaChunk];
+        for (int d0 = 0; d0 < p.n; d0 += CH) {
+          T a[CH][BB];
+          T xv[CH][BS];
+          bool on[CH];
 #pragma unroll
-          for (int u = 0; u < kDiaChunk; ++u) {
+          for (int u = 0; u < CH; ++u) {
             // past the last offset: offset 0 again (in bounds), never added
             const int d = d0 + u < p.n ? d0 + u : 0;
             const T* dp = dd + static_cast<long long>(d) * BB * N;
@@ -667,7 +684,7 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
             on[u] = d0 + u < p.n && ((kmask >> (p.dk[d] + W)) & 1u);
           }
 #pragma unroll
-          for (int u = 0; u < kDiaChunk; ++u) {
+          for (int u = 0; u < CH; ++u) {
             if (on[u]) {
 #pragma unroll
               for (int ci = 0; ci < BS; ++ci) {
@@ -725,6 +742,10 @@ dia_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __rest
 constexpr int kBlockedThreads = 256;  // most threads per block
 constexpr int kBlockedR = 2;          // points per thread
 constexpr int kBlockedU = 16;         // triples whose loads are issued together
+// K6's chunk for a scalar T: c128 (16 B) issues 8 triples' loads at a time,
+// so that its 4-register values keep the f64 chunk's registers
+template <typename T>
+constexpr int kBlockedUOf = sizeof(T) > 8 ? kBlockedU / 2 : kBlockedU;
 
 struct BlockedParams {
   int n_cls, n_trip;
@@ -739,7 +760,7 @@ template <typename T, bool STREAM>
 __global__ void __launch_bounds__(kBlockedThreads)
 blocked_matvec_kernel(const T* __restrict__ data, const T* __restrict__ x, T* __restrict__ y,
                       const int2* __restrict__ tab, const BlockedParams p) {
-  constexpr int W = 1, NP = 2 * W + 2, R = kBlockedR, U = kBlockedU;
+  constexpr int W = 1, NP = 2 * W + 2, R = kBlockedR, U = kBlockedUOf<T>;
   extern __shared__ __align__(16) unsigned char blk_smem[];
   int2* trip = reinterpret_cast<int2*>(blk_smem);
   T* ring = reinterpret_cast<T*>(trip + ((p.n_trip + 1) & ~1));  // 16-byte aligned
@@ -1064,6 +1085,20 @@ int dmt_dia_matvec_f64(const double* data, const double* x, double* y, const voi
   return launch_dia_matvec<double>(data, x, y, static_cast<const DiaParams*>(params), stream);
 }
 
+// complex64 / complex128: data, x and y are torch's interleaved (re, im)
+// tensors
+int dmt_dia_matvec_c64(const void* data, const void* x, void* y, const void* params, void* stream) {
+  using C = cplx<float>;
+  return launch_dia_matvec<C>(static_cast<const C*>(data), static_cast<const C*>(x), static_cast<C*>(y),
+                              static_cast<const DiaParams*>(params), stream);
+}
+
+int dmt_dia_matvec_c128(const void* data, const void* x, void* y, const void* params, void* stream) {
+  using C = cplx<double>;
+  return launch_dia_matvec<C>(static_cast<const C*>(data), static_cast<const C*>(x), static_cast<C*>(y),
+                              static_cast<const DiaParams*>(params), stream);
+}
+
 // tab: K6's device table; params: a BlockedParams block; both built by the
 // wrapper once per operator
 int dmt_blocked_matvec_f32(const float* data, const float* x, float* y, const int* tab,
@@ -1074,6 +1109,20 @@ int dmt_blocked_matvec_f32(const float* data, const float* x, float* y, const in
 int dmt_blocked_matvec_f64(const double* data, const double* x, double* y, const int* tab,
                            const void* params, void* stream) {
   return launch_blocked_matvec<double>(data, x, y, tab, static_cast<const BlockedParams*>(params), stream);
+}
+
+int dmt_blocked_matvec_c64(const void* data, const void* x, void* y, const int* tab, const void* params,
+                           void* stream) {
+  using C = cplx<float>;
+  return launch_blocked_matvec<C>(static_cast<const C*>(data), static_cast<const C*>(x), static_cast<C*>(y), tab,
+                                  static_cast<const BlockedParams*>(params), stream);
+}
+
+int dmt_blocked_matvec_c128(const void* data, const void* x, void* y, const int* tab, const void* params,
+                            void* stream) {
+  using C = cplx<double>;
+  return launch_blocked_matvec<C>(static_cast<const C*>(data), static_cast<const C*>(x), static_cast<C*>(y), tab,
+                                  static_cast<const BlockedParams*>(params), stream);
 }
 
 // params: a FoldParams block (K1 / K4 and K3), built by the wrapper once per

@@ -18,8 +18,8 @@ built once per operator when the BellMatrix is made on a CUDA device.
   (``dolfinx_mpc_tpu/la/bell.py:147-189``) and the JAX ``segment_sum`` of
   the remainder (``:113-116``): one launch over the packed layout, the
   remainder included.  Its CUDA source is ``csrc/bell_kernels.cu``; every
-  ``BellMatrix.matvec`` on a CUDA tensor launches it, in float32 and
-  float64, or raises.
+  ``BellMatrix.matvec`` on a CUDA tensor launches it, in float32, float64,
+  complex64 and complex128, or raises.
 - ``bell_packed_matvec_plain`` is K8's plain version (gather, multiply,
   row ``index_add_`` over the packed layout); the wrapper runs it for CPU
   tensors.
@@ -38,18 +38,19 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
-from .._launch import launch_check, on_device
+from .._launch import count_launch, launch_check, on_device
 
 __all__ = ["BellMatrix", "BellPacked", "bell_from_scipy", "bell_matvec", "bell_matvec_plain", "bell_pack",
            "bell_packed_matvec_plain"]
 
-_FLOATS = (torch.float32, torch.float64)
+# K8's dtypes, by the suffix of their launchers
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
 
 
 def declare_signatures(lib: ctypes.CDLL) -> None:
     """ctypes argtypes/restype of the launchers in csrc/bell_kernels.cu."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    for suf in ("f32", "f64"):
+    for suf in _SUFFIX.values():
         fn = getattr(lib, f"dmt_bell_csr_matvec_{suf}")
         fn.argtypes = [P, P, P, P, P, I, I, P]
         fn.restype = I
@@ -160,8 +161,8 @@ class _K8Launch:
     def __init__(self, packed: BellPacked):
         if packed.device.type != "cuda":
             raise RuntimeError(f"bell_matvec: the packed layout lies on {packed.device}")
-        if packed.vals.dtype not in _FLOATS:
-            raise TypeError(f"bell_matvec: dtype {packed.vals.dtype} is not float32/float64")
+        if packed.vals.dtype not in _SUFFIX:
+            raise TypeError(f"bell_matvec: dtype {packed.vals.dtype} is not float32/float64/complex64/complex128")
         n_rows, n_cols = packed.shape
         if n_rows * packed.threads_per_row >= 2 ** 31:
             raise ValueError(f"bell_matvec: {n_rows} rows x {packed.threads_per_row} threads exceed int32")
@@ -169,7 +170,7 @@ class _K8Launch:
 
         self.device, self.dtype, self.n_rows, self.n_cols = packed.device, packed.vals.dtype, n_rows, n_cols
         self.index = packed.device.index if packed.device.index is not None else torch.cuda.current_device()
-        self.fn = getattr(load_kernels(), f"dmt_bell_csr_matvec_{'f32' if self.dtype == torch.float32 else 'f64'}")
+        self.fn = getattr(load_kernels(), f"dmt_bell_csr_matvec_{_SUFFIX[self.dtype]}")
         self.args = (packed.row_ptr.data_ptr(), packed.cols.data_ptr(), packed.vals.data_ptr())
         self.g = packed.threads_per_row
 
@@ -191,7 +192,7 @@ class _K8Launch:
 def bell_matvec(B, x):
     """K8: y = A x for the operator of BellMatrix B, on B's packed layout
     (the tile product plus the COO remainder, rows 0 .. n_rows-1); x
-    (n_cols,) of B's dtype, float32 or float64.
+    (n_cols,) of B's dtype: float32, float64, complex64 or complex128.
 
     Replaces the TPU kernel dolfinx_mpc_tpu/la/bell.py:_bell_matvec_pallas
     and the remainder's segment_sum: one launch on PyTorch's current stream,
@@ -210,11 +211,12 @@ def bell_matvec(B, x):
     if P._launch is None:
         P._launch = _K8Launch(P)
     y = P._launch(x)
-    bell_matvec.launches += 1
+    count_launch(bell_matvec, y.dtype)
     return y
 
 
 bell_matvec.launches = 0
+bell_matvec.launches_by_dtype = {}
 
 
 class BellMatrix:
@@ -295,7 +297,9 @@ class BellMatrix:
 def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=np.float32, _bchunk=None):
     """The host arrays (data, cols, diag, rem_data, rem_rows, rem_cols,
     shape) of the BELL form of a scipy sparse matrix: the JAX package's
-    conversion, copied.
+    conversion, copied, except that complex values scatter part by part
+    (numpy's bincount takes real weights only, so the JAX package's
+    conversion raises TypeError for a complex matrix).
 
     mt (tiles per row block) is min(max needed, `mt_cap` or the
     `mt_quantile` percentile of per-block tile counts) — dense outlier rows
@@ -350,9 +354,13 @@ def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=n
     for b0 in range(0, nblk, bchunk):
         b1 = min(b0 + bchunk, nblk)
         e0, e1 = np.searchsorted(blk_s, [b0, b1])
-        seg = np.bincount(lin_s[e0:e1] - b0 * stride,
-                          weights=val_s[e0:e1],
-                          minlength=(b1 - b0) * stride)
+        idx, w, size = lin_s[e0:e1] - b0 * stride, val_s[e0:e1], (b1 - b0) * stride
+        if np.iscomplexobj(w):
+            # bincount takes real weights: the two parts apart, as ell.py does
+            seg = np.bincount(idx, weights=w.real, minlength=size) + 1j * np.bincount(idx, weights=w.imag,
+                                                                                       minlength=size)
+        else:
+            seg = np.bincount(idx, weights=w, minlength=size)
         data[b0 * stride: b1 * stride] = seg
     data = data.reshape(nblk, mt, R, C)
 

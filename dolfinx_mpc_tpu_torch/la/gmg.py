@@ -64,12 +64,13 @@ def _abs_rowsum(A: LatticeOperator):
     operator's own flat matvec on all-ones with |data|, |diagval| and the
     side blocks made entrywise absolute (every matvec path is an additive
     gather, so the result bounds the row sums of |K^H A K|;
-    dolfinx_mpc_tpu/la/gmg.py:58-79)."""
+    dolfinx_mpc_tpu/la/gmg.py:58-79).  Real for a complex operator too, as
+    in the JAX package (its ones in the real dtype, :70, :78)."""
     ab = lambda v: None if v is None else torch.abs(v)  # noqa: E731
     B = LatticeOperator(_abs_dia(A.dia), abs(A.diagval), A.fold_axis, A.fold_mask, A.fold_pairs,
                         side_data=ab(A.side_data), side_cols=A.side_cols, side_rows=A.side_rows,
                         side_nrows=A.side_nrows, side_Aep=ab(A.side_Aep), side_er=A.side_er, slaves=A.slaves)
-    return B.matvec(torch.ones(A.shape[0], dtype=A.dtype, device=A.device))
+    return B.matvec(torch.ones(A.shape[0], dtype=B.dtype, device=A.device))
 
 
 def _gershgorin_bounds(ops, inv_diags):
@@ -86,21 +87,31 @@ def _cheb_interval(bound, ratio):
 
 def dense_coarse_inverse(A):
     """Materialize the coarsest operator densely (from its host CSR form)
-    and invert it in f64 with a Cholesky factorization.  The result makes
-    the coarse solve a single dense matvec — exact, linear and symmetric."""
+    and invert it on the host with a Cholesky factorization: in float64
+    for a real operator, in complex128 for a complex one (its Hermitian
+    part (C + C^H) / 2, a complex Cholesky).  The result makes the coarse
+    solve a single dense matvec — exact, linear and self-adjoint.  An
+    indefinite C (rounding noise) gets its eigenvalues clipped instead.
+
+    The JAX package casts C to float64 whatever its dtype
+    (dolfinx_mpc_tpu/la/gmg.py:113), which drops the imaginary part of a
+    complex coarse operator (a Bloch phase's) and preconditions with the
+    inverse of its real part; the port keeps it (ROADMAP queue 3).  A
+    real operator's inverse is the same, bit for bit, as before complex
+    operators were taken."""
     import scipy.linalg as sla
 
     nd = A.shape[0]
-    C = np.asarray(A.to_scipy().toarray(), np.float64)
-    C = 0.5 * (C + C.T)
+    C = np.asarray(A.to_scipy().toarray(), np.complex128 if A.dtype.is_complex else np.float64)
+    C = 0.5 * (C + C.conj().T)
     try:
         inv = sla.cho_solve(sla.cho_factor(C), np.eye(nd))
     except np.linalg.LinAlgError:
         # indefinite numerical noise: clip the spectrum instead of failing
         w, Q = np.linalg.eigh(C)
         w = np.maximum(w, 1e-12 * np.abs(w).max())
-        inv = (Q / w) @ Q.T
-    inv = 0.5 * (inv + inv.T)
+        inv = (Q / w) @ Q.conj().T
+    inv = 0.5 * (inv + inv.conj().T)
     return torch.as_tensor(inv, dtype=A.dtype, device=A.device)
 
 
@@ -313,7 +324,8 @@ def build_gmg_hierarchy(make_compiled_form, n, n_levels, min_n=4, levels=None):
     geometrically on each level).  levels: optional explicit list of level
     descriptors passed verbatim to make_compiled_form (finest first); when
     omitted, levels are n, n/2, n/4, ... down to min_n.  Each mask lives
-    on its level's device in its operator's dtype."""
+    on its level's device in the real dtype of its operator (the JAX
+    package's masks are real too)."""
     if levels is None:
         levels, nl = [], n
         for _ in range(n_levels):
@@ -332,5 +344,5 @@ def build_gmg_hierarchy(make_compiled_form, n, n_levels, min_n=4, levels=None):
         m[np.asarray(clf._bc_dofs_grid, np.int64)] = 0.0
         if clf.mpc is not None and clf.mpc.num_local_slaves:
             m[np.asarray(clf.mpc.slaves)] = 0.0
-        masks.append(torch.as_tensor(m, dtype=op.dtype, device=op.device))
+        masks.append(torch.as_tensor(m, dtype=op.dtype.to_real(), device=op.device))
     return ops, masks

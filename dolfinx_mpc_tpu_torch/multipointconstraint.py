@@ -19,6 +19,7 @@ import torch
 from ._device import DEFAULT_DEVICE, resolve_device
 from ._dtypes import torch_dtype
 from .fem.functionspace import Function, FunctionSpace
+from .utils.timing import timed
 
 __all__ = ["MPCData", "FinalizedMPC", "MultiPointConstraint"]
 
@@ -162,48 +163,50 @@ class MultiPointConstraint:
 
     # -- finalize -------------------------------------------------------
     def finalize(self) -> None:
-        """Freeze into padded tables on ``self.device``."""
-        if self.finalized is not None:
-            raise RuntimeError("already finalized")
-        n_s = len(self._slaves)
-        num_dofs = self.V.num_dofs
-        if n_s == 0:
-            slaves = np.zeros((0,), np.int64)
-            masters = np.zeros((0, 1), np.int64)
-            coeffs = np.zeros((0, 1), self.dtype)
-            is_slave = np.zeros(num_dofs, dtype=bool)
-        else:
-            slaves = np.asarray(self._slaves, dtype=np.int64)
-            if len(np.unique(slaves)) != n_s:
-                raise ValueError("duplicate slave dofs in constraint")
-            # compact away explicit zero-coefficient masters (algebraically
-            # inert) so that "first k columns are the real masters" holds
-            comp = [
-                (np.asarray(m)[np.asarray(c) != 0], np.asarray(c)[np.asarray(c) != 0])
-                for m, c in zip(self._masters, self._coeffs)
-            ]
-            mm = max(max((len(m) for m, _ in comp), default=1), 1)
-            masters = np.zeros((n_s, mm), dtype=np.int64)
-            coeffs = np.zeros((n_s, mm), dtype=self.dtype)
-            for i, (m, c) in enumerate(comp):
-                masters[i, : len(m)] = m
-                coeffs[i, : len(c)] = c
-            is_slave = np.zeros(num_dofs, dtype=bool)
-            is_slave[slaves] = True
-            if is_slave[masters[coeffs != 0]].any():
-                raise ValueError("a master dof is itself a slave (chained constraints unsupported, as in reference)")
-        self._np_slaves = slaves
-        self._np_masters = masters
-        self._np_coeffs = coeffs
-        self._np_is_slave = is_slave
-        dev = self.device
-        self.finalized = FinalizedMPC(
-            torch.as_tensor(slaves, device=dev),
-            torch.as_tensor(masters, device=dev),
-            torch.as_tensor(coeffs, dtype=torch_dtype(self.dtype), device=dev),
-            torch.as_tensor(is_slave, device=dev),
-            num_dofs,
-        )
+        """Freeze into padded tables on ``self.device`` (span "~MPC: Finalize MPC")."""
+        with timed("~MPC: Finalize MPC"):
+            if self.finalized is not None:
+                raise RuntimeError("already finalized")
+            n_s = len(self._slaves)
+            num_dofs = self.V.num_dofs
+            if n_s == 0:
+                slaves = np.zeros((0,), np.int64)
+                masters = np.zeros((0, 1), np.int64)
+                coeffs = np.zeros((0, 1), self.dtype)
+                is_slave = np.zeros(num_dofs, dtype=bool)
+            else:
+                slaves = np.asarray(self._slaves, dtype=np.int64)
+                if len(np.unique(slaves)) != n_s:
+                    raise ValueError("duplicate slave dofs in constraint")
+                # compact away explicit zero-coefficient masters (algebraically
+                # inert) so that "first k columns are the real masters" holds
+                comp = [
+                    (np.asarray(m)[np.asarray(c) != 0], np.asarray(c)[np.asarray(c) != 0])
+                    for m, c in zip(self._masters, self._coeffs)
+                ]
+                mm = max(max((len(m) for m, _ in comp), default=1), 1)
+                masters = np.zeros((n_s, mm), dtype=np.int64)
+                coeffs = np.zeros((n_s, mm), dtype=self.dtype)
+                for i, (m, c) in enumerate(comp):
+                    masters[i, : len(m)] = m
+                    coeffs[i, : len(c)] = c
+                is_slave = np.zeros(num_dofs, dtype=bool)
+                is_slave[slaves] = True
+                if is_slave[masters[coeffs != 0]].any():
+                    raise ValueError("a master dof is itself a slave "
+                                     "(chained constraints unsupported, as in reference)")
+            self._np_slaves = slaves
+            self._np_masters = masters
+            self._np_coeffs = coeffs
+            self._np_is_slave = is_slave
+            dev = self.device
+            self.finalized = FinalizedMPC(
+                torch.as_tensor(slaves, device=dev),
+                torch.as_tensor(masters, device=dev),
+                torch.as_tensor(coeffs, dtype=torch_dtype(self.dtype), device=dev),
+                torch.as_tensor(is_slave, device=dev),
+                num_dofs,
+            )
 
     # -- accessors mirroring the reference ------------------------------
     @property

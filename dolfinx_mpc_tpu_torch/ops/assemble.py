@@ -31,6 +31,7 @@ from ..fem.forms import Form
 from ..fem.functionspace import FunctionSpace
 from ..la.sparse import CSRMatrix, SlotPattern, build_slot_pattern
 from ..multipointconstraint import MultiPointConstraint
+from ..utils.timing import timed
 from .kernels import compile_term
 
 __all__ = ["assemble_matrix", "assemble_vector", "apply_lifting", "set_bc",
@@ -322,10 +323,14 @@ def _get_compiled_matrix(form, constraint, dtype, device):
 
 def assemble_matrix(form: Form, constraint=None, bcs=None, diagval=1.0, dtype=None, device=None) -> MPCMatrix:
     """Assemble a bilinear form with MPC elimination and Dirichlet handling
-    into slot CSR.  `constraint` may be one MPC or a pair (row, col) for
-    rectangular assembly.  dtype and device default to the constraint's
-    (float64 on the card without one)."""
-    bcs = bcs or []
+    into slot CSR, in the span "~MPC: Assemble matrix".  `constraint` may
+    be one MPC or a pair (row, col) for rectangular assembly.  dtype and
+    device default to the constraint's (float64 on the card without one)."""
+    with timed("~MPC: Assemble matrix"):
+        return _assemble_matrix(form, constraint, bcs or [], diagval, dtype, device)
+
+
+def _assemble_matrix(form, constraint, bcs, diagval, dtype, device):
     dtype, device = _resolve(constraint, dtype, device)
     tdt = torch_dtype(dtype)
     cm = _get_compiled_matrix(form, constraint, dtype, device)
@@ -422,22 +427,24 @@ def _scatter(b, tb, be):
 
 
 def assemble_vector(form: Form, constraint=None, b=None, dtype=None, device=None):
-    """Assemble a linear form with the K^H b MPC redistribution.  dtype and
-    device default to the constraint's (float64 on the card without one)."""
+    """Assemble a linear form with the K^H b MPC redistribution, in the span
+    "~MPC: Assemble vector".  dtype and device default to the constraint's
+    (float64 on the card without one)."""
     dtype, device = _resolve(constraint, dtype, device)
-    key = ("vec", constraint, dtype.str, str(device))
-    cache = _form_cache(form)
-    cv = cache.get(key)
-    if cv is None:
-        cv = cache[key] = _compile_vector(form, constraint, dtype, device)
-    ndofs = form.test_space.num_dofs
-    out = torch.zeros(ndofs + 1, dtype=torch_dtype(dtype), device=device)
-    for ct, tb in zip(cv.terms, cv.tables):
-        coeffs = _coeff_vectors(ct.term, device)
-        wlocals = {n: coeffs[n][tb["wdofmaps"][n]] for n in coeffs}
-        be = ct.kernel(tb["coords"], tb["lf"], wlocals).to(out.dtype)  # (n_ent, ndt)
-        _scatter(out, tb, be)
-    out = out[:ndofs]
+    with timed("~MPC: Assemble vector"):
+        key = ("vec", constraint, dtype.str, str(device))
+        cache = _form_cache(form)
+        cv = cache.get(key)
+        if cv is None:
+            cv = cache[key] = _compile_vector(form, constraint, dtype, device)
+        ndofs = form.test_space.num_dofs
+        out = torch.zeros(ndofs + 1, dtype=torch_dtype(dtype), device=device)
+        for ct, tb in zip(cv.terms, cv.tables):
+            coeffs = _coeff_vectors(ct.term, device)
+            wlocals = {n: coeffs[n][tb["wdofmaps"][n]] for n in coeffs}
+            be = ct.kernel(tb["coords"], tb["lf"], wlocals).to(out.dtype)  # (n_ent, ndt)
+            _scatter(out, tb, be)
+        out = out[:ndofs]
     return out if b is None else b + out
 
 

@@ -31,8 +31,12 @@ and the "csr" and "cells" formats — runs the element kernel of ops/kernels.py
 and packs its tensors into the DIA data with strided slice adds.  Every
 scalar DIA matvec on the card runs kernel K2, every vector (bs > 1) one K7
 and every blocked one K6; the side products are plain torch, as the JAX
-package's segment_sum is XLA.  Complex dtypes raise NotImplementedError
-(ROADMAP queue 1, item 18b).
+package's segment_sum is XLA.  Complex dtypes (complex64, complex128) take
+the JAX package's routes for them: never the assemblers (its Pallas
+assemblers are float32 only), the lean element-kernel path for fold forms
+without coefficients, the cells path otherwise; the element tensors are
+real for real forms and are cast to the complex dtype before packing, and
+the SpMVs run their complex instantiations.
 """
 
 from __future__ import annotations
@@ -71,6 +75,13 @@ from .lattice_kernels import (
 
 __all__ = ["DIAMatrix", "BlockDIAMatrix", "LatticeOperator", "CompiledLatticeForm",
            "assemble_matrix_lattice", "soa_kernel_supported"]
+
+
+def _scalar(v, dtype):
+    """A Python scalar of the operator's kind: complex for a complex dtype,
+    else the real part (the JAX package's diagval rule,
+    dolfinx_mpc_tpu/ops/assemble.py:350)."""
+    return complex(v) if dtype.is_complex else float(np.real(v))
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +286,7 @@ class LatticeOperator:
                  side_data=None, side_cols=None, side_rows=None, side_nrows=None, side_Aep=None, side_er=None,
                  slaves=None):
         self.dia = dia
-        self.diagval = float(diagval)
+        self.diagval = _scalar(diagval, dia.data.dtype)
         self.fold_axis = None if fold_axis is None else int(fold_axis)
         self.fold_mask = fold_mask
         self.fold_pairs = fold_pairs
@@ -607,8 +618,10 @@ def assemble_matrix_lattice(
     "cells" keeps it as per-slave-cell eliminated blocks (the same operator;
     only where soa_kernel_supported holds, as in the JAX package); "fold"
     collapses a periodic plane-wrap constraint into the stencil and raises
-    ValueError for any other constraint.  Complex dtypes raise
-    NotImplementedError (ROADMAP queue 1, item 18b)."""
+    ValueError for any other constraint: a pure identification (one master
+    of coefficient 1 per slave), so a Bloch phase (coefficient e^{i theta})
+    takes "csr" or "cells".  A complex dtype takes the element-kernel
+    paths, never the CUDA assemblers."""
     return CompiledLatticeForm(form, constraint, bcs or [], diagval, dtype, side_format, device)
 
 
@@ -617,14 +630,14 @@ class CompiledLatticeForm:
     (dolfinx_mpc_tpu/ops/lattice.py:745-1001):
 
     - "kernel": fold, uniform geometry, a constant feature matrix in 3-D at
-      degree 1 (bs <= 3) or scalar degree 2 — the CUDA assemblers K1, K3,
-      K4 and K5 (_assemble_fold_lean_kernel);
+      degree 1 (bs <= 3) or scalar degree 2, a real dtype — the CUDA
+      assemblers K1, K3, K4 and K5 (_assemble_fold_lean_kernel);
     - "lean": every other fold form on uniform geometry without
       coefficients (2-D meshes, x-dependent integrands, vector spaces at
-      degree 2) — the element kernel on coordinates synthesized on the
-      device, packed without any scatter, the Dirichlet rows and columns
-      zeroed on the grid (_assemble_fold_lean, and at scalar degree 2 the
-      parity-blocked _assemble_fold_lean_blocked);
+      degree 2, complex dtypes) — the element kernel on coordinates
+      synthesized on the device, packed without any scatter, the Dirichlet
+      rows and columns zeroed on the grid (_assemble_fold_lean, and at
+      scalar degree 2 the parity-blocked _assemble_fold_lean_blocked);
     - "cells": coefficient forms, non-uniform geometry and the "csr" and
       "cells" side formats — the element kernel on the real cell
       coordinates, element-level Dirichlet masks, and for the side formats
@@ -663,8 +676,6 @@ class CompiledLatticeForm:
             # points of the r-refined lattice (fem/functionspace.py)
             raise ValueError("degree-2 lattice path needs a grid-numbered space (pristine box mesh)")
         self.dtype = np.dtype(dtype)
-        if self.dtype.kind == "c":
-            raise NotImplementedError("complex lattice assembly is ROADMAP queue 1, item 18b")
         self.device = resolve_device(device)
         self.side_format = side_format
         self.V, self.mesh, self.lat = V, mesh, lat
@@ -756,7 +767,8 @@ class CompiledLatticeForm:
         N = V.num_dofs
         slaves_row = (np.asarray(mpc_r.slaves, np.int64) if (mpc_r is not None and mpc_r.num_local_slaves)
                       else np.zeros(0, np.int64))
-        self._Tr = as_t(tr.T, rdt) if len(sc) else torch.zeros((0, V.ndofs_cell, 1), dtype=rdt, device=self.device)
+        tdt = torch_dtype(self.dtype)  # the constraint's coefficients: complex for a Bloch phase
+        self._Tr = as_t(tr.T, tdt) if len(sc) else torch.zeros((0, V.ndofs_cell, 1), dtype=tdt, device=self.device)
         if side_format == "cells":
             er = tr.ext_dofs if len(sc) else np.zeros((0, 1), np.int64)
             self._er = as_t(np.where(er >= 0, er, N))
@@ -902,7 +914,7 @@ class CompiledLatticeForm:
         if len(self._bc_dofs_grid):
             dg = torch.zeros(self.V.num_dofs, dtype=data.dtype, device=data.device)
             dg.index_add_(0, torch.as_tensor(self._bc_dofs_grid, device=data.device),
-                          torch.full((len(self._bc_dofs_grid),), float(diagval),
+                          torch.full((len(self._bc_dofs_grid),), _scalar(diagval, data.dtype),
                                      dtype=data.dtype, device=data.device))
             dg = dg.reshape(n0, n1, n2, self.bs)
             for ci in range(self.bs):
@@ -936,9 +948,10 @@ class CompiledLatticeForm:
         db = torch.as_tensor(self._bc_ind_blocked, dtype=data.dtype, device=data.device)
         cls_id = {c: i for i, c in enumerate(self._classes)}
         out = data.clone()
+        dv = _scalar(diagval, data.dtype)
         for m, (cr, cc, off) in enumerate(self.trips):
             if cr == cc and off == (0, 0, 0):
-                out[m] += diagval * db[cls_id[cr]]
+                out[m] += dv * db[cls_id[cr]]
         return out
 
     def _assemble_fold_lean_kernel(self, jitter, diagval):
@@ -970,13 +983,16 @@ class CompiledLatticeForm:
     # the element-kernel paths
     # ------------------------------------------------------------------
     def _element_tensors(self, coords, wlocals):
-        """(c, nd, nd) element tensors of the cells `coords` (c, nv, gdim)
-        with their local coefficient values, ELEMENT_CHUNK_VALUES of the
-        kernel's intermediates at a time."""
+        """(c, nd, nd) element tensors, in the operator's dtype, of the
+        cells `coords` (c, nv, gdim) with their local coefficient values,
+        ELEMENT_CHUNK_VALUES of the kernel's intermediates at a time."""
         n = coords.shape[0]
         nd = self.V.ndofs_cell
         chunk = max(1, ELEMENT_CHUNK_VALUES // (self._nq * nd * nd * (1 + self.mesh.gdim) * self.bs))
-        out = torch.empty((n, nd, nd), dtype=coords.dtype, device=coords.device)
+        # the operator's dtype: a real kernel's values go into a complex
+        # tensor unchanged (zero imaginary part), as the JAX package's SoA
+        # kernel writes them in a complex dtype
+        out = torch.empty((n, nd, nd), dtype=torch_dtype(self.dtype), device=coords.device)
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
             out[lo:hi] = self._kernel(coords[lo:hi], None, {k: v[lo:hi] for k, v in wlocals.items()})
@@ -1085,7 +1101,7 @@ class CompiledLatticeForm:
         if self.side_format == "fold":
             data = self._diag_adds(self._pack(self._cells_last(Ae)), diagval)
             return self._fold_operator(DIAMatrix(data, self.offsets, self.vshape, self.bs), diagval)
-        Aep = torch.einsum("ciw,cij,cjv->cwv", self._Tr, Ae[self._sc], self._Tr)  # real: conj(T) = T
+        Aep = torch.einsum("ciw,cij,cjv->cwv", torch.conj(self._Tr), Ae[self._sc], self._Tr)
         Ae.mul_((1.0 - self._slave_cells)[:, None, None])
         data = self._diag_adds(self._pack(self._cells_last(Ae)), diagval)
         del Ae
@@ -1093,8 +1109,8 @@ class CompiledLatticeForm:
         N = self.V.num_dofs
         if self.side_format == "cells":
             return LatticeOperator(dia, diagval, side_Aep=Aep, side_er=self._er, slaves=self._slaves)
-        vals = torch.cat([Aep.reshape(-1), torch.full((self.n_slaves_diag,), float(diagval), dtype=Aep.dtype,
-                                                       device=self.device)])
+        vals = torch.cat([Aep.reshape(-1), torch.full((self.n_slaves_diag,), _scalar(diagval, Aep.dtype),
+                                                       dtype=Aep.dtype, device=self.device)])
         side = Aep.new_zeros(self.pattern.nnz + 1).index_add_(0, self._slots, vals)[: self.pattern.nnz]
         return LatticeOperator(dia, diagval, side_data=side, side_cols=self._side_cols, side_rows=self._side_rows,
                                side_nrows=N)

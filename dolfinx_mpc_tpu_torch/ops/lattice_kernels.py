@@ -26,12 +26,17 @@ Counterpart of ``dolfinx_mpc_tpu/ops/pallas_lattice.py``:
   (``make_dia_matvec_bs_pallas``); ``DiaBsMatvecLaunch`` is its launch
   prepared once per operator.  K2 and K7 share one device template.
 
-The CUDA sources are ``csrc/lattice_kernels.cu``; ``_build.py`` compiles them
-with nvcc on first use.  Each wrapper runs its plain version only for
+The assemblers take float32 and float64, as the JAX package's Pallas
+assemblers take float32 only (complex forms take the element-kernel paths
+of ops/lattice.py there and here); the SpMVs K2, K7 and K6 take float32,
+float64, complex64 and complex128, each dtype its own instantiation of one
+template.  The CUDA sources are ``csrc/lattice_kernels.cu`` (with the
+complex scalar of ``csrc/complex.cuh``); ``_build.py`` compiles them with
+nvcc on first use.  Each wrapper runs its plain version only for
 tensors that lie on the CPU; for a CUDA tensor it launches the kernel or
 raises.  Each counts its kernel launches in a plain int attribute
-(``<wrapper>.launches``), so a run can show that a path went through the
-kernels.
+(``<wrapper>.launches``; the SpMVs also by dtype, ``launches_by_dtype``),
+so a run can show that a path went through the kernels.
 
 The host side of the assemblers is the JAX package's trace-time reduction,
 copied: the constant feature matrix probe (``_probe_constant_M``), the
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from .._dtypes import numpy_dtype
-from .._launch import launch_check, on_device
+from .._launch import count_launch, launch_check, on_device
 
 __all__ = [
     "FoldLaunch",
@@ -81,7 +86,9 @@ __all__ = [
     "k2_halo_width",
 ]
 
-_FLOATS = (torch.float32, torch.float64)
+_FLOATS = (torch.float32, torch.float64)  # the assemblers' dtypes
+# the SpMVs' dtypes, by the suffix of their launchers
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
 _SMEM_MAX = 232448  # shared memory one block may use on the H100
 _SMS = 132
 _L2_BYTES = 50 * 2 ** 20  # outputs and operators beyond the L2 stream evict-first
@@ -90,26 +97,27 @@ _L2_BYTES = 50 * 2 ** 20  # outputs and operators beyond the L2 stream evict-fir
 def declare_signatures(lib: ctypes.CDLL) -> None:
     """ctypes argtypes/restype of the launchers in csrc/lattice_kernels.cu."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    for suf, F in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+    for suf in _SUFFIX.values():
         mv = getattr(lib, f"dmt_dia_matvec_{suf}")
         mv.argtypes = [P, P, P, P, P]
         mv.restype = I
+        bm = getattr(lib, f"dmt_blocked_matvec_{suf}")
+        bm.argtypes = [P, P, P, P, P, P]
+        bm.restype = I
+    for suf, F in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         fa = getattr(lib, f"dmt_fold_assemble_{suf}")
         fa.argtypes = [P, P, P, P, P, P, F, F, P]
         fa.restype = I
         fm = getattr(lib, f"dmt_fold_assemble_masked_{suf}")
         fm.argtypes = [P, P, P, P, P, P, P, F, F, P]
         fm.restype = I
-        bm = getattr(lib, f"dmt_blocked_matvec_{suf}")
-        bm.argtypes = [P, P, P, P, P, P]
-        bm.restype = I
         fr = getattr(lib, f"dmt_fold_assemble_raw_{suf}")
         fr.argtypes = [P, P, P, P, P, I, F, P]
         fr.restype = I
 
 
 def _suffix(dtype):
-    return "f32" if dtype == torch.float32 else "f64"
+    return _SUFFIX[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -175,13 +183,14 @@ def _probe_constant_M(term, gdim, bs=1):
 
 def fold_kernel_supported(clf) -> bool:
     """The lean fold forms the assemblers cover: 3D tetrahedra, scalar at
-    degree 1 or 2 and block size <= 3 at degree 1, constant feature matrix
-    (``pallas_supported`` without its backend and f32 conditions; the JAX
-    package reaches it only through its SoA kernel, which no hexahedron
-    mesh gets, and build_fold_table's geometry is the affine one of a
-    simplex)."""
+    degree 1 or 2 and block size <= 3 at degree 1, constant feature matrix,
+    a real dtype (``pallas_supported`` without its backend condition and
+    with float64 beside its float32: a complex form takes the JAX package's
+    XLA lean path there and the element-kernel path here; the JAX package
+    reaches it only through its SoA kernel, which no hexahedron mesh gets,
+    and build_fold_table's geometry is the affine one of a simplex)."""
     if not (clf.refine in (1, 2) and (clf.bs == 1 or (clf.bs <= 3 and clf.refine == 1))
-            and clf.mesh.tdim == 3 and clf.mesh.ref_cell.is_simplex):
+            and clf.mesh.tdim == 3 and clf.mesh.ref_cell.is_simplex and np.dtype(clf.dtype).kind == "f"):
         return False
     return _probe_constant_M(clf.term, clf.mesh.gdim, clf.bs) is not None
 
@@ -907,8 +916,8 @@ class _DiaLaunch:
         self.name = name
         if data.device.type != "cuda":
             raise RuntimeError(f"{name}: data on {data.device}")
-        if data.dtype not in _FLOATS:
-            raise TypeError(f"{name}: data {data.dtype} (need float32/float64)")
+        if data.dtype not in _SUFFIX:
+            raise TypeError(f"{name}: data {data.dtype} (need float32/float64/complex64/complex128)")
         self.n = n0 * n1 * n2 * bs
         if data.numel() != n_off * bs * self.n:
             raise ValueError(f"{name}: data {tuple(data.shape)} does not match {n_off} offsets on {vshape} "
@@ -947,7 +956,7 @@ class DiaMatvecLaunch(_DiaLaunch):
 
     def __call__(self, x):
         y = self._launch(x)
-        dia_matvec.launches += 1
+        count_launch(dia_matvec, self.dtype)
         return y
 
 
@@ -963,7 +972,7 @@ class DiaBsMatvecLaunch(_DiaLaunch):
 
     def __call__(self, x):
         y = self._launch(x)
-        dia_matvec_bs.launches += 1
+        count_launch(dia_matvec_bs, self.dtype)
         by_grid = dia_matvec_bs.launches_by_grid
         by_grid[self.vshape] = by_grid.get(self.vshape, 0) + 1
         return y
@@ -982,7 +991,9 @@ def dia_matvec(data, offsets, vshape, x):
     function prepares the launch for the one call; DIAMatrix prepares it
     once (DiaMatvecLaunch) and calls it directly.  CPU tensors run the plain
     version; every bs=1 DIA matvec on a CUDA tensor launches the kernel, at
-    any grid size."""
+    any grid size, in float32, float64, complex64 or complex128 (a complex
+    value is one 8- or 16-byte copy into the ring, and the bytes per point
+    double)."""
     n0, n1, n2 = vshape
     n_off = len(offsets)
     if data.device.type == "cpu" and x.device.type == "cpu":
@@ -993,6 +1004,7 @@ def dia_matvec(data, offsets, vshape, x):
 
 
 dia_matvec.launches = 0
+dia_matvec.launches_by_dtype = {}
 
 
 # ---------------------------------------------------------------------------
@@ -1017,7 +1029,8 @@ def dia_matvec_bs(data, offsets, vshape, bs, x):
     (offset, then cj).  Bound by device memory: (bs^2 n_off + 2 bs) values
     per point, 155 MB per fine matvec of P1 elasticity at n=64 in f32.  This
     function prepares the launch for the one call; DIAMatrix prepares it
-    once (DiaBsMatvecLaunch).  CPU tensors run the plain version."""
+    once (DiaBsMatvecLaunch).  CPU tensors run the plain version.  The four
+    dtypes of K2; complex128 issues two offsets' loads at a time, not three."""
     if data.device.type == "cpu" and x.device.type == "cpu":
         return dia_matvec_plain(data, offsets, vshape, bs, x)
     if data.device.type != "cuda" or x.device != data.device:
@@ -1026,6 +1039,7 @@ def dia_matvec_bs(data, offsets, vshape, bs, x):
 
 
 dia_matvec_bs.launches = 0
+dia_matvec_bs.launches_by_dtype = {}
 dia_matvec_bs.launches_by_grid = {}
 
 
@@ -1076,7 +1090,10 @@ def blocked_launch_params(trips, classes, cdims, itemsize=4, pts=None, li=None) 
     block resident in one wave (two such blocks per SM, fewer where the
     ring's shared memory allows fewer): on the H100 that beat 256 points per
     block and one plane per block at 8 x 65^3 and equals them at 8 x 33^3
-    (chip_smoke.py's sweep).  The data planes are loaded evict-first where
+    (chip_smoke.py's sweep).  Where the ring of 512 points per class
+    overflows a block's shared memory, as complex128's 16-byte values do at
+    8 x 65^3 (330 KB), the block takes 256, 128 or 64 points (whole warps of
+    2-point threads), the most that fit.  The data planes are loaded evict-first where
     they exceed the 50 MB L2 (8 x 65^3: 253 MB), through the cache where
     they fit (8 x 33^3: 33 MB).  The keywords override the defaults.
     Raises where the kernel cannot take the operator: more than 32 classes
@@ -1089,8 +1106,12 @@ def blocked_launch_params(trips, classes, cdims, itemsize=4, pts=None, li=None) 
                          f"classes and 1 to 65535 triples)")
     if max(n_cls, n_trip) * s0 * s1 * s2 >= 2 ** 31:
         raise ValueError(f"blocked_matvec: class grids {cdims} hold 2^31 values or more")
-    pts = pts or _K6_R * _K6_THREADS
-    smem = 8 * (n_trip + 1) + 4 * n_cls * (pts + 2 * (s2 + 1)) * itemsize
+    def smem_of(q):
+        return 8 * (n_trip + 1) + 4 * n_cls * (q + 2 * (s2 + 1)) * itemsize
+
+    if pts is None:
+        pts = next((q for q in (_K6_R * _K6_THREADS, 256, 128) if smem_of(q) <= _SMEM_MAX), 64)
+    smem = smem_of(pts)
     if smem > _SMEM_MAX:
         raise ValueError(f"blocked_matvec: rows of {s2} points need more shared memory than a block has")
     if li is None:
@@ -1129,8 +1150,8 @@ class BlockedMatvecLaunch:
     def __init__(self, data, trips, classes):
         if data.device.type != "cuda":
             raise RuntimeError(f"blocked_matvec: data on {data.device}")
-        if data.dtype not in _FLOATS:
-            raise TypeError(f"blocked_matvec: data {data.dtype} (need float32/float64)")
+        if data.dtype not in _SUFFIX:
+            raise TypeError(f"blocked_matvec: data {data.dtype} (need float32/float64/complex64/complex128)")
         if data.dim() != 4 or data.shape[0] != len(trips):
             raise ValueError(f"blocked_matvec: data {tuple(data.shape)} does not hold {len(trips)} triples")
         if not data.is_contiguous():
@@ -1158,7 +1179,7 @@ class BlockedMatvecLaunch:
         dp, tp, pp = self.args
         xp, yp = xb.data_ptr(), y.data_ptr()
         launch_check(on_device(self.index, lambda st: self.fn(dp, xp, yp, tp, pp, st)), "blocked_matvec")
-        blocked_matvec.launches += 1
+        count_launch(blocked_matvec, self.dtype)
         return y
 
 
@@ -1175,7 +1196,10 @@ def blocked_matvec(data, trips, classes, xb):
     zero-filled outside the grid in place of the halo pad / roll + mask.  Bound by device memory: (n_trip + 2 n_cls) values
     per coarse point, 270 MB per matvec at n=64 in f32.  This function
     prepares the launch for the one call; BlockDIAMatrix prepares it once
-    (BlockedMatvecLaunch).  CPU tensors run the plain version."""
+    (BlockedMatvecLaunch).  CPU tensors run the plain version.  The four
+    dtypes of K2; complex128 issues 8 triples' loads at a time, and its ring
+    takes 256 plane points per block where 512 would overflow shared memory
+    (blocked_launch_params)."""
     if data.device.type == "cpu" and xb.device.type == "cpu":
         return blocked_matvec_plain(data, trips, classes, xb)
     if data.device.type != "cuda" or xb.device != data.device:
@@ -1184,3 +1208,4 @@ def blocked_matvec(data, trips, classes, xb):
 
 
 blocked_matvec.launches = 0
+blocked_matvec.launches_by_dtype = {}

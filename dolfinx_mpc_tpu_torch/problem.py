@@ -35,6 +35,7 @@ from .la.solvers import AMG_PC_TYPES, SolverOptions, solve as krylov_solve
 from .multipointconstraint import MultiPointConstraint
 from .ops.assemble import apply_lifting, assemble_matrix, assemble_vector, set_bc
 from .ops.lattice import assemble_matrix_lattice
+from .utils.timing import timed
 
 __all__ = ["LinearProblem", "NonlinearProblem", "NonlinearProblemNest"]
 
@@ -100,8 +101,8 @@ class LinearProblem:
         element kernel would not take (soa_kernel_supported), where the JAX
         package falls back too — the general slot-CSR matrix
         (dolfinx_mpc_tpu/problem.py:71-98).  Each lattice form compiles
-        once per value-keyed constraint, bcs and dtype; a complex dtype
-        (ROADMAP queue 1, item 18b) takes the general assembler."""
+        once per value-keyed constraint, bcs and dtype, complex dtypes
+        included."""
         a = self._a if form is None else form
         general = lambda: assemble_matrix(a, self.mpc, self.bcs, dtype=dtype, device=self.mpc.device)  # noqa: E731
         if get_lattice_info(a.test_space.mesh) is None:
@@ -115,7 +116,7 @@ class LinearProblem:
                     clf = assemble_matrix_lattice(a, self.mpc, bcs=self.bcs, dtype=dtype, side_format=fmt,
                                                   device=self.mpc.device)
                     break
-                except (ValueError, NotImplementedError):  # not a plane wrap / no SoA kernel / complex
+                except ValueError:  # not a plane wrap / no SoA kernel
                     clf = None
             cache[key] = clf if clf is not None and clf.soa else None
         clf = cache[key]
@@ -141,11 +142,13 @@ class LinearProblem:
             from .utils.mpc_utils import rigid_motions_nullspace
 
             ns = rigid_motions_nullspace(V)
-        x, its, rnorm = krylov_solve(A.matvec, b, self.options, diag=A.diagonal(), Aop=A, bs=bs,
-                                     Pop=self._P_mat, nullspace=ns)
+        with timed("~MPC: Solve linear problem"):
+            x, its, rnorm = krylov_solve(A.matvec, b, self.options, diag=A.diagonal(), Aop=A, bs=bs,
+                                         Pop=self._P_mat, nullspace=ns)
         self.its = int(its)
         self.rnorm = float(rnorm)
-        x = self.mpc.finalized.backsubstitution(x)
+        with timed("~MPC: Backsubstitution"):
+            x = self.mpc.finalized.backsubstitution(x)
         self.u.x.array.copy_(x)
         return self.u
 

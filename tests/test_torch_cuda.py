@@ -848,3 +848,100 @@ def test_side_formats_on_card_match_cpu(cuda, side_format):
     y_ref = A_cpu.matvec(x)
     assert float((y.cpu() - y_ref).abs().max()) <= 1e-13 * float(y_ref.abs().max())
     assert float((A.diagonal().cpu() - A_cpu.diagonal()).abs().max()) <= 1e-13 * float(A_cpu.diagonal().abs().max())
+
+
+COMPLEX = [(torch.complex64, 5e-6), (torch.complex128, 1e-12)]
+
+
+def _crandn(rng, shape):
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+@pytest.mark.parametrize("dtype,tol", COMPLEX, ids=["c64", "c128"])
+def test_complex_k2_k7_match_plain_on_card(cuda, dtype, tol):
+    """K2 (the P1 15-offset and the refined P2 65-offset stencils) and K7
+    (bs 2 and 3 on the P1 stencil, bs 3 at 65 offsets) in complex64 and
+    complex128 against the plain version on complex random planes over
+    9^3, 33^3 and a ragged 7 x 13 x 70 grid (odd rows: no 16-byte
+    alignment for the 8-byte c64 values); one launch per matvec, two calls
+    bit-equal."""
+    from dolfinx_mpc_tpu_torch.ops.lattice import DIAMatrix
+
+    p1 = _problem((2, 2, 2), np.float64, "cpu")[5].offsets
+    p2 = _problem((2, 2, 2), np.float64, "cpu", degree=2)[5].offsets
+    rng = np.random.default_rng(4)
+    for offs, bs, grids in ((p1, 1, ((9, 9, 9), (33, 33, 33), (7, 13, 70))), (p2, 1, ((9, 9, 9), (7, 13, 70))),
+                            (p1, 2, ((9, 9, 9), (7, 13, 70))), (p1, 3, ((9, 9, 9), (33, 33, 33), (7, 13, 70))),
+                            (p2, 3, ((9, 9, 9),))):
+        counter = LK.dia_matvec if bs == 1 else LK.dia_matvec_bs
+        for vshape in grids:
+            data = torch.as_tensor(_crandn(rng, (len(offs), bs, bs) + vshape), device=cuda).to(dtype)
+            x = torch.as_tensor(_crandn(rng, bs * int(np.prod(vshape))), device=cuda).to(dtype)
+            dia = DIAMatrix(data, offs, vshape, bs)
+            n0 = counter.launches
+            y = dia.matvec(x)
+            y2 = dia.matvec(x)
+            torch.cuda.synchronize()
+            assert counter.launches == n0 + 2 and torch.equal(y, y2) and y.dtype == dtype
+            y_ref = LK.dia_matvec_plain(data, offs, vshape, bs, x)
+            rel = float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref))
+            assert rel <= tol, (len(offs), bs, vshape, rel)
+
+
+@pytest.mark.parametrize("dtype,tol", COMPLEX, ids=["c64", "c128"])
+def test_complex_k6_matches_plain_on_card(cuda, dtype, tol):
+    """K6 in complex64 and complex128 against its plain version with the 230
+    P2 triples over 8 x 9^3 and 8 x 33^3 class grids and a ragged 8 x 5 x 7
+    x 70 stack without the body class's triples; complex128 takes 256 plane
+    points per block (512 would overflow shared memory).  One launch per
+    matvec, two calls bit-equal."""
+    from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix
+
+    trips = _problem((2, 2, 2), np.float64, "cpu", degree=2)[5].trips
+    rng = np.random.default_rng(5)
+    for cdims, tr in (((9, 9, 9), trips), ((33, 33, 33), trips),
+                      ((5, 7, 70), [t for t in trips if t[0] != (1, 1, 1)])):
+        data = torch.as_tensor(_crandn(rng, (len(tr),) + cdims), device=cuda).to(dtype)
+        dia = BlockDIAMatrix(data, tr, tuple(2 * s - 1 for s in cdims), (2, 2, 2))
+        xb = torch.as_tensor(_crandn(rng, (8,) + cdims), device=cuda).to(dtype)
+        n6 = LK.blocked_matvec.launches
+        y = dia.matvec_blocked(xb)
+        y2 = dia.matvec_blocked(xb)
+        torch.cuda.synchronize()
+        assert LK.blocked_matvec.launches == n6 + 2 and torch.equal(y, y2)
+        assert dia._launch.params.pts == (256 if dtype == torch.complex128 else 512)
+        y_ref = LK.blocked_matvec_plain(data, tr, dia.classes, xb)
+        rel = float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref))
+        assert rel <= tol, (cdims, len(tr), rel)
+
+
+@pytest.mark.parametrize("dtype,tol", COMPLEX, ids=["c64", "c128"])
+def test_complex_k8_matches_plain_on_card(cuda, dtype, tol):
+    """K8 in complex64 and complex128 on the packed layout of a complex
+    mesh-like matrix (also with mt_cap=2: most of it in the remainder) and
+    of the complex tied-contact operator (NB=4/NT=3), against its plain
+    version and scipy; one launch per matvec."""
+    import scipy.sparse as sp
+
+    from dolfinx_mpc_tpu_torch.la import bell as BL
+
+    rng = np.random.default_rng(6)
+    n = 1000
+    rows = np.repeat(np.arange(n), 11)
+    cols = np.clip(rows + rng.integers(-40, 41, rows.shape[0]), 0, n - 1)
+    A = sp.coo_matrix((_crandn(rng, rows.shape[0]), (rows, cols)), shape=(n, n)).tocsr()
+    V, bcs, mpc, a, _ = _contact_problem(4, 3, np.complex128, "cpu")
+    C = pt.assemble_matrix(a, mpc, bcs).to_scipy()
+    ndt = np.complex64 if dtype == torch.complex64 else np.complex128
+    for M, kw in ((A, {}), (A, {"mt_cap": 2}), (C, {})):
+        B = BL.bell_from_scipy(M, dtype=ndt, device=cuda, **kw)
+        assert B.packed.vals.dtype == dtype
+        x = torch.as_tensor(_crandn(rng, M.shape[1]).astype(ndt), device=cuda)
+        n8 = BL.bell_matvec.launches
+        y = B.matvec(x)
+        torch.cuda.synchronize()
+        assert BL.bell_matvec.launches == n8 + 1
+        y_ref = BL.bell_packed_matvec_plain(B.packed, x)
+        assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= tol
+        y_sp = M @ x.cpu().numpy().astype(np.complex128)
+        assert np.linalg.norm(y.cpu().numpy() - y_sp) / np.linalg.norm(y_sp) <= 10 * max(tol, 1e-12)

@@ -1,8 +1,8 @@
 """Cell integrals over cell subsets (entities= on cell forms) through the
 port's general assembler against the JAX package's, in the real dtypes
-(tests/test_integration_domains.py; complex scalars are ROADMAP queue 1,
-item 18b): the constrained matrix equals the JAX package's and the K^H A K
-oracle."""
+(tests/test_integration_domains.py; its complex128 case is in
+tests/test_torch_complex.py): the constrained matrix equals the JAX
+package's and the K^H A K oracle."""
 
 import numpy as np
 import pytest

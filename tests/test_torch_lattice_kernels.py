@@ -181,11 +181,11 @@ def test_unported_lattice_forms_raise():
     """Forms the assemblers do not cover take the element-kernel paths
     without any assembler launch (an x-dependent integrand on fold, the
     "cells" side format, a vector space at degree 2 on the refined
-    65-offset grid), and the one the port does not assemble yet, a complex
-    dtype, raises NotImplementedError naming its ROADMAP item instead of
-    silently taking another path; a non-separable Dirichlet set goes to
-    K3's plain version on the CPU and equals the grid masking, and a
-    degree-2 form assembles (K4)."""
+    65-offset grid, and a complex dtype, which raised NotImplementedError
+    before complex scalars were ported: it takes the lean path, as the JAX
+    package takes its XLA path, and equals the real operator); a
+    non-separable Dirichlet set goes to K3's plain version on the CPU and
+    equals the grid masking, and a degree-2 form assembles (K4)."""
     mesh = pt_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 3, 3))
     V = pt.functionspace(mesh, ("Lagrange", 1))
     mpc = pt.MultiPointConstraint(V, np.float64, device="cpu")
@@ -216,8 +216,11 @@ def test_unported_lattice_forms_raise():
     mpc_c.create_periodic_constraint_geometrical(
         V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [])
     mpc_c.finalize()
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        pt_lattice(a, mpc_c, dtype=np.complex128, side_format="fold", device="cpu")
+    clf_c = pt_lattice(a, mpc_c, dtype=np.complex128, side_format="fold", device="cpu")
+    A_c = clf_c.assemble()
+    assert clf_c._route == "lean" and launches() == n0 and A_c.dia.data.dtype == torch.complex128
+    A_r = pt_lattice(a, mpc, side_format="fold", device="cpu").assemble()
+    assert float((A_c.dia.data - A_r.dia.data).abs().max()) <= 1e-12 * float(A_r.dia.data.abs().max())
     blob = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(V, lambda x: x.sum(axis=0) < 0.35), V)
     clf = pt_lattice(a, mpc, bcs=[blob], side_format="fold", device="cpu")
     assert clf.table.factors is None
@@ -415,6 +418,37 @@ def test_k6_launch_rule_and_limits():
         LK.blocked_launch_params(trips, classes * 5, (5, 5, 5))
     with pytest.raises(ValueError, match="shared memory"):
         LK.blocked_launch_params(trips, classes, (5, 5, 4000), 8)
+
+
+@pytest.mark.parametrize("itemsize", [8, 16], ids=["c64", "c128"])
+def test_complex_spmv_launch_limits(itemsize):
+    """K2, K7 and K6 at the complex element sizes (complex64 8 B,
+    complex128 16 B): every ring of the paths' grids fits one block's
+    shared memory (K2 and K7 at W = 1 on 65^3 and 129^3, K7 at the refined
+    grid's 65 offsets, W = 2, on 65^3 x 3: 149,760 B at 16 B), K7 streams
+    its planes at 65^3 (the bytes double), K2 never does; K6's ring of 8
+    classes takes 512 plane points in complex64 and 256 in complex128
+    (512 would need 330 KB), with the x planes per block of one resident
+    wave; rows beyond shared memory still raise."""
+    p1 = _pt_form_clf((2, 2, 2), 1, True).offsets
+    p2 = _pt_form_clf((2, 2, 2), 2, True).offsets
+    smem = lambda p: (2 * p.w + 2) * (256 + 2 * (p.w * p.n2 + p.w)) * p.bs * itemsize  # noqa: E731
+    for offs, bs, n, w, stream in ((p1, 1, 65, 1, 0), (p1, 1, 129, 1, 0), (p1, 3, 65, 1, 1), (p1, 3, 129, 1, 1),
+                                   (p2, 3, 65, 2, 1), (p2, 1, 129, 2, 0)):
+        prm = LK.dia_launch_params(offs, (n, n, n), itemsize, bs)
+        assert (prm.w, prm.bs, prm.stream) == (w, bs, stream) and smem(prm) <= 232448
+    if itemsize == 16:
+        assert smem(LK.dia_launch_params(p2, (65, 65, 65), 16, 3)) == 149760
+    with pytest.raises(ValueError, match="shared memory"):
+        LK.dia_launch_params(p1, (65, 65, 20000), itemsize, 1)
+    trips = _pt_form_clf((2, 2, 2), 2, True).trips
+    classes = tuple(itertools.product((0, 1), repeat=3))
+    prm = LK.blocked_launch_params(trips, classes, (65, 65, 65), itemsize)
+    assert (prm.pts, prm.li, prm.stream) == ((512, 5, 1) if itemsize == 8 else (256, 9, 1))
+    assert 8 * (len(trips) + 1) + 4 * 8 * (prm.pts + 2 * 66) * itemsize <= 232448
+    assert LK.blocked_launch_params(trips, classes, (33, 33, 33), itemsize).pts == (512 if itemsize == 8 else 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        LK.blocked_launch_params(trips, classes, (5, 5, 4000), itemsize)
 
 
 def test_prepared_launches_refuse_cpu_data_and_cpu_operators_launch_nothing():

@@ -7,8 +7,8 @@ NestVector (ops/nest.py) and the Taylor-Hood channel flow of order 2 and 3
 on tets and hexes.
 
 Mirrors tests/test_mixed_space.py, tests/test_stokes_channelflow.py and
-tests/test_rectangular_and_nest.py on the same inputs (real dtypes; complex
-is ROADMAP item 18b).  Tolerances: host tables (dofmaps, slaves, masters,
+tests/test_rectangular_and_nest.py on the same inputs (real dtypes; the
+complex128 cases are in tests/test_torch_complex.py).  Tolerances: host tables (dofmaps, slaves, masters,
 coefficients) bit-equal; assembled matrices and vectors 1e-12 relative to
 their largest entry; solutions 1e-8 against the scipy oracle
 K (K^T A K)^-1 K^T b (tests/conftest.py:42-45) and 1e-10 against the JAX
