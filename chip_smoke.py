@@ -147,12 +147,35 @@ each (or a few), any failure exits non-zero:
    K2, K7, K6 and K8 each launched in complex128; 12d the list_timings()
    table of phase 12, every "~MPC:" span opened.
 
+13. (run first, right after the build: its ranks share the card with
+   this process) the distributed paths (slice13_phases), float64, every rank one
+   spawned process (parallel.run_ranks), its launch counts read in the
+   rank: 13a dryrun_multichip(8) on 8 gloo ranks sharing the card (the six
+   scenarios of the JAX package's dry run, their counts against
+   MULTICHIP_r05.json +-2, their own solution gates), then on 1 NCCL rank,
+   and on NCCL over every card where there are two or more; 13b bench.py's
+   P1 problem at n=64 through ShardedLatticeProblem with the two-level GMG
+   (coarse LatticeGMG 32 -> 8 built on the card) on 4 gloo ranks sharing
+   the card and on 1 NCCL rank (counts within 2 of each other), and bs=3
+   elasticity at n=16 (K7); 13c the million-dof case of
+   tests/test_lattice_spmd.py (n=102, 1,092,727 dofs, Chebyshev 4, rtol
+   1e-11) on the 4 ranks; 13d the general path (ShardedLinearProblem, K8 on
+   each rank's row block) at n=64 on the 4 ranks; each within 1e-7 of the
+   port's single-device solve, with per-rank ms/it, the exchange's host
+   ms/it, memory_report, peak device memory and launches; after the
+   counts are read, each rank holds its case's SpMV kernel against the
+   plain version on its own operator (K2 / K7 on the halo-extended slab
+   box, K8 on the ghost-window row block; 1e-12 relative, f64); 13e the
+   SoA element kernel against the cell-first kernel on the 1,572,864 cells
+   of the coefficient form at n=64 (1e-12), with both times.
+
 The last two lines are the card's nvidia-smi line and
 {"ok": true, "device": {...}}; the line before them lists every kernel
 (K1-K8, then K2, K7, K6 and K8 again for their complex instantiations,
 with their phase-12 launches and complex64's numbers, complex128's under
 "complex128") with its launches on its path (K8 also on the slip-contact path,
-under "slip_contact", and on the nest Stokes path, under "stokes_nest"; K1
+under "slip_contact", and on the nest Stokes path, under "stokes_nest"; K1,
+K2, K7 and K8 on phase 13's runs, per rank, under "spmd"; K1
 and K2 on the Krylov paths, under "krylov"; K2, K6 and K7 on phase 11's
 paths and their checks on its new grids, under "lattice_formats"), its error against the plain version,
 its time, the plain version's, the cuSPARSE product's for the SpMVs (K2,
@@ -2898,7 +2921,7 @@ def oracle_c128(dev, kind):
                                  + 1.25 * div(u) * conj(div(v)), quad_degree=1)
             L = dmt.LinearForm(V, lambda v, c: (1.0 + 1j * c.x[0] * c.x[2]) * v.value[..., 0] - v.value[..., 2])
         else:
-            # P2 at quad_degree 2, where the lattice path takes it (soa_kernel_supported)
+            # P2 at quad_degree 2, where the lattice path takes it (soa_supported)
             a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)) + inner(u, v),
                                  quad_degree=2 if kind == "P2" else None)
             L = dmt.LinearForm(V, lambda v, c: (1.0 + c.x[0] + 0.5j * c.x[1]) * v.value)
@@ -3009,6 +3032,332 @@ def slice12_phases(dev, gen, k8c):
     return launches, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the distributed paths on ranks sharing the card (gloo) and on
+# NCCL ranks, each rank one spawned process (parallel/launch.py:run_ranks)
+# ---------------------------------------------------------------------------
+
+# the CG counts of the JAX package's dry run on 8 devices (MULTICHIP_r05.json)
+MULTICHIP_R05_ITS = {"lattice-halo": 70, "lattice-2d": 70, "lattice-gmg": 15, "lattice-gmg-3level": 16,
+                     "general": 70, "contact": 67}
+N_SPMD = 64  # bench.py's P1 problem: 274,625 dofs
+N_SPMD_MILLION = 102  # tests/test_lattice_spmd.py's million-dof case: 1,092,727 dofs
+N_SPMD_VECTOR = 16
+SPMD_GATE = 1e-7
+SPMD_KERNEL_GATE = 1e-12  # f64 kernel against its plain version, relative to max|y|
+
+
+def spmd_problem(n, dev, bc_value=0.0, vector=False):
+    """The sharded paths' problem on the unit cube: P1 tets, periodic in x,
+    Dirichlet bc_value on y = 0 and 1, quad_degree 1; Poisson with source
+    4 (bench.py's P1 problem at bc_value 0, tests/test_lattice_spmd.py's at
+    0.5) or, vector, bs=3 elasticity (mu 1, lambda 1.25) under a constant
+    body force.  Returns (V, a, L, mpc, bcs), float64 on `dev`."""
+    import numpy as np
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import conj, div, grad, inner, sym
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+
+    V = dmt.functionspace(create_unit_cube(n, n, n), ("Lagrange", 1, (3,)) if vector else ("Lagrange", 1))
+    g = np.zeros(3) if vector else bc_value
+    bc = dmt.dirichletbc(g, dmt.locate_dofs_geometrical(V, y_planes), V)
+    mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    if vector:
+        a = dmt.BilinearForm(V, lambda u, v, c: 2.0 * inner(sym(grad(u)), sym(grad(v))) + 1.25 * div(u) * conj(div(v)),
+                             quad_degree=1)
+        L = dmt.LinearForm(V, lambda v, c: v.value[..., 0] + 0.5 * v.value[..., 2])
+    else:
+        a = dmt.BilinearForm(V, lambda u, v, c: inner(grad(u), grad(v)), quad_degree=1)
+        L = dmt.LinearForm(V, lambda v, c: 4.0 * v.value)
+    return V, a, L, mpc, [bc]
+
+
+def _spmd_case(info, case, n):
+    """One sharded solve on this rank: "gmg" (P1 n=64, two-level GMG over
+    a replicated (32, 16, 8) LatticeGMG built on the card, rtol 1e-10),
+    "general" (P1 n=64 through ShardedLinearProblem, Jacobi, rtol 1e-10),
+    "vector" (bs=3 n=16, Jacobi, rtol 1e-10) or "million" (n=102,
+    Chebyshev degree 4, rtol 1e-11).  Returns the numbers of the case (the
+    solution from rank 0 only)."""
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.la.gmg import LatticeGMG, build_gmg_hierarchy
+    from dolfinx_mpc_tpu_torch.ops.lattice import assemble_matrix_lattice
+    from dolfinx_mpc_tpu_torch.parallel import ShardedLatticeProblem, ShardedLinearProblem, make_device_mesh
+    from dolfinx_mpc_tpu_torch.parallel.dryrun import launch_counts
+
+    dev = info.device
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    V, a, L, mpc, bcs = spmd_problem(n, dev, 0.5 if case == "million" else 0.0, vector=case == "vector")
+    mesh = make_device_mesh(device=dev)
+    if case == "general":
+        prob = ShardedLinearProblem(a, L, mpc, bcs, device_mesh=mesh, rtol=1e-10, max_it=5000)
+    elif case == "gmg":
+        def level(m):
+            _, al, _, mpcl, bcl = spmd_problem(m, dev)
+            return assemble_matrix_lattice(al, mpcl, bcs=bcl, side_format="fold", device=dev)
+
+        ops, masks = build_gmg_hierarchy(level, n // 2, 3, min_n=4)
+        prob = ShardedLatticeProblem(a, L, mpc, bcs, device_mesh=mesh, rtol=1e-10, pc_type="gmg",
+                                     coarse_gmg=LatticeGMG(ops, free_masks=masks))
+    elif case == "million":
+        prob = ShardedLatticeProblem(a, L, mpc, bcs, device_mesh=mesh, rtol=1e-11, pc_type="chebyshev",
+                                     cheb_degree=4)
+    else:
+        prob = ShardedLatticeProblem(a, L, mpc, bcs, device_mesh=mesh, rtol=1e-10, max_it=5000)
+    t_build = time.perf_counter() - t0
+    u, its, rnorm = prob.solve()
+    if on_card:
+        torch.cuda.synchronize()
+    after = launch_counts()
+    out = dict(case=case, rank=info.rank, dofs=V.num_dofs, its=its, rnorm=rnorm, build_s=t_build, **prob.times,
+               peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else 0.0, backend=info.backend,
+               launches={k: after[k] - before[k] for k in after}, finite=bool(torch.isfinite(u).all()))
+    if case == "general":
+        out["window"] = prob._window
+    else:
+        out["memory"] = prob.memory_report()
+    if info.rank == 0:
+        out["u"] = u.cpu().numpy()
+    out["vs_plain"] = _rank_kernel_check(prob, case, dev, info.rank)  # after the counts: not counted
+    return out
+
+
+def _rank_kernel_check(prob, case, dev, rank):
+    """The case's SpMV kernel on this rank's own operator, at the shape the
+    solve gave it, against its plain version on one seeded vector: K2 (bs =
+    1) or K7 (bs = 3) on the rank's halo-extended DIAMatrix, K8 on the
+    rank's ghost-window row block (a BellPacked CSR).  Returns the kernel,
+    the shape and max|y - y_plain| / max|y_plain|."""
+    import torch
+
+    from dolfinx_mpc_tpu_torch.la.bell import bell_matvec, bell_packed_matvec_plain
+    from dolfinx_mpc_tpu_torch.ops.lattice_kernels import dia_matvec_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 + rank)
+    if case == "general":
+        A = prob._assemble()[0]
+        x = torch.rand(A.shape[1], generator=gen, dtype=A.vals.dtype, device=dev)
+        y, ref = bell_matvec(A, x), bell_packed_matvec_plain(A, x)
+        kid, shape = "K8", f"{A.shape[0]} x {A.shape[1]}, {A.nnz} nonzeros"
+    else:
+        dia = prob._assemble()[0]
+        x = torch.rand(dia.shape[0], generator=gen, dtype=dia.data.dtype, device=dev)
+        y = dia.matvec(x)
+        ref = dia_matvec_plain(dia.data.reshape(len(dia.offsets), dia.bs, dia.bs, *dia.vshape), dia.offsets,
+                               dia.vshape, dia.bs, x)
+        kid, shape = ("K2" if dia.bs == 1 else "K7"), "x".join(map(str, dia.vshape)) + f" x {dia.bs}"
+    rel = float((y - ref).abs().max() / ref.abs().max())
+    return dict(kernel=kid, shape=shape, rel=rel)
+
+
+def _spmd_rank(info, cases):
+    return [_spmd_case(info, c, n) for c, n in cases]
+
+
+def single_device_solution(n, dev, bc_value=0.0, vector=False):
+    """The port's single-device solve of spmd_problem on the card, float64,
+    rtol 1e-12: LinearProblem (fold operator, Jacobi-CG) below n=100, the
+    fold operator with GMG-CG (levels n, n/2, Chebyshev smoother) above."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+
+    V, a, L, mpc, bcs = spmd_problem(n, dev, bc_value, vector)
+    t0 = time.time()
+    if n < 100:
+        prob = dmt.LinearProblem(a, L, mpc, bcs=bcs, petsc_options={"ksp_rtol": 1e-12, "ksp_atol": 0.0,
+                                                                    "ksp_max_it": 20000})
+        u = prob.solve().x.array
+        its = prob.its
+    else:
+        A = dmt.assemble_matrix_lattice(a, mpc, bcs=bcs, side_format="fold", device=dev).assemble()
+        b = dmt.set_bc(dmt.apply_lifting(dmt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+
+        def level(m):
+            _, al, _, mpcl, bcl = spmd_problem(m, dev, bc_value)
+            return dmt.assemble_matrix_lattice(al, mpcl, bcs=bcl, side_format="fold", device=dev)
+
+        ops, masks = dmt.build_gmg_hierarchy(level, n, 2, min_n=8)
+        ops[0] = A
+        M = dmt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev")
+        x, its, _ = dmt.cg(A.matvec, b, M=M, rtol=1e-12, atol=0.0, max_it=3000)
+        u = mpc.finalized.backsubstitution(x)
+    torch.cuda.synchronize()
+    return u.cpu().numpy(), int(its), time.time() - t0
+
+
+def _rank_line(r):
+    t = r["its"] or 1
+    mem = r.get("memory")
+    mtxt = (f", memory_report sharded {mem['sharded_per_device'] / 2 ** 20:.2f} MB (stencil "
+            f"{mem['stencil_data_per_device'] / 2 ** 20:.2f}, CG vectors {mem['solver_vectors_per_device'] / 2 ** 20:.2f})"
+            f" + replicated coarse {mem['replicated_coarse'] / 2 ** 20:.2f} MB" if mem else
+            f", ghost window {r.get('window')} of {r['dofs']}")
+    return (f"rank {r['rank']}: {1e3 * r['solve_s'] / t:.3f} ms/it, exchange host {1e3 * r['comm_s'] / t:.3f} ms/it "
+            f"({r['comm_calls'] / t:.1f} collectives/it), set-up {r['build_s']:.2f} + {r['setup_s']:.2f} s, peak device "
+            f"{r['peak_mb']:.1f} MB{mtxt}, launches {r['launches']}")
+
+
+def slice13_phases(dev, gen):
+    """Phase 13: 13a dryrun_multichip(8) on gloo ranks sharing the card,
+    against MULTICHIP_r05.json's counts (+-2) and with the dry run's own
+    solution gates, then on one NCCL rank (and on NCCL over every card
+    where there are two or more); 13b bench.py's P1 problem at n=64
+    through ShardedLatticeProblem with the two-level GMG on 4 gloo ranks
+    sharing the card and on 1 NCCL rank, and a bs=3 elasticity problem at
+    n=16 (K7); 13c the million-dof case (n=102, Chebyshev 4) on the 4
+    ranks; 13d the general path (ShardedLinearProblem) at n=64 on the 4
+    ranks; each against the single-device solve within 1e-7; 13e the SoA
+    element kernel against the cell-first kernel on 1,572,864 cells.
+    Each rank of 13b-13d also holds its SpMV kernel against the plain
+    version on its own operator.  Returns the phase's launches per rank,
+    those checks per rank and 13e's numbers."""
+    import numpy as np
+    import torch
+
+    from dolfinx_mpc_tpu_torch.parallel import run_ranks
+    from dolfinx_mpc_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.time()
+    reserved0 = torch.cuda.memory_reserved()
+    launches, vs_plain = {}, {}
+
+    def count_gate(name, outs):
+        for key, ref in MULTICHIP_R05_ITS.items():
+            if key in outs and abs(outs[key]["its"] - ref) > 2:
+                fail(f"{name}: {key} took {outs[key]['its']} CG its, MULTICHIP_r05.json {ref} (+-2 allowed)")
+
+    t0 = time.time()
+    print(f"13a dryrun_multichip(8, backend='gloo', device='cuda'): 8 ranks sharing {torch.cuda.get_device_name(0)}",
+          flush=True)
+    outs = dryrun_multichip(8, backend="gloo", device="cuda")
+    count_gate("13a gloo x 8", outs[0])
+    per_rank = [o["launches"] for o in outs]
+    print(f"13a transport gloo, 8 ranks: {time.time() - t0:.1f} s, counts "
+          f"{ {k: outs[0][k]['its'] for k in MULTICHIP_R05_ITS} } (MULTICHIP_r05.json {MULTICHIP_R05_ITS}); launches "
+          f"per rank {per_rank}", flush=True)
+    if min(c["K2"] for c in per_rank) <= 0 or min(c["K8"] for c in per_rank) <= 0:
+        fail(f"13a: every rank must launch K2 (slab matvecs, coarse levels) and K8 (row blocks): {per_rank}")
+    launches["13a gloo x 8"] = per_rank
+
+    t0 = time.time()
+    print("13a dryrun_multichip(1, backend='nccl', device='cuda'): 1 rank", flush=True)
+    nccl_dry = dryrun_multichip(1, backend="nccl", device="cuda")[0]
+    count_gate("13a nccl x 1", nccl_dry)
+    print(f"13a transport nccl, 1 rank: {time.time() - t0:.1f} s; launches {nccl_dry['launches']}", flush=True)
+    launches["13a nccl x 1"] = [nccl_dry["launches"]]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        print(f"13a dryrun_multichip({n_cards}, backend='nccl', device='cuda'): one rank per card", flush=True)
+        outs_n = dryrun_multichip(n_cards, backend="nccl", device="cuda")
+        count_gate(f"13a nccl x {n_cards}", outs_n[0])
+        launches[f"13a nccl x {n_cards}"] = [o["launches"] for o in outs_n]
+    else:
+        print(f"13a NCCL over several cards: not run ({n_cards} card)", flush=True)
+
+    t0 = time.time()
+    cases = (("gmg", N_SPMD), ("vector", N_SPMD_VECTOR), ("general", N_SPMD), ("million", N_SPMD_MILLION))
+    outs4 = run_ranks(_spmd_rank, 4, backend="gloo", device="cuda", args=(cases,))
+    t_ranks = time.time() - t0
+    t0 = time.time()
+    u64, its64, t64 = single_device_solution(N_SPMD, dev)
+    uvec, itsvec, tvec = single_device_solution(N_SPMD_VECTOR, dev, vector=True)
+    u102, its102, t102 = single_device_solution(N_SPMD_MILLION, dev, 0.5)
+    print(f"13b-d single-device references on the card (f64, rtol 1e-12): n={N_SPMD} {its64} its in {t64:.2f} s, "
+          f"bs=3 n={N_SPMD_VECTOR} {itsvec} its in {tvec:.2f} s, n={N_SPMD_MILLION} GMG-CG {its102} its in {t102:.2f} s; "
+          f"the 4 ranks' run {t_ranks:.1f} s", flush=True)
+    ref = {"gmg": u64, "general": u64, "vector": uvec, "million": u102}
+    label = {"gmg": f"13b P1 n={N_SPMD} two-level GMG", "vector": f"13b bs=3 n={N_SPMD_VECTOR} Jacobi",
+             "general": f"13d general path P1 n={N_SPMD} Jacobi", "million": f"13c P1 n={N_SPMD_MILLION} Chebyshev 4"}
+    need = {"gmg": ("K1", "K2"), "vector": ("K7",), "general": ("K8",), "million": ("K2",)}
+    for i, (case, _) in enumerate(cases):
+        rs = [o[i] for o in outs4]
+        err = float(np.abs(rs[0]["u"] - ref[case]).max())
+        print(f"{label[case]} on 4 gloo ranks sharing the card ({rs[0]['dofs']} dofs): CG {[r['its'] for r in rs]} its, "
+              f"rnorm {rs[0]['rnorm']:.3e}, max|u - u_single| {err:.3e} (gate {SPMD_GATE:g})", flush=True)
+        for r in rs:
+            print("    " + _rank_line(r), flush=True)
+        if not err <= SPMD_GATE or not all(r["finite"] for r in rs):
+            fail(f"{label[case]}: the 4-rank solution differs from the single-device one by {err:.3e}")
+        if min(min(r["launches"][k] for k in need[case]) for r in rs) <= 0:
+            fail(f"{label[case]}: every rank must launch {need[case]}: {[r['launches'] for r in rs]}")
+        launches[label[case]] = [r["launches"] for r in rs]
+        vs_plain[label[case]] = [r["vs_plain"] for r in rs]
+    t0 = time.time()
+    r1 = run_ranks(_spmd_rank, 1, backend="nccl", device="cuda", args=((("gmg", N_SPMD),),))[0][0]
+    print(f"13b on 1 NCCL rank: {time.time() - t0:.1f} s", flush=True)
+    vs_plain[label["gmg"] + " (nccl x 1)"] = [r1["vs_plain"]]
+    err = float(np.abs(r1["u"] - u64).max())
+    print(f"{label['gmg']} on 1 NCCL rank: CG {r1['its']} its, rnorm {r1['rnorm']:.3e}, max|u - u_single| {err:.3e} "
+          f"(gate {SPMD_GATE:g})\n    " + _rank_line(r1), flush=True)
+    if not err <= SPMD_GATE:
+        fail(f"13b on 1 NCCL rank: the solution differs from the single-device one by {err:.3e}")
+    if abs(outs4[0][0]["its"] - r1["its"]) > 2:
+        fail(f"13b: 4 ranks took {outs4[0][0]['its']} CG its, 1 rank {r1['its']} (+-2 allowed)")
+    launches[label["gmg"] + " (nccl x 1)"] = [r1["launches"]]
+
+    soa = soa_vs_cell_first(dev)
+    print(f"13e SoA element kernel on {soa['cells']} cells (coefficient form, P1 n={N_FORMATS}, f64): "
+          f"{soa['soa_ms']:.3f} ms against the cell-first kernel's {soa['cell_first_ms']:.3f} ms, max|diff| / "
+          f"max|Ae| {soa['rel']:.2e} (gate 1e-12)", flush=True)
+    if not soa["rel"] <= 1e-12:
+        fail(f"13e: the SoA element kernel differs from the cell-first one by {soa['rel']:.3e}")
+    for name, checks in vs_plain.items():
+        print(f"{name}: {checks[0]['kernel']} on each rank's operator against its plain version (gate "
+              f"{SPMD_KERNEL_GATE:g}): " + "; ".join(f"rank {i} {c['shape']} {c['rel']:.2e}"
+                                                     for i, c in enumerate(checks)), flush=True)
+        bad = [c for c in checks if not c["rel"] <= SPMD_KERNEL_GATE]
+        if bad:
+            fail(f"{name}: a kernel differs from its plain version on a rank's operator: {bad}")
+    print(f"phase 13: {time.time() - t_phase:.1f} s (this process's device memory at its start: "
+          f"{reserved0 / 2 ** 20:.1f} MB reserved)", flush=True)
+    return launches, vs_plain, soa
+
+
+def soa_vs_cell_first(dev, n=N_FORMATS):
+    """13e: the element tensors of the coefficient form (kappa = 1 + x0 x1)
+    on every cell of the P1 n mesh in float64, by the SoA kernel and by the
+    cell-first kernel, with their CUDA-event times."""
+    import numpy as np
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.fem.forms import grad, inner
+    from dolfinx_mpc_tpu_torch.fem.mesh import create_unit_cube
+    from dolfinx_mpc_tpu_torch.ops.assemble import _coeff_vectors
+
+    V = dmt.functionspace(create_unit_cube(n, n, n), ("Lagrange", 1))
+    bc = dmt.dirichletbc(0.0, dmt.locate_dofs_geometrical(V, y_planes), V)
+    kappa = dmt.Function(V, device=dev)
+    kappa.interpolate(lambda x: 1.0 + x[0] * x[1])
+    a = dmt.BilinearForm(V, lambda u, v, c: c["kappa"].value * inner(grad(u), grad(v)), coefficients={"kappa": kappa})
+    mpc = dmt.MultiPointConstraint(V, np.float64, device=dev)
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    clf = dmt.assemble_matrix_lattice(a, mpc, bcs=[bc], dtype=np.float64, side_format="fold", device=dev)
+    wl = {k: _coeff_vectors(clf.term, dev)[k][dm] for k, dm in clf._wdofmaps.items()}
+    A_soa = clf._element_tensors(clf._coords, wl)
+    A_cf = clf._cell_first_tensors(clf._coords, wl)
+    rel = float((A_soa - A_cf).abs().max() / A_cf.abs().max())
+    del A_soa, A_cf
+    torch.cuda.synchronize()
+    return dict(cells=V.mesh.num_cells, rel=rel, soa_ms=cuda_ms(lambda: clf._element_tensors(clf._coords, wl), 5, 1),
+                cell_first_ms=cuda_ms(lambda: clf._cell_first_tensors(clf._coords, wl), 3, 1))
+
+
 def main():
     if not (ROOT / "dolfinx_mpc_tpu_torch" / "__init__.py").is_file():
         fail(f"the dolfinx_mpc_tpu_torch package is not beside {Path(__file__).name}")
@@ -3030,6 +3379,9 @@ def main():
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # phase 13 first: its ranks share the card with this process, which
+    # holds next to nothing yet (the 4 ranks of 13c need ~13 GB each)
+    launches13, vs_plain13, _ = slice13_phases(dev, gen)
     cmp = compare_kernels(dev, gen)
     cmp.update(compare_blocked_kernels(dev, gen))
     cmp.update(compare_elasticity_kernels(dev, gen))
@@ -3208,17 +3560,22 @@ def main():
     counts7, krylov = slice10_phases(dev)
     launches11, checks11 = slice11_phases(dev, gen)
     launches12, checks12 = slice12_phases(dev, gen, k8c)
+    # phase 13's launches of K1, K2, K7 and K8, per run and per rank
+    spmd = {kid: {run: [r[kid] for r in ranks] for run, ranks in launches13.items()} for kid in ("K1", "K2", "K7", "K8")}
+    # phase 13's kernel checks on each rank's operator: shape and relative error per rank
+    spmd_vs_plain = {kid: {run: [(c["shape"], c["rel"]) for c in checks] for run, checks in vs_plain13.items()
+                           if checks[0]["kernel"] == kid} for kid in ("K2", "K7", "K8")}
 
     src = "dolfinx_mpc_tpu_torch/csrc/lattice_kernels.cu"
     pl = "dolfinx_mpc_tpu/ops/pallas_lattice.py"
     kernels = [
         dict(name="K1 assemble_fold_lean_factored (P1 main path; error and times at 15 x 65^3 f32)",
              route="cuda", source=src, replaces=f"{pl}:411", launches=counts["K1"], **cmp["K1"],
-             krylov={f"{k}_{d}": c["K1"] for (k, d), c in krylov.items()}),
+             krylov={f"{k}_{d}": c["K1"] for (k, d), c in krylov.items()}, spmd=spmd["K1"]),
         dict(name="K2 dia_matvec (P1 main path; error and times at 65^3 f32)", route="cuda", source=src,
              replaces=f"{pl}:766", launches=counts["K2"], **cmp["K2"],
              krylov={f"{k}_{d}": c["K2"] for (k, d), c in krylov.items()},
-             lattice_formats=dict(launches=launches11["K2"], n2_1=checks11["K2"])),
+             lattice_formats=dict(launches=launches11["K2"], n2_1=checks11["K2"]), spmd=spmd["K2"], spmd_vs_plain=spmd_vs_plain["K2"]),
         dict(name="K3 assemble_fold_lean_masked (launches: f64 oracle P1 n=6 with the non-separable "
                   "set, 15 x 7^3; error and times: P2 n=64 with that set, 230 x 65^3 f32)", route="cuda",
              source=src, replaces=f"{pl}:526", launches=counts3["K3"], **cmp["K3"]),
@@ -3235,13 +3592,13 @@ def main():
                   f"f32)", route="cuda", source=src, replaces=f"{pl}:835", launches=counts4["K7"],
              launches_by_grid=k7_by_grid, **cmp["K7"],
              lattice_formats=dict(launches=launches11["K7"], bs2_n2_1=checks11["K7"],
-                                  offsets_65=checks11["K7 65 offsets"])),
+                                  offsets_65=checks11["K7 65 offsets"]), spmd=spmd["K7"], spmd_vs_plain=spmd_vs_plain["K7"]),
         dict(name=f"K8 bell_matvec (contact path NB={NB_CONTACT}/NT={NT_CONTACT}; error and times on the packed "
                   f"layout of its operator, {s8['packed_nnz']} nonzeros, f32)", route="cuda",
              source="dolfinx_mpc_tpu_torch/csrc/bell_kernels.cu", replaces="dolfinx_mpc_tpu/la/bell.py:164",
              launches=counts8["K8"], **cmp["K8"],
              slip_contact=dict(launches=counts9["K8"], packed_nnz=s9["packed_nnz"], **k8_slip),
-             stokes_nest=dict(launches=counts7["K8"])),
+             stokes_nest=dict(launches=counts7["K8"]), spmd=spmd["K8"], spmd_vs_plain=spmd_vs_plain["K8"]),
     ]
     # the complex instantiations (phase 12): launches on 12a / 12c, numbers
     # of complex64 at 12b's shapes, complex128's beside them

@@ -190,7 +190,8 @@ class _K8Launch:
 
 
 def bell_matvec(B, x):
-    """K8: y = A x for the operator of BellMatrix B, on B's packed layout
+    """K8: y = A x for the operator of BellMatrix B (or of the BellPacked
+    B itself), on B's packed layout
     (the tile product plus the COO remainder, rows 0 .. n_rows-1); x
     (n_cols,) of B's dtype: float32, float64, complex64 or complex128.
 
@@ -201,7 +202,7 @@ def bell_matvec(B, x):
     int32 column), the row pointers, x and y, each once.  The launch is
     prepared once per operator.  CPU tensors run the plain version; B must
     hold its packed layout (made on a CUDA device, or by B.pack())."""
-    P = B.packed
+    P = B if isinstance(B, BellPacked) else B.packed
     if P is None:
         raise ValueError("bell_matvec: the BellMatrix holds no packed layout (BellMatrix.pack())")
     if P.device.type == "cpu" and x.device.type == "cpu":

@@ -57,6 +57,7 @@ from ..la.sparse import build_slot_pattern
 from ..multipointconstraint import MultiPointConstraint
 from .assemble import _bc_masks, _build_cell_transforms, _coeff_vectors, _mpc_pair, _real_dtype
 from .kernels import compile_term
+from .soa_kernels import _soa_degree, compile_cell_kernel_soa, soa_supported
 from .lattice_kernels import (
     BlockedMatvecLaunch,
     DiaBsMatvecLaunch,
@@ -74,7 +75,7 @@ from .lattice_kernels import (
 )
 
 __all__ = ["DIAMatrix", "BlockDIAMatrix", "LatticeOperator", "CompiledLatticeForm",
-           "assemble_matrix_lattice", "soa_kernel_supported"]
+           "assemble_matrix_lattice", "soa_supported"]
 
 
 def _scalar(v, dtype):
@@ -572,29 +573,6 @@ def _uniform_lattice_geometry(mesh, lat: LatticeInfo):
 # ---------------------------------------------------------------------------
 
 
-def soa_kernel_supported(mesh, V_test, V_trial, term) -> bool:
-    """Where the JAX package builds its cells-last SoA element kernel: the
-    support test of compile_cell_kernel_soa (dolfinx_mpc_tpu/ops/
-    soa_kernels.py:59-88) — a cell integral of a square form on one uniform
-    space with gdim == tdim, and at most 10,000 unrolled terms
-    nq * nd^2 * bs^2 * (1 + gdim)^2 at its quadrature degree (the term's,
-    else 2 * degree).  The JAX package takes its "cells" side format and its
-    fold paths only where this holds, and so does LinearProblem's lattice
-    dispatch here.  The port computes the same element tensors with its
-    cell-first kernel (ops/kernels.py) at that quadrature degree."""
-    if term.integral != "cell" or V_trial is None or V_trial is not V_test:
-        return False
-    if getattr(V_test, "is_mixed", False) or mesh.gdim != mesh.ref_cell.tdim:
-        return False
-    el, bs, g = V_test.element, V_test.block_size, mesh.gdim
-    nq = len(quadrature_rule(mesh.ref_cell, _soa_quad_degree(term, el.degree))[1])
-    return nq * el.ndofs ** 2 * bs ** 2 * (1 + g) ** 2 <= 10_000
-
-
-def _soa_quad_degree(term, degree):
-    return term.quad_degree if term.quad_degree is not None else 2 * degree
-
-
 # values of the element kernel's vmapped intermediates per chunk of cells,
 # counted as nq nd^2 (1 + gdim) bs per cell: bounds the working set of the
 # element-kernel paths (vector P2 elasticity at n=32 has 196,608 cells of
@@ -616,7 +594,7 @@ def assemble_matrix_lattice(
 
     side_format "csr" assembles the constraint's side into static-slot CSR;
     "cells" keeps it as per-slave-cell eliminated blocks (the same operator;
-    only where soa_kernel_supported holds, as in the JAX package); "fold"
+    only where soa_supported holds, as in the JAX package); "fold"
     collapses a periodic plane-wrap constraint into the stencil and raises
     ValueError for any other constraint: a pure identification (one master
     of coefficient 1 per slave), so a Bloch phase (coefficient e^{i theta})
@@ -644,11 +622,13 @@ class CompiledLatticeForm:
       the slave cells out of the stencil and their K^H A_e K into the side
       (_assemble_impl).
 
-    The element kernel is ops/kernels.py's cell-first vmapped one (the JAX
-    package's cells-last SoA kernel answered the TPU's tiling), at the SoA
-    kernel's quadrature degree wherever the JAX package would use that
-    kernel, and at compile_term's default in the generic csr path where it
-    would not."""
+    The element kernel is the cells-last SoA kernel (ops/soa_kernels.py)
+    wherever soa_supported holds, as in the JAX package; elsewhere it
+    is ops/kernels.py's cell-first vmapped one, at the SoA kernel's
+    quadrature degree on the fold paths and at compile_term's default in the
+    generic csr path.  Coordinates (nv, gdim, c), coefficient dof maps
+    (nd_w * bs_w, c), keep masks (nd, c) and element tensors (nd, nd, c) are
+    held cells last either way."""
 
     def __init__(self, form, constraint, bcs, diagval, dtype, side_format="csr", device=DEFAULT_DEVICE):
         if side_format not in ("csr", "cells", "fold"):
@@ -689,9 +669,9 @@ class CompiledLatticeForm:
         bs = V.block_size
         self.bs = bs
         self.term = form.terms[0]
-        self.soa = soa_kernel_supported(mesh, V, V, self.term)
+        self.soa = soa_supported(mesh, V, V, self.term)
         if side_format == "cells" and not self.soa:
-            raise ValueError("side_format='cells' needs a form the SoA kernel takes (soa_kernel_supported)")
+            raise ValueError("side_format='cells' needs a form the SoA kernel takes (soa_supported)")
 
         # node deltas (refined-grid units) and diagonal offsets
         deltas = _dof_delta_table(mesh, V.element, lat)  # (T, ns, 3)
@@ -753,9 +733,9 @@ class CompiledLatticeForm:
         inv_perm = np.empty_like(perm)
         inv_perm[perm] = np.arange(len(perm))
         as_t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.device)  # noqa: E731
-        self._coords = as_t(mesh.points[mesh.cells[perm]], rdt)  # (c, nv, gdim)
-        self._keep_cells = as_t(1.0 - bc_mask_np[V.dofmap[perm]], rdt)  # (c, nd)
-        self._wdofmaps = {n: as_t(f.function_space.dofmap[perm]) for n, f in self.term.coefficients.items()}
+        self._coords = as_t(mesh.points[mesh.cells[perm]].transpose(1, 2, 0), rdt)  # (nv, gdim, c)
+        self._keep_cells = as_t((1.0 - bc_mask_np[V.dofmap[perm]]).T, rdt)  # (nd, c)
+        self._wdofmaps = {n: as_t(f.function_space.dofmap[perm].T) for n, f in self.term.coefficients.items()}
         if side_format == "fold":
             return
 
@@ -807,11 +787,15 @@ class CompiledLatticeForm:
             self.table = build_fold_table(self, factors, keep_s, ind_s)
 
     def _compile_element_kernel(self, soa_degree):
-        """The cell-first element kernel of the form, at the SoA kernel's
-        quadrature degree (soa_degree) or at compile_term's default."""
+        """The element kernels of the form: the SoA kernel where soa_degree
+        is asked for and soa_supported holds (else None), and the
+        cell-first kernel at the SoA kernel's quadrature degree (soa_degree)
+        or at compile_term's default."""
         term = self.term
         if soa_degree:
-            term = dataclasses.replace(term, quad_degree=_soa_quad_degree(term, self.refine))
+            term = dataclasses.replace(term, quad_degree=_soa_degree(term, self.refine))
+        self._soa_kernel = (compile_cell_kernel_soa(self.mesh, self.V, self.V, self.term, self.dtype)
+                            if soa_degree and self.soa else None)
         self._kernel = compile_term(term, self.V, self.V).kernel
         qdeg = term.quad_degree if term.quad_degree is not None else 3 * self.refine
         self._nq = len(quadrature_rule(self.mesh.ref_cell, qdeg)[1])
@@ -983,23 +967,37 @@ class CompiledLatticeForm:
     # the element-kernel paths
     # ------------------------------------------------------------------
     def _element_tensors(self, coords, wlocals):
-        """(c, nd, nd) element tensors, in the operator's dtype, of the
-        cells `coords` (c, nv, gdim) with their local coefficient values,
-        ELEMENT_CHUNK_VALUES of the kernel's intermediates at a time."""
-        n = coords.shape[0]
+        """(nd, nd, c) element tensors, in the operator's dtype, of the
+        cells `coords` (nv, gdim, c) with their local coefficient values
+        (nd_w * bs_w, c) by name: the SoA kernel where the form has one,
+        else _cell_first_tensors."""
+        if self._soa_kernel is None:
+            return self._cell_first_tensors(coords, wlocals)
+        wl = {}
+        for n, f in self.term.coefficients.items():
+            W = f.function_space
+            wl[n] = wlocals[n].reshape(W.element.ndofs, W.block_size, -1)
+        return self._soa_kernel(coords, wl).to(torch_dtype(self.dtype))
+
+    def _cell_first_tensors(self, coords, wlocals):
+        """_element_tensors through the cell-first kernel (ops/kernels.py),
+        ELEMENT_CHUNK_VALUES of its intermediates at a time."""
+        n = coords.shape[-1]
         nd = self.V.ndofs_cell
         chunk = max(1, ELEMENT_CHUNK_VALUES // (self._nq * nd * nd * (1 + self.mesh.gdim) * self.bs))
         # the operator's dtype: a real kernel's values go into a complex
         # tensor unchanged (zero imaginary part), as the JAX package's SoA
         # kernel writes them in a complex dtype
-        out = torch.empty((n, nd, nd), dtype=torch_dtype(self.dtype), device=coords.device)
+        out = torch.empty((nd, nd, n), dtype=torch_dtype(self.dtype), device=coords.device)
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            out[lo:hi] = self._kernel(coords[lo:hi], None, {k: v[lo:hi] for k, v in wlocals.items()})
+            Ae = self._kernel(coords[..., lo:hi].permute(2, 0, 1), None,
+                              {k: v[:, lo:hi].T for k, v in wlocals.items()})
+            out[:, :, lo:hi] = Ae.permute(1, 2, 0)
         return out
 
     def _synth_coords(self, jitter):
-        """Cell-corner coordinates (c, nv, gdim) of the pristine uniform
+        """Cell-corner coordinates (nv, gdim, c) of the pristine uniform
         lattice, cells t-major, made on the device from aranges
         (dolfinx_mpc_tpu/ops/lattice.py:1236-1272); `jitter` scales the
         geometry, as bench.py's does."""
@@ -1019,15 +1017,15 @@ class CompiledLatticeForm:
             # promote a float32 assembly to float64
             x_d = scale * (float(self._origin[d]) + float(self._spacing[d]) * (base[d][None] + deltas_d))
             comps.append(x_d.expand(nv, T, nx, ny, nzc).reshape(nv, -1))
-        return torch.stack(comps, dim=1).permute(2, 0, 1)
+        return torch.stack(comps, dim=1)
 
     def _cells_last(self, Ae):
-        """(c, nd, nd) element tensors, cells t-major -> the contiguous
-        (nd, nd, T, nx, ny, nzc) stack whose slices _pack sums."""
+        """(nd, nd, c) element tensors, cells t-major -> the (nd, nd, T, nx,
+        ny, nzc) stack whose slices _pack sums."""
         nx, ny, nz_ = self.lat.dims
         nzc = 1 if self.mesh.tdim == 2 else nz_
-        nd = Ae.shape[1]
-        return Ae.permute(1, 2, 0).contiguous().reshape(nd, nd, self.lat.cells_per_box, nx, ny, nzc)
+        nd = Ae.shape[0]
+        return Ae.reshape(nd, nd, self.lat.cells_per_box, nx, ny, nzc)
 
     def _grouped(self, moves):
         grouped = {}
@@ -1097,12 +1095,12 @@ class CompiledLatticeForm:
         wl = {n: coeffs[n][dm] for n, dm in self._wdofmaps.items()}
         Ae = self._element_tensors(self._coords, wl)
         keep = self._keep_cells
-        Ae.mul_(keep[:, :, None]).mul_(keep[:, None, :])
+        Ae.mul_(keep[:, None, :]).mul_(keep[None, :, :])
         if self.side_format == "fold":
             data = self._diag_adds(self._pack(self._cells_last(Ae)), diagval)
             return self._fold_operator(DIAMatrix(data, self.offsets, self.vshape, self.bs), diagval)
-        Aep = torch.einsum("ciw,cij,cjv->cwv", torch.conj(self._Tr), Ae[self._sc], self._Tr)
-        Ae.mul_((1.0 - self._slave_cells)[:, None, None])
+        Aep = torch.einsum("ciw,ijc,cjv->cwv", torch.conj(self._Tr), Ae[:, :, self._sc], self._Tr)
+        Ae.mul_((1.0 - self._slave_cells)[None, None, :])
         data = self._diag_adds(self._pack(self._cells_last(Ae)), diagval)
         del Ae
         dia = DIAMatrix(data, self.offsets, self.vshape, self.bs)

@@ -56,6 +56,7 @@ import torch
 
 from .._dtypes import numpy_dtype
 from .._launch import count_launch, launch_check, on_device
+from .soa_kernels import _unit_features
 
 __all__ = [
     "FoldLaunch",
@@ -123,25 +124,6 @@ def _suffix(dtype):
 # ---------------------------------------------------------------------------
 # host reduction (copied from the JAX package's trace-time code)
 # ---------------------------------------------------------------------------
-
-
-def _unit_features(bs, g, dtype=np.float64):
-    """Probe Args: one per feature (component k, then value + g gradient
-    entries).  Feature index layout: alpha = k*(1+g) + (0 for value, 1+t).
-    (dolfinx_mpc_tpu/ops/soa_kernels.py:_unit_features)"""
-    from ..fem.forms import Arg
-
-    probes = []
-    for k in range(bs):
-        val = np.zeros(bs, dtype)
-        val[k] = 1.0
-        probes.append(Arg(val[0] if bs == 1 else val, np.zeros((bs, g) if bs > 1 else g, dtype)))
-        for t in range(g):
-            gr = np.zeros((bs, g), dtype)
-            gr[k, t] = 1.0
-            probes.append(Arg(np.zeros(bs, dtype)[0] if bs == 1 else np.zeros(bs, dtype),
-                              gr[0] if bs == 1 else gr))
-    return probes
 
 
 def _probe_constant_M(term, gdim, bs=1):

@@ -98,7 +98,7 @@ class LinearProblem:
     def _assemble_A(self, dtype, form=None):
         """On a lattice mesh the fold operator, else the "cells" side
         format, else — and whenever the form is one the JAX package's SoA
-        element kernel would not take (soa_kernel_supported), where the JAX
+        element kernel would not take (soa_supported), where the JAX
         package falls back too — the general slot-CSR matrix
         (dolfinx_mpc_tpu/problem.py:71-98).  Each lattice form compiles
         once per value-keyed constraint, bcs and dtype, complex dtypes

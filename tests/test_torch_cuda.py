@@ -945,3 +945,22 @@ def test_complex_k8_matches_plain_on_card(cuda, dtype, tol):
         assert float(torch.linalg.vector_norm(y - y_ref) / torch.linalg.vector_norm(y_ref)) <= tol
         y_sp = M @ x.cpu().numpy().astype(np.complex128)
         assert np.linalg.norm(y.cpu().numpy() - y_sp) / np.linalg.norm(y_sp) <= 10 * max(tol, 1e-12)
+
+
+@pytest.mark.parametrize("backend,n_ranks", [("nccl", 1), ("gloo", 2)], ids=["nccl-1", "gloo-2-sharing"])
+def test_distributed_paths_on_card_match_plain(cuda, backend, n_ranks):
+    """The sharded lattice path (K2 at bs = 1, K7 at bs = 3) and the general
+    path (K8 on each rank's row block) on ranks with their tensors on the
+    card — one NCCL rank, or two gloo ranks sharing the card — equal the
+    same ranks on the CPU (the plain versions) to 1e-10."""
+    import torch_spmd_cases as cases
+    from dolfinx_mpc_tpu_torch.parallel import run_ranks
+
+    card = run_ranks(cases.card_rank, n_ranks, backend=backend, device="cuda")
+    plain = run_ranks(cases.card_rank, n_ranks, backend="gloo", device="cpu")
+    for got, ref in zip(card, plain):
+        for case in ("lattice", "vector", "general"):
+            assert np.abs(got[case]["u"] - ref[case]["u"]).max() <= 1e-10 * max(np.abs(ref[case]["u"]).max(), 1.0)
+            assert abs(got[case]["its"] - ref[case]["its"]) <= 1
+        assert min(got["launches"][k] for k in ("K2", "K7", "K8")) > 0, got["launches"]
+        assert max(ref["launches"].values()) == 0

@@ -25,6 +25,11 @@ def test_import_does_not_import_jax():
         "import dolfinx_mpc_tpu_torch.utils.verification\n"
         "import dolfinx_mpc_tpu_torch.utils.mpc_utils\n"
         "import dolfinx_mpc_tpu_torch.la.amg, dolfinx_mpc_tpu_torch.la.bell, dolfinx_mpc_tpu_torch.la.ell\n"
+        "import dolfinx_mpc_tpu_torch.ops.soa_kernels\n"
+        "import dolfinx_mpc_tpu_torch.parallel\n"
+        "from dolfinx_mpc_tpu_torch.parallel import comm, dryrun, launch, lattice_spmd, spmd\n"
+        "from dolfinx_mpc_tpu_torch.parallel import ShardedLatticeProblem, ShardedLinearProblem, make_device_mesh\n"
+        "from dolfinx_mpc_tpu_torch.parallel import run_ranks\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('dolfinx_mpc_tpu.') or m == 'dolfinx_mpc_tpu'\n"
         "               for m in sys.modules), 'JAX package imported'\n"

@@ -20,7 +20,7 @@ from dolfinx_mpc_tpu.ops.lattice import assemble_matrix_lattice as jx_lattice
 from dolfinx_mpc_tpu.ops.soa_kernels import compile_cell_kernel_soa
 from dolfinx_mpc_tpu_torch.fem import forms as PF
 from dolfinx_mpc_tpu_torch.fem import mesh as PM
-from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix, LatticeOperator, soa_kernel_supported
+from dolfinx_mpc_tpu_torch.ops.lattice import BlockDIAMatrix, LatticeOperator, soa_supported
 
 PKGS = {"jx": (jx, JF, JM), "pt": (pt, PF, PM)}
 MESHERS = {
@@ -251,7 +251,7 @@ CELLS_CASES = {
 
 @pytest.mark.parametrize("case", list(CELLS_CASES))
 def test_cells_format_refused_where_jax_refuses(case):
-    """soa_kernel_supported holds exactly where the JAX package builds its
+    """soa_supported holds exactly where the JAX package builds its
     SoA kernel, and "cells" assembles exactly there: elsewhere the port
     raises ValueError where the JAX package fails its assertion."""
     cell, degree, bs, qd = CELLS_CASES[case]
@@ -265,7 +265,7 @@ def test_cells_format_refused_where_jax_refuses(case):
         a = pkg.BilinearForm(V, lambda u, v, c, F=F: F.inner(F.grad(u), F.grad(v)), quad_degree=qd)
         mpc = _periodic(pkg, V, [])
         if pkg is pt:
-            supported = soa_kernel_supported(V.mesh, V, V, a.terms[0])
+            supported = soa_supported(V.mesh, V, V, a.terms[0])
         else:
             expect = compile_cell_kernel_soa(V.mesh, V, V, a.terms[0], np.float64) is not None
         try:
