@@ -141,7 +141,9 @@ each (or a few), any failure exits non-zero:
    K2 (65^3, 12a's operator), K7 (65^3 x 3), K6 (8 x 65^3) and K8 (the
    contact operator times e^{0.3 i}) in complex64 and complex128 against
    their plain versions (relative 5e-6 / 1e-12) with their times, bounds
-   and the cuSPARSE complex CSR product's time; 12c six complex128 oracles
+   and the cuSPARSE complex CSR product's time (K7's device time also by
+   CUDA events on its kernel alone, launched back to back, which stands
+   where the profiler records no kernel); 12c six complex128 oracles
    (test_dtypes' lattice problem, the Bloch problem through LinearProblem
    and on "csr", bs=3 elasticity, P2, tied contact through BELL + AMG + CG),
    K2, K7, K6 and K8 each launched in complex128; 12d the list_timings()
@@ -168,6 +170,14 @@ each (or a few), any failure exits non-zero:
    box, K8 on the ghost-window row block; 1e-12 relative, f64); 13e the
    SoA element kernel against the cell-first kernel on the 1,572,864 cells
    of the coefficient form at n=64 (1e-12), with both times.
+16. (after phase 12) the single-device forward step of entry.py, the JAX
+   package's entry(): the periodic Poisson problem at n=8 (81 dofs),
+   float64, K^H A K assembled from the compiled tables, 50 CG iterations
+   with no early exit, backsubstitution, all plain torch; the step on the
+   card against the same step on the CPU (rel L2 <= 1e-12) and against
+   scipy's direct solve of the assembled system followed by
+   backsubstitution (<= 1e-10), with its ms per step (CUDA events) and its
+   launches per step (torch.profiler).
 
 The last two lines are the card's nvidia-smi line and
 {"ok": true, "device": {...}}; the line before them lists every kernel
@@ -2760,12 +2770,28 @@ def _blocked_csr(data, trips, classes, cdims, r3=(2, 2, 2)):
     return coo.coalesce().to_sparse_csr(), (n0, n1, n2)
 
 
-def _complex_check(name, kernel, run, plain, stored, x, index_bytes, lib):
+def dia_kernel_alone_ms(op, x, reps=50):
+    """Device time in ms of a DIAMatrix's kernel (K2 / K7) alone: `reps`
+    back-to-back calls of its prepared launch's ctypes function into one
+    preallocated output between two CUDA events (no allocation, no count;
+    the op must have launched once, which prepares the launch)."""
+    import torch
+
+    launch = op._launch
+    y = torch.empty_like(x)
+    dp, pp = launch.args
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return cuda_ms(lambda: launch.fn(dp, x.data_ptr(), y.data_ptr(), pp, stream), reps)
+
+
+def _complex_check(name, kernel, run, plain, stored, x, index_bytes, lib, alone=None):
     """One complex kernel at one dtype: one counted launch against its
     plain version (fails beyond COMPLEX_TOL), warm and profiler device
     times, the plain version's, the bound and, where `lib` gives one, the
     cuSPARSE CSR product's warm time: lib() gives (S, its x, the map of
-    the kernel's output to S's layout)."""
+    the kernel's output to S's layout).  Where the profiler records no
+    kernel and `alone` times the kernel alone (dia_kernel_alone_ms), the
+    device time is that one's, and `device_by` says which method gave it."""
     import torch
 
     dt = str(x.dtype)[6:]
@@ -2787,9 +2813,15 @@ def _complex_check(name, kernel, run, plain, stored, x, index_bytes, lib):
         lib_err = _rel_l2(S @ xl, to_lib(got))
         del S
     out = dict(err=rel, max_abs_err=float((got - ref).abs().max()), ms=cuda_ms(run, 50),
-               device_ms=profiler_ms(run, 50, kernel), plain_ms=cuda_ms(plain, 5), bound_ms=bms, bound_by=by,
-               library_ms=lib_ms)
-    dev_txt = "not measured" if out["device_ms"] is None else f"{out['device_ms']:.4f} ms"
+               device_ms=profiler_ms(run, 50, kernel), device_by="torch.profiler", plain_ms=cuda_ms(plain, 5),
+               bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    if alone is not None:
+        out["alone_ms"] = alone()
+        if out["device_ms"] is None:
+            out.update(device_ms=out["alone_ms"], device_by="CUDA events, the kernel alone, back to back")
+    dev_txt = ("not measured" if out["device_ms"] is None else f"{out['device_ms']:.4f} ms ({out['device_by']}"
+               + (f"; the kernel alone by CUDA events {out['alone_ms']:.4f} ms" if "alone_ms" in out
+                  and out["device_by"] == "torch.profiler" else "") + ")")
     lib_txt = ("none" if lib_ms is None else f"{lib_ms:.4f} ms warm (rel L2 to the kernel {lib_err:.1e})")
     print(f"12b {name} {dt}: rel L2 {rel:.3e} (tol {COMPLEX_TOL[dt]:g}), warm {out['ms']:.4f} ms, device {dev_txt}, "
           f"plain {out['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}; {100 * bms / out['ms']:.0f} % of warm), "
@@ -2830,7 +2862,7 @@ def compare_complex_lattice_kernels(dev, gen, A_bloch):
         out["K7"][dt] = _complex_check(
             f"K7 dia_matvec_bs {(n, n, n)} x 3", "dia_matvec_kernel", lambda: op.matvec(x),
             lambda: LK.dia_matvec_plain(data, offs, (n, n, n), 3, x), data.numel(), x, 0,
-            lambda: (_dia_csr(data, offs, (n, n, n), 3), x, lambda y: y))
+            lambda: (_dia_csr(data, offs, (n, n, n), 3), x, lambda y: y), alone=lambda: dia_kernel_alone_ms(op, x))
         del op, data
         data = _complex_randn(gen, (len(trips), n, n, n), dev, ct)
         op = BlockDIAMatrix(data, trips, (2 * n - 1,) * 3, (2, 2, 2))
@@ -3326,6 +3358,79 @@ def slice13_phases(dev, gen):
     return launches, vs_plain, soa
 
 
+# ---- phase 16: the single-device forward step of entry.py (the JAX
+# package's __graft_entry__.entry()): the periodic Poisson problem at n=8
+# (81 dofs), K^H A K assembled from the compiled tables, 50 CG iterations
+# with no early exit, backsubstitution; float64, plain torch (no kernel of
+# csrc/ runs in it, as no Pallas kernel runs in the JAX step).
+ENTRY_CPU_GATE = 1e-12  # the same step on the CPU, same b
+ENTRY_DIRECT_GATE = 1e-10  # the direct solve of the assembled system, then u = K x
+ENTRY_REPS = 20
+
+
+def profiler_launches(fn, reps):
+    """(device activities per call, cudaLaunchKernel calls per call) of fn()
+    from torch.profiler over `reps` warm calls: the first counts the
+    kernels, fills and copies the card ran (None where the profiler records
+    none), the second the host's launch calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    on_card = sum(e.count for e in ev if e.device_type.name == "CUDA")
+    host = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    return (on_card / reps if on_card else None), host / reps
+
+
+def entry_phase(dev):
+    """16: entry()'s step on the card against the same step on the CPU and
+    against scipy's direct solve of the assembled K^H A K followed by
+    backsubstitution, with the step's CUDA-event time and its launches per
+    step; fails beyond either gate or where a kernel of csrc/ launched."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import dolfinx_mpc_tpu_torch as dmt
+    from dolfinx_mpc_tpu_torch.parallel.dryrun import build_problem
+
+    t0 = time.time()
+    step, (b,) = dmt.entry(device=dev)
+    setup_s = time.time() - t0
+    reset_counts()
+    u = step(b)
+    torch.cuda.synchronize()
+    counts = read_counts(KERNELS)
+    if u.device.type != "cuda" or u.dtype != torch.float64 or not bool(torch.isfinite(u).all()):
+        fail(f"16: the step did not return finite float64 values on the card: {u.device}, {u.dtype}")
+    step_cpu, _ = dmt.entry(device="cpu")
+    vs_cpu = _rel_l2(u.cpu(), step_cpu(b.cpu()))
+    V, a, _, mpc, bc = build_problem(8, device="cpu")
+    A = dmt.assemble_matrix(a, mpc, bcs=[bc], diagval=1.0).to_scipy().tocsc()
+    u_direct = mpc.finalized.backsubstitution(torch.as_tensor(spla.spsolve(A, b.cpu().numpy())))
+    vs_direct = _rel_l2(u.cpu(), u_direct)
+    ms = cuda_ms(lambda: step(b), ENTRY_REPS)
+    on_card, host_launches = profiler_launches(lambda: step(b), ENTRY_REPS)
+    on_card_txt = "not measured (the profiler recorded none)" if on_card is None else f"{on_card:.1f}"
+    print(f"16 entry() step, periodic Poisson n=8 ({V.num_dofs} dofs, f64, 50 CG its): set-up {setup_s:.2f} s; "
+          f"rel L2 to the same step on the CPU {vs_cpu:.3e} (gate {ENTRY_CPU_GATE:g}), to the direct solve + "
+          f"backsubstitution {vs_direct:.3e} (gate {ENTRY_DIRECT_GATE:g}); {ms:.4f} ms per step (CUDA events, "
+          f"{ENTRY_REPS} back to back); per step {host_launches:.1f} cudaLaunchKernel calls, {on_card_txt} "
+          f"device activities (torch.profiler); kernels of csrc/ launched {counts}", flush=True)
+    if not vs_cpu <= ENTRY_CPU_GATE:
+        fail(f"16: the step on the card differs from the CPU's by {vs_cpu:.3e}")
+    if not vs_direct <= ENTRY_DIRECT_GATE:
+        fail(f"16: the step differs from the direct solve by {vs_direct:.3e}")
+    if max(counts.values()) != 0:
+        fail(f"16: the step is plain torch, yet a kernel of csrc/ launched: {counts}")
+    return dict(ms=ms, vs_cpu=vs_cpu, vs_direct=vs_direct, host_launches=host_launches, on_card=on_card)
+
+
 def soa_vs_cell_first(dev, n=N_FORMATS):
     """13e: the element tensors of the coefficient form (kappa = 1 + x0 x1)
     on every cell of the P1 n mesh in float64, by the SoA kernel and by the
@@ -3560,6 +3665,7 @@ def main():
     counts7, krylov = slice10_phases(dev)
     launches11, checks11 = slice11_phases(dev, gen)
     launches12, checks12 = slice12_phases(dev, gen, k8c)
+    entry_phase(dev)
     # phase 13's launches of K1, K2, K7 and K8, per run and per rank
     spmd = {kid: {run: [r[kid] for r in ranks] for run, ranks in launches13.items()} for kid in ("K1", "K2", "K7", "K8")}
     # phase 13's kernel checks on each rank's operator: shape and relative error per rank
@@ -3615,8 +3721,8 @@ def main():
             name=f"{kid} {name} complex64 / complex128 (launches: phase 12 {sorted(launches12[kid])}; error and times "
                  f"at {shapes[kid]}, complex64; complex128 under 'complex128')",
             route="cuda", source=source, replaces=replaces, launches=sum(launches12[kid].values()),
-            **{k: c64[k] for k in keys}, device_ms=c64["device_ms"], launches_by_phase=launches12[kid],
-            complex128={k: c128[k] for k in keys + ("device_ms",)}))
+            **{k: c64[k] for k in keys}, device_ms=c64["device_ms"], device_by=c64["device_by"],
+            launches_by_phase=launches12[kid], complex128={k: c128[k] for k in keys + ("device_ms", "device_by")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ from .fem.functionspace import (  # noqa: E402
     locate_dofs_topological,
 )
 from .fem.mixed import MixedFunctionSpace, mixed_functionspace, split  # noqa: E402
+from .entry import entry  # noqa: E402
 from .la.gmg import LatticeGMG, build_gmg_hierarchy  # noqa: E402
 from .la.solvers import cg  # noqa: E402
 from .multipointconstraint import FinalizedMPC, MPCData, MultiPointConstraint  # noqa: E402
@@ -102,4 +103,5 @@ __all__ = [
     "Timer",
     "timed",
     "list_timings",
+    "entry",
 ]

@@ -1,7 +1,7 @@
 """Mini-FEM substrate: meshes, Lagrange spaces, quadrature, UFL-lite forms,
 geometry maps (numpy host code; forms evaluate on torch tensors)."""
 
-from .forms import BilinearForm, Form, LinearForm
+from .forms import BilinearForm, Form, LinearForm, derivative
 from .functionspace import (
     DirichletBC,
     Function,

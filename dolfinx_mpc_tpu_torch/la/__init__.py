@@ -13,3 +13,4 @@ from .solvers import (
     gmres,
     jacobi_preconditioner,
 )
+from .sparse import CSRMatrix, SlotPattern, build_slot_pattern

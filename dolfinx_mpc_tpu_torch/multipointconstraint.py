@@ -73,6 +73,10 @@ class FinalizedMPC:
         out[self.slaves] = 0
         return out
 
+    def expand(self, u_reduced):
+        """Alias of backsubstitution: û -> u = K û, a new tensor."""
+        return self.backsubstitution(u_reduced)
+
     def reduce_transpose(self, y):
         """y_red = K^H y: add conj(c)*y[slave] into masters, zero slaves."""
         if self.n_slaves == 0:
@@ -246,6 +250,18 @@ class MultiPointConstraint:
     def num_local_slaves(self) -> int:
         self._require_finalized()
         return len(self._np_slaves)
+
+    def cell_to_slaves(self):
+        """cells -> slave indices map: per cell, one int64 array of the
+        positions in the slave list of the cell's slave dofs, in dofmap order
+        (reference MultiPointConstraint.h:66)."""
+        self._require_finalized()
+        spos = np.full(self.V.num_dofs, -1, dtype=np.int64)
+        spos[self._np_slaves] = np.arange(len(self._np_slaves))
+        s = spos[self.V.dofmap]
+        keep = s >= 0
+        # split after every cell's last entry; the piece after the last cell is empty
+        return np.split(s[keep], np.cumsum(keep.sum(axis=1)))[:-1]
 
     # -- kernels --------------------------------------------------------
     def backsubstitution(self, u) -> None:

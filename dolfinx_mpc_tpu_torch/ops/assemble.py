@@ -332,11 +332,25 @@ def assemble_matrix(form: Form, constraint=None, bcs=None, diagval=1.0, dtype=No
 
 def _assemble_matrix(form, constraint, bcs, diagval, dtype, device):
     dtype, device = _resolve(constraint, dtype, device)
-    tdt = torch_dtype(dtype)
     cm = _get_compiled_matrix(form, constraint, dtype, device)
     Vt, Vs = form.test_space, form.trial_space
     bc_row = torch.as_tensor(_bc_masks(Vt, bcs, dtype), device=device)
     bc_col = torch.as_tensor(_bc_masks(Vs, bcs, dtype), device=device) if Vs is not Vt else bc_row
+    bc_diag = np.zeros(cm.n_diag, dtype=dtype)
+    if cm.n_diag:
+        for bc in bcs:
+            bc_diag[bc.dofs] = diagval
+    data = _matrix_values(cm, bc_row, bc_col, torch.as_tensor(bc_diag, device=device), diagval,
+                          torch_dtype(dtype))
+    return MPCMatrix.from_pattern(cm.pattern, data)
+
+
+def _matrix_values(cm, bc_row, bc_col, bc_diag, diagval, tdt):
+    """The slot-CSR values of a compiled matrix form on bc_row's device: every
+    term's cell classes CELL_CHUNK cells at a time (masked by the bc rows and
+    columns), diagval on the slave diagonals, bc_diag (n_diag values) on the
+    diagonal."""
+    device = bc_row.device
     nnz = cm.pattern.nnz
     data = torch.zeros(nnz + 1, dtype=tdt, device=device)  # slot nnz: trash
     blocks = iter(cm.slots)
@@ -354,12 +368,8 @@ def _assemble_matrix(form, constraint, bcs, diagval, dtype, device):
     # diagval on the slave diagonals, then the bc-diagonal passthrough
     dv = diagval.real if (isinstance(diagval, complex) and not tdt.is_complex) else diagval
     data.index_add_(0, next(blocks), torch.full((len(cm.slaves_row),), dv, dtype=tdt, device=device))
-    bc_diag = np.zeros(cm.n_diag, dtype=dtype)
-    if cm.n_diag:
-        for bc in bcs:
-            bc_diag[bc.dofs] = diagval
-    data.index_add_(0, next(blocks), torch.as_tensor(bc_diag, device=device))
-    return MPCMatrix.from_pattern(cm.pattern, data[:nnz])
+    data.index_add_(0, next(blocks), bc_diag)
+    return data[:nnz]
 
 
 def create_sparsity_pattern(form: Form, mpc, device=None) -> SlotPattern:
