@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
+from ..utils.timing import span, traced
 
 __all__ = ["AMG", "smoothed_aggregation_amg"]
 
@@ -289,6 +290,7 @@ def _to_device_op(A, dtype, bs=1, device=None, ell_min=4096):
     return csr_from_scipy(A, dtype=dtype, device=device)
 
 
+@traced("amg.setup")
 def smoothed_aggregation_amg(
     A, bs=1, theta=0.08, max_levels=12, coarse_size=800,
     n_smooth=3, dtype=np.float32, seed=0, fine_op=None, nullspace=None, device=DEFAULT_DEVICE,
@@ -329,32 +331,35 @@ def smoothed_aggregation_amg(
     Al = A
     bs_l = bs
     while Al.shape[0] > coarse_size and lvl < max_levels - 1:
-        G = _node_graph(Al, bs_l)
-        # adaptive strength threshold: halve theta until aggregates average
-        # >= ~3 nodes (a stalled level otherwise emits ~1 singleton aggregate
-        # per node); only stalled levels relax
-        n_nodes = G.shape[0]
-        th = theta
-        for _ in range(5):
-            S = _strength(G, th)
-            agg, na = _aggregate(S, seed=seed + lvl)
-            if na <= n_nodes // 3:
-                break
-            th *= 0.5
+        with span("amg.aggregate"):
+            G = _node_graph(Al, bs_l)
+            # adaptive strength threshold: halve theta until aggregates average
+            # >= ~3 nodes (a stalled level otherwise emits ~1 singleton aggregate
+            # per node); only stalled levels relax
+            n_nodes = G.shape[0]
+            th = theta
+            for _ in range(5):
+                S = _strength(G, th)
+                agg, na = _aggregate(S, seed=seed + lvl)
+                if na <= n_nodes // 3:
+                    break
+                th *= 0.5
         if na * k >= Al.shape[0]:  # no coarsening progress even at th->0
             break
-        # tentative prolongator + projected coarse candidates
-        T, Bc = _fit_candidates(agg, na, Bl, bs_l)
-        # smoothed P = (I - omega D^-1 A) T,  omega = 4/3 / rho(D^-1 A)
-        rho = _rho_dinv_a(Al)
-        d = Al.diagonal()
-        dinv = _safe_inv(d)
-        omega = (4.0 / 3.0) / rho
-        P = (T - sp.diags(omega * dinv) @ (Al @ T)).tocsr()
-        P.eliminate_zeros()
-        R = P.T.tocsr()
-        Ac = (R @ Al @ P).tocsr()
-        Ac.eliminate_zeros()
+        with span("amg.prolongator"):
+            # tentative prolongator + projected coarse candidates
+            T, Bc = _fit_candidates(agg, na, Bl, bs_l)
+            # smoothed P = (I - omega D^-1 A) T,  omega = 4/3 / rho(D^-1 A)
+            rho = _rho_dinv_a(Al)
+            d = Al.diagonal()
+            dinv = _safe_inv(d)
+            omega = (4.0 / 3.0) / rho
+            P = (T - sp.diags(omega * dinv) @ (Al @ T)).tocsr()
+            P.eliminate_zeros()
+            R = P.T.tocsr()
+        with span("amg.galerkin"):
+            Ac = (R @ Al @ P).tocsr()
+            Ac.eliminate_zeros()
         ops.append(Al)
         Ps.append(P)
         Rs.append(R)
@@ -367,39 +372,41 @@ def smoothed_aggregation_amg(
 
     ops.append(Al)
     level_bs.append(bs_l)
-    dev_ops = [fine_op if (i == 0 and fine_op is not None)
-               else _to_device_op(a, dtype, level_bs[i], dev)
-               for i, a in enumerate(ops[:-1])]
-    # transfers are (level_bs[i] x k)-blocked rectangles: the ELL block
-    # size must divide BOTH dims, so use gcd(fine bs, coarse bs)
-    t_bs = [math.gcd(level_bs[i], level_bs[i + 1]) for i in range(len(Ps))]
-    dev_P = [_to_device_op(p, dtype, t_bs[i], dev) for i, p in enumerate(Ps)]
-    dev_R = [_to_device_op(r, dtype, t_bs[i], dev) for i, r in enumerate(Rs)]
     as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a.astype(dtype)), device=dev)  # noqa: E731
-    inv_diag = [as_t(_safe_inv(a.diagonal())) for a in ops[:-1]]
+    with span("amg.to_device"):
+        dev_ops = [fine_op if (i == 0 and fine_op is not None)
+                   else _to_device_op(a, dtype, level_bs[i], dev)
+                   for i, a in enumerate(ops[:-1])]
+        # transfers are (level_bs[i] x k)-blocked rectangles: the ELL block
+        # size must divide BOTH dims, so use gcd(fine bs, coarse bs)
+        t_bs = [math.gcd(level_bs[i], level_bs[i + 1]) for i in range(len(Ps))]
+        dev_P = [_to_device_op(p, dtype, t_bs[i], dev) for i, p in enumerate(Ps)]
+        dev_R = [_to_device_op(r, dtype, t_bs[i], dev) for i, r in enumerate(Rs)]
+        inv_diag = [as_t(_safe_inv(a.diagonal())) for a in ops[:-1]]
     # explicit dense inverse of the coarsest level (one matmul in the
     # V-cycle): Cholesky-solve against I with a tiny diagonal shift, pinv as
     # the fallback for genuinely singular coarse operators
     nC = ops[-1].shape[0]
-    if nC <= 16384:
-        Ad = np.asarray(ops[-1].todense(), dtype=np.float64)
-        try:
-            import scipy.linalg as sla
+    with span("amg.coarse_inverse"):
+        if nC <= 16384:
+            Ad = np.asarray(ops[-1].todense(), dtype=np.float64)
+            try:
+                import scipy.linalg as sla
 
-            shift = 1e-10 * (np.trace(Ad) / max(nC, 1))
-            c_lo = sla.cho_factor(Ad + shift * np.eye(nC), lower=True)
-            coarse_dense = sla.cho_solve(c_lo, np.eye(nC))
-        except Exception:
-            coarse_dense = np.linalg.pinv(Ad)
-        coarse_inv = as_t(coarse_dense)
-    else:
-        # aggregation stalled with a large coarsest level: terminate the
-        # V-cycle with Chebyshev smoothing on that level instead
-        d = ops[-1].diagonal()
-        dev_ops.append(_to_device_op(ops[-1], dtype, level_bs[-1], dev))
-        inv_diag.append(as_t(_safe_inv(d)))
-        chebs.append(_rho_dinv_a(ops[-1]))
-        coarse_inv = None
+                shift = 1e-10 * (np.trace(Ad) / max(nC, 1))
+                c_lo = sla.cho_factor(Ad + shift * np.eye(nC), lower=True)
+                coarse_dense = sla.cho_solve(c_lo, np.eye(nC))
+            except Exception:
+                coarse_dense = np.linalg.pinv(Ad)
+            coarse_inv = as_t(coarse_dense)
+        else:
+            # aggregation stalled with a large coarsest level: terminate the
+            # V-cycle with Chebyshev smoothing on that level instead
+            d = ops[-1].diagonal()
+            dev_ops.append(_to_device_op(ops[-1], dtype, level_bs[-1], dev))
+            inv_diag.append(as_t(_safe_inv(d)))
+            chebs.append(_rho_dinv_a(ops[-1]))
+            coarse_inv = None
     cheb = [(rho / 20.0, 1.1 * rho) for rho in chebs]
     return AMG(dev_ops, dev_P, dev_R, inv_diag, coarse_inv, cheb, degree=n_smooth)
 

@@ -39,6 +39,7 @@ import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from .._launch import count_launch, launch_check, on_device
+from ..utils.timing import count, traced
 
 __all__ = ["BellMatrix", "BellPacked", "bell_from_scipy", "bell_matvec", "bell_matvec_plain", "bell_pack",
            "bell_packed_matvec_plain"]
@@ -295,6 +296,7 @@ class BellMatrix:
         return A.tocsr()
 
 
+@traced("bell.pack")
 def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=np.float32, _bchunk=None):
     """The host arrays (data, cols, diag, rem_data, rem_rows, rem_cols,
     shape) of the BELL form of a scipy sparse matrix: the JAX package's
@@ -375,15 +377,17 @@ def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=n
     return data, cols, diag, rem_data, rem_rows, rem_cols, (n_rows, n_cols)
 
 
+@traced("bell.upload")
 def bell_from_arrays(data, cols, diag, rem_data, rem_rows, rem_cols, shape, device=DEFAULT_DEVICE):
     """BellMatrix on `device` from its host arrays (cols as int32; the
     remainder's indices as int64).  On a CUDA device the BellMatrix packs
-    its nonzeros for K8 there and then."""
+    its nonzeros for K8 there and then.  Counts the bytes of the host
+    arrays in ``bell.upload_bytes``."""
     dev = resolve_device(device)
-    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
-    return BellMatrix(f(data), torch.as_tensor(np.asarray(cols, np.int32), device=dev), f(diag), f(rem_data),
-                      torch.as_tensor(np.asarray(rem_rows, np.int64), device=dev),
-                      torch.as_tensor(np.asarray(rem_cols, np.int64), device=dev), shape)
+    host = (np.ascontiguousarray(data), np.asarray(cols, np.int32), np.ascontiguousarray(diag),
+            np.ascontiguousarray(rem_data), np.asarray(rem_rows, np.int64), np.asarray(rem_cols, np.int64))
+    count("bell.upload_bytes", sum(a.nbytes for a in host))
+    return BellMatrix(*(torch.as_tensor(a, device=dev) for a in host), shape)
 
 
 def bell_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=np.float32, _bchunk=None,

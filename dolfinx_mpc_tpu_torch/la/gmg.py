@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.lattice import BlockDIAMatrix, DIAMatrix, LatticeOperator
+from ..utils.timing import span
 
 __all__ = ["LatticeGMG", "build_gmg_hierarchy", "dense_coarse_inverse"]
 
@@ -192,6 +193,10 @@ class LatticeGMG:
                                else torch.as_tensor(coarse_inv, dtype=ops[-1].dtype, device=ops[-1].device))
         elif coarse == "chebyshev":
             self._cheb = _cheb_interval(bounds[-1], 64.0) + (int(cheb_degree),)
+        # the V-cycle's span names (utils/timing.py), made once: pre, down,
+        # up, post per level above the coarsest
+        self._span_names = [tuple(f"gmg.L{lvl}.{phase}" for phase in ("pre", "down", "up", "post"))
+                            for lvl in range(len(ops) - 1)]
 
     def _to_grid(self, A, x):
         n0, n1, n2 = A.dia.vshape
@@ -301,18 +306,26 @@ class LatticeGMG:
         return v * self.free_masks[lvl]
 
     def _vcycle(self, lvl, b):
+        # each span holds its own phase only: the recursion into lvl + 1
+        # lies between the "down" and "up" spans of lvl
         if lvl == len(self.ops) - 1:
-            return self._coarse_solve(b)
-        x = torch.zeros_like(b)
-        x = self._smooth(lvl, x, b, self.n_pre)
-        r = self._mask(lvl, b - self._mv(lvl)(x))
-        rc = self._mask(lvl + 1, self._restrict(lvl, r))
+            with span("gmg.coarse"):
+                return self._coarse_solve(b)
+        pre, down, up, post = self._span_names[lvl]
+        with span(pre):
+            x = self._smooth(lvl, torch.zeros_like(b), b, self.n_pre)
+        with span(down):
+            r = self._mask(lvl, b - self._mv(lvl)(x))
+            rc = self._mask(lvl + 1, self._restrict(lvl, r))
         xc = self._vcycle(lvl + 1, rc)
-        x = x + self._mask(lvl, self._prolong(lvl, self._mask(lvl + 1, xc)))
-        return self._smooth(lvl, x, b, self.n_post)
+        with span(up):
+            x = x + self._mask(lvl, self._prolong(lvl, self._mask(lvl + 1, xc)))
+        with span(post):
+            return self._smooth(lvl, x, b, self.n_post)
 
     def __call__(self, r):
-        return self._vcycle(0, r)
+        with span("gmg.vcycle"):
+            return self._vcycle(0, r)
 
 
 def build_gmg_hierarchy(make_compiled_form, n, n_levels, min_n=4, levels=None):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
+from ..utils.timing import traced
 
 __all__ = ["SlotPattern", "CSRMatrix", "build_slot_pattern", "csr_from_scipy"]
 
@@ -126,6 +127,7 @@ class CSRMatrix:
         d = torch.zeros(self.shape[0], dtype=self.data.dtype, device=self.data.device)
         return d.index_add_(0, self.row_ids, on_diag)
 
+    @traced("csr.to_scipy")
     def to_scipy(self):
         import scipy.sparse as sp
 

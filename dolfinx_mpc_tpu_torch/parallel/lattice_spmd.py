@@ -453,6 +453,7 @@ class ShardedLatticeProblem:
             sub.smoother = cg.smoother
             sub._cheb_sm = None if cg._cheb_sm is None else tuple(cg._cheb_sm[1:])
             sub._bounds = None
+            sub._span_names = cg._span_names[1:]  # the levels keep their names
             self.coarse_gmg_sub = sub
 
         # backsubstitution tables

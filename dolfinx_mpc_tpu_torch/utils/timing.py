@@ -1,18 +1,37 @@
-"""Timer spans and the timing registry (torch).
+"""Timer spans, counters and their two tables (torch).
 
 Counterpart of ``dolfinx_mpc_tpu/utils/timing.py``, with its names and
-registry: every phase runs in a ``~MPC:``-prefixed span (the reference's
-``dolfinx::common::Timer``), each span adds its host wall time to a global
-registry (calls, total, max), and ``list_timings`` prints it.  Where the
-JAX package opens a ``jax.profiler.TraceAnnotation`` so that the names show
-up in a TPU trace, a span here pushes an NVTX range while CUDA is
-available, so that they show up in a CUDA trace.  A span reads the host
-clock only: it adds no device synchronisation, so on the card it measures
-the time to enqueue the phase's work, not the device time.
+registry: every phase of the public API runs in a ``~MPC:``-prefixed span
+(the reference's ``dolfinx::common::Timer``), each span adds its host wall
+time to a global registry (calls, total, max), ``timings`` returns it and
+``list_timings`` prints it.
+
+The same span type times the port's inner phases into a second table, which
+``trace_timings`` returns: ``span(name)`` (or ``traced(name)`` around a whole
+function) opens one, ``count(name, n)`` sums an amount into the same table
+(calls, total, max of the amounts).  ``reset_timings`` clears both tables.
+The inner names are fixed: ``gmg.vcycle``, ``gmg.L<l>.pre`` / ``.down`` /
+``.up`` / ``.post``, ``gmg.coarse`` (la/gmg.py); ``csr.to_scipy``
+(la/sparse.py); ``bell.pack``, ``bell.upload`` and the counter
+``bell.upload_bytes`` (la/bell.py); ``amg.setup``, ``amg.aggregate``,
+``amg.prolongator``, ``amg.galerkin``, ``amg.to_device``,
+``amg.coarse_inverse`` (la/amg.py).
+
+A span reads the host clock only and adds no device synchronisation, so on
+the card it measures the time to enqueue its phase's work.  While a torch
+profiler records, a span also opens a profiler range of its name, so that
+the names sit in the profiler's trace (``export_chrome_trace``) on its
+clock, nested as the calls nest, around the launches of their kernels.  The
+range has function scope, as an operator's has: ``record_function``'s user
+scope would also put a copy of every span on the device's timeline, where
+it reads as device work.  With no profiler recording, a span makes no torch
+or CUDA call past that one flag check.  Under Nsight Systems,
+``torch.autograd.profiler.emit_nvtx()`` turns the ranges into NVTX ranges.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -21,34 +40,46 @@ import torch
 
 __all__ = ["Timer", "timed", "list_timings", "reset_timings", "timings"]
 
-_registry: dict = defaultdict(lambda: [0, 0.0, 0.0])  # name -> [count, total, max]
+_registry: dict = defaultdict(lambda: [0, 0.0, 0.0])  # ~MPC: spans: name -> [count, total, max]
+_trace: dict = defaultdict(lambda: [0, 0.0, 0.0])  # inner spans and counters, the same form
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def _add(table, name, v):
+    rec = table[name]
+    rec[0] += 1
+    rec[1] += v
+    if v > rec[2]:
+        rec[2] = v
 
 
 class Timer:
     """`with Timer("~MPC: Assemble matrix"):` — accumulates into the global
-    registry; also usable as start()/stop() like the dolfinx Timer."""
+    registry; also usable as start()/stop() like the dolfinx Timer.
+    `table`: the registry (default) or the trace table (what ``span``
+    passes)."""
 
-    def __init__(self, name: str):
+    __slots__ = ("name", "_table", "_t0", "_range")
+
+    def __init__(self, name: str, table: dict = _registry):
         self.name = name
+        self._table = table
         self._t0 = None
-        self._nvtx = False
+        self._range = None
 
     def start(self):
+        if _profiling():
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
-        self._nvtx = torch.cuda.is_available()
-        if self._nvtx:
-            torch.cuda.nvtx.range_push(self.name)
         return self
 
     def stop(self) -> float:
         dt = time.perf_counter() - self._t0
-        if self._nvtx:
-            torch.cuda.nvtx.range_pop()
-            self._nvtx = False
-        rec = _registry[self.name]
-        rec[0] += 1
-        rec[1] += dt
-        rec[2] = max(rec[2], dt)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        _add(self._table, self.name, dt)
         return dt
 
     def elapsed(self) -> float:
@@ -70,13 +101,44 @@ def timed(name: str):
         t.stop()
 
 
+def span(name: str) -> Timer:
+    """A span of the port's inner phases: `with span("gmg.coarse"):`."""
+    return Timer(name, _trace)
+
+
+def traced(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def count(name: str, n) -> None:
+    """Add the amount n to the counter `name` of the trace table."""
+    _add(_trace, name, n)
+
+
 def timings() -> dict:
     """{name: (count, total_s, max_s)}"""
     return {k: tuple(v) for k, v in _registry.items()}
 
 
+def trace_timings() -> dict:
+    """The trace table, {name: (calls, total, max)}: seconds for a span,
+    the amounts for a counter."""
+    return {k: tuple(v) for k, v in _trace.items()}
+
+
 def reset_timings():
     _registry.clear()
+    _trace.clear()
 
 
 def list_timings(comm=None, file=None):

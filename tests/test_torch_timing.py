@@ -1,8 +1,8 @@
 """The port's timing registry (utils/timing.py) against the JAX package's:
 the same names and registry semantics, the same list_timings table, the
-five "~MPC:" spans of a LinearProblem solve, and on a card an NVTX range
-per span without a device synchronisation (checked here with the CUDA
-calls replaced by recorders)."""
+five "~MPC:" spans of a LinearProblem solve, and a profiler range per span
+while a profiler records, none and no device synchronisation while none
+does."""
 
 import io
 
@@ -119,25 +119,40 @@ def test_linear_problem_opens_the_five_spans():
     assert all(name in buf.getvalue() for name in SPANS)
 
 
-def test_spans_push_nvtx_ranges_without_a_sync(monkeypatch):
-    """Where CUDA is available a span pushes an NVTX range named after it
-    and pops it at its end, nested spans in order, and never synchronises
-    the device (the CUDA calls are replaced by recorders here)."""
-    calls = []
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda.nvtx, "range_push", lambda name: calls.append(("push", name)))
-    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", lambda: calls.append(("pop",)))
+def test_spans_open_profiler_ranges_only_while_profiling(monkeypatch):
+    """Under torch.profiler a span, ~MPC: or inner, is a range of its name
+    in the trace, nested as the calls nest, the operators it runs inside
+    it; it is not a user annotation, which would add a copy on the device's
+    timeline.  With the profiler off a span opens no range (the range
+    openers and the CUDA calls are replaced by raising stand-ins here) and
+    never synchronises."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def no_sync(*a, **k):
-        raise AssertionError("a span synchronised the device")
+    names = ["~MPC: Solve linear problem", "gmg.vcycle", "gmg.coarse"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tt.timed(names[0]):
+            with tt.span(names[1]):
+                with tt.span(names[2]):
+                    torch.ones(8).sum()
+    ev = {e.name: e for e in prof.events() if e.name in names}
+    assert sorted(ev) == sorted(names)
+    ranges = [ev[n].time_range for n in names]
+    for outer, inner in zip(ranges, ranges[1:]):
+        assert outer.start <= inner.start <= inner.end <= outer.end
+    ops = [e.time_range for e in prof.events() if e.name == "aten::sum"]
+    assert ops and ranges[2].start <= ops[0].start <= ops[0].end <= ranges[2].end
+    assert not any(getattr(ev[n], "is_user_annotation", False) for n in names)
+    assert tt.timings()[names[0]][0] == 1 and tt.trace_timings()[names[2]][0] == 1
 
-    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    def forbidden(*a, **k):
+        raise AssertionError("a span called into torch or CUDA with the profiler off")
+
+    for mod, attr in ((torch.profiler, "record_function"), (torch.autograd.profiler, "record_function"),
+                      (torch._C._profiler, "_RecordFunctionFast"), (torch.cuda, "synchronize"),
+                      (torch.cuda, "is_available"), (torch.cuda.nvtx, "range_push"), (torch.cuda.nvtx, "range_pop")):
+        monkeypatch.setattr(mod, attr, forbidden)
     with tt.timed("~MPC: Solve linear problem"):
         with tt.Timer("~MPC: Backsubstitution"):
-            pass
-    assert calls == [("push", "~MPC: Solve linear problem"), ("push", "~MPC: Backsubstitution"), ("pop",), ("pop",)]
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    calls.clear()
-    with tt.timed("x"):
-        pass
-    assert calls == [] and tt.timings()["x"][0] == 1
+            with tt.span("gmg.coarse"):
+                pass
+    assert tt.timings()["~MPC: Backsubstitution"][0] == 1 and tt.trace_timings()["gmg.coarse"][0] == 2

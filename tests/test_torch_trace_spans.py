@@ -1,0 +1,150 @@
+"""The port's inner spans and counters (utils/timing.py's trace table): the
+table's arithmetic on a fake clock, and the spans that the GMG V-cycle, the
+BELL conversion, CSRMatrix.to_scipy and the AMG set-up open, counted on
+small problems on the CPU."""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import dolfinx_mpc_tpu_torch as pt
+from dolfinx_mpc_tpu_torch.fem import forms as PF, mesh as PM
+from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+from dolfinx_mpc_tpu_torch.la.bell import bell_arrays_from_scipy, bell_from_scipy
+from dolfinx_mpc_tpu_torch.la.sparse import csr_from_scipy
+from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+PHASES = ("pre", "down", "up", "post")
+
+
+@pytest.fixture(autouse=True)
+def fresh_tables():
+    tt.reset_timings()
+    yield
+    tt.reset_timings()
+
+
+def _laplacian(n, dim):
+    """The (n^dim)-row finite-difference Laplacian, Dirichlet all round."""
+    T = sp.diags([-np.ones(n - 1), 2.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1])
+    A, eye = T, sp.identity(n)
+    for _ in range(dim - 1):
+        A = sp.kron(A, eye) + sp.kron(sp.identity(A.shape[0]), T)
+    return A.tocsr()
+
+
+def test_trace_table_on_a_fake_clock(monkeypatch):
+    """A span adds one call, its seconds to the total and raises the max;
+    a counter adds its amounts the same way; ~MPC: spans stay in their own
+    table; reset_timings clears both."""
+    clock = iter([0.0, 0.5, 10.0, 12.0, 20.0, 20.25, 30.0, 31.0])
+    monkeypatch.setattr(tt.time, "perf_counter", lambda: next(clock))
+    with tt.span("gmg.coarse"):
+        pass
+    with tt.span("gmg.coarse"):
+        pass
+    with tt.timed("~MPC: Finalize MPC"):
+        pass
+    tt.count("bell.upload_bytes", 1000)
+    tt.count("bell.upload_bytes", 24)
+    tt.traced("bell.pack")(lambda: None)()
+    assert tt.trace_timings() == {"gmg.coarse": (2, 2.5, 2.0), "bell.upload_bytes": (2, 1024, 1000),
+                                  "bell.pack": (1, 1.0, 1.0)}
+    assert tt.timings() == {"~MPC: Finalize MPC": (1, 0.25, 0.25)}
+    tt.reset_timings()
+    assert tt.trace_timings() == {} and tt.timings() == {}
+
+
+def test_traced_keeps_the_function_and_closes_on_raise():
+    """traced() returns the function's result under its own name, and the
+    span closes when the body raises."""
+
+    @tt.traced("amg.setup")
+    def f(x, y=1):
+        """doc"""
+        if x is None:
+            raise ValueError("x")
+        return x + y
+
+    assert f(2, y=3) == 5 and f.__name__ == "f" and f.__doc__ == "doc"
+    with pytest.raises(ValueError):
+        f(None)
+    assert tt.trace_timings()["amg.setup"][0] == 2
+
+
+def _lattice_level(n):
+    V = pt.functionspace(PM.create_unit_cube(n, n, n), ("Lagrange", 1))
+    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
+        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)), V)
+    mpc = pt.MultiPointConstraint(V, np.float64, device="cpu")
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    a = pt.BilinearForm(V, lambda u, v, c: PF.inner(PF.grad(u), PF.grad(v)), quad_degree=1)
+    return pt.assemble_matrix_lattice(a, mpc, bcs=[bc], side_format="fold", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def hierarchy():
+    return pt.build_gmg_hierarchy(_lattice_level, 8, 3, min_n=2)
+
+
+@pytest.mark.parametrize("coarse", ["dense", "chebyshev", "cg"])
+def test_vcycle_spans_under_cg(hierarchy, coarse):
+    """GMG-CG on a 3-level P1 lattice: one gmg.vcycle per application (CG
+    applies M its + 1 times), gmg.coarse and every level phase once per
+    V-cycle, and the phases, each holding only its own work, sum to at
+    most the V-cycles' time."""
+    ops, masks = hierarchy
+    M = pt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev", coarse=coarse, cheb_degree=8)
+    tt.reset_timings()
+    b = torch.as_tensor(np.random.default_rng(1).standard_normal(ops[0].shape[0]))
+    _, its, _ = pt.cg(ops[0].matvec, b, M=M, rtol=1e-8, max_it=500)
+    t = tt.trace_timings()
+    names = {f"gmg.L{lvl}.{p}" for lvl in range(len(ops) - 1) for p in PHASES}
+    assert set(t) == names | {"gmg.vcycle", "gmg.coarse"} and 0 < its < 500
+    calls = t["gmg.vcycle"][0]
+    assert calls == its + 1
+    assert all(t[k][0] == calls for k in names | {"gmg.coarse"})
+    assert sum(t[k][1] for k in names | {"gmg.coarse"}) <= t["gmg.vcycle"][1]
+    assert tt.timings() == {}
+
+
+def test_bell_conversion_spans_and_bytes():
+    """bell_from_scipy opens bell.pack and bell.upload once each, and
+    bell.upload_bytes holds the bytes of the host arrays sent (data, int32
+    tile columns, diagonal, remainder values, int64 remainder indices);
+    CSRMatrix.to_scipy opens csr.to_scipy once."""
+    A = _laplacian(12, 2) + sp.random(144, 144, density=0.02, random_state=3)
+    A = A.tocsr()
+    arrays = bell_arrays_from_scipy(A, mt_cap=1)
+    data, cols, diag, rem_data, rem_rows, rem_cols, _ = arrays
+    assert rem_data.shape[0] > 0  # the remainder is in the count too
+    sent = data.nbytes + 4 * cols.size + diag.nbytes + rem_data.nbytes + 8 * (rem_rows.size + rem_cols.size)
+    tt.reset_timings()
+    B = bell_from_scipy(A, mt_cap=1, device="cpu")
+    t = tt.trace_timings()
+    assert {k: v[0] for k, v in t.items()} == {"bell.pack": 1, "bell.upload": 1, "bell.upload_bytes": 1}
+    assert t["bell.upload_bytes"][1] == sent
+    assert abs(B.to_scipy() - A).max() < 1e-6
+    C = csr_from_scipy(A, device="cpu")
+    tt.reset_timings()
+    assert abs(C.to_scipy() - A).max() == 0
+    assert {k: v[0] for k, v in tt.trace_timings().items()} == {"csr.to_scipy": 1}
+
+
+def test_amg_setup_spans_per_level():
+    """smoothed_aggregation_amg opens amg.setup, amg.to_device and
+    amg.coarse_inverse once, and amg.aggregate, amg.prolongator and
+    amg.galerkin once per coarsening level."""
+    A = _laplacian(14, 3)
+    M = smoothed_aggregation_amg(A, coarse_size=100, dtype=np.float64, device="cpu")
+    levels = len(M.Ps)
+    assert levels >= 2
+    t = {k: v[0] for k, v in tt.trace_timings().items()}
+    assert t == {"amg.setup": 1, "amg.aggregate": levels, "amg.prolongator": levels, "amg.galerkin": levels,
+                 "amg.to_device": 1, "amg.coarse_inverse": 1}
+    tot = tt.trace_timings()
+    inner = ("amg.aggregate", "amg.prolongator", "amg.galerkin", "amg.to_device", "amg.coarse_inverse")
+    assert sum(tot[k][1] for k in inner) <= tot["amg.setup"][1]
