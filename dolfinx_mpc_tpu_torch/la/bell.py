@@ -28,18 +28,23 @@ built once per operator when the BellMatrix is made on a CUDA device.
   it plus the remainder, as the JAX package does.
 
 The conversion ``bell_from_scipy`` is the JAX package's numpy code, copied.
+It keeps a plan of each canonical CSR pattern it converts (``_BellPlan``),
+so that a later conversion of the same pattern with other values (a
+reassembled operator) sends only the values and scatters them into the
+tiles on the device, with the same arrays as a fresh conversion.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from .._launch import count_launch, launch_check, on_device
-from ..utils.timing import count, traced
+from ..utils.timing import count, span, traced
 
 __all__ = ["BellMatrix", "BellPacked", "bell_from_scipy", "bell_matvec", "bell_matvec_plain", "bell_pack",
            "bell_packed_matvec_plain"]
@@ -308,6 +313,16 @@ def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=n
     `mt_quantile` percentile of per-block tile counts) — dense outlier rows
     (MPC masters) overflow into the COO remainder instead of inflating
     every block."""
+    return _bell_arrays(A, R, C, mt_cap, mt_quantile, dtype, _bchunk)
+
+
+def _bell_arrays(A, R, C, mt_cap, mt_quantile, dtype, _bchunk, keep=None):
+    """bell_arrays_from_scipy's work.  Given a dict `keep`, also puts in it
+    where each stored entry of A went (A's entries in COO order, which for
+    a canonical CSR is its storage order): "lin", the linear tile position
+    of each entry kept in the tiles; "kept", which entries those are;
+    "rem_src", the entry of each remainder slot; "diag", the rows that
+    store a diagonal entry and those entries."""
     import scipy.sparse as sp
 
     A = sp.coo_matrix(A)
@@ -374,6 +389,9 @@ def bell_arrays_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=n
     rem_data = val[ov][order]
 
     diag = np.asarray(sp.csr_matrix(A).diagonal(), dtype=dtype)
+    if keep is not None:
+        on_diag = np.flatnonzero(row == col)
+        keep.update(lin=lin, kept=keep_e, rem_src=np.flatnonzero(ov)[order], diag=(row[on_diag], on_diag))
     return data, cols, diag, rem_data, rem_rows, rem_cols, (n_rows, n_cols)
 
 
@@ -390,9 +408,105 @@ def bell_from_arrays(data, cols, diag, rem_data, rem_rows, rem_cols, shape, devi
     return BellMatrix(*(torch.as_tensor(a, device=dev) for a in host), shape)
 
 
+# The most BELL plans kept, the least recently used dropped first: enough
+# for a Stokes nest's blocks and a contact operator together.
+MAX_PLANS = 4
+_plans: list = []  # _BellPlan, the most recently used last
+_plans_lock = threading.Lock()
+
+
+class _BellPlan:
+    """Where the values of one sparsity pattern go in its BELL form, kept
+    from the conversion that first met the pattern: the pattern itself
+    (host copies of indptr and indices, for an exact compare), the tile
+    shape, and on the target device the pattern's own arrays (cols and the
+    remainder's indices, shared with that first BellMatrix, which never
+    writes them) and int32 maps of the stored entries: ``tile_src`` the
+    entries kept in the tiles and ``tile_pos`` their linear tile positions,
+    ``rem_src`` the entry of each remainder slot, ``diag_src`` the diagonal
+    entries of the rows ``diag_rows``."""
+
+    def __init__(self, key, A, keep, B):
+        def ix(a):
+            small = a.size == 0 or int(a.max()) < 2 ** 31
+            return torch.as_tensor(a.astype(np.int32 if small else np.int64), device=B.data.device)
+
+        self.key, self.shape, self.data_shape = key, B.shape, tuple(B.data.shape)
+        self.indptr, self.indices = A.indptr.copy(), A.indices.copy()
+        self.cols, self.rem_rows, self.rem_cols = B.cols, B.rem_rows, B.rem_cols
+        self.tile_src, self.tile_pos = ix(np.flatnonzero(keep["kept"])), ix(keep["lin"])
+        self.rem_src = ix(keep["rem_src"])
+        self.diag_rows, self.diag_src = (ix(a) for a in keep["diag"])
+
+
+def _plan_key(A, R, C, mt_cap, mt_quantile, dtype, dev):
+    """The key of A's plan, or None where A is not a canonical CSR (sorted
+    indices, no duplicates): the tiles of duplicates are sums, which only
+    the host conversion makes."""
+    import scipy.sparse as sp
+
+    if not (sp.issparse(A) and A.format == "csr" and A.has_canonical_format):
+        return None
+    return tuple(A.shape), R, C, mt_cap, mt_quantile, np.dtype(dtype), dev
+
+
+def _find_plan(key, A):
+    """The plan of A's pattern under `key`, made the most recently used; or
+    None.  The pattern is compared in full every time."""
+    with _plans_lock:
+        for i, plan in enumerate(_plans):
+            if plan.key == key and np.array_equal(plan.indptr, A.indptr) and np.array_equal(plan.indices, A.indices):
+                _plans.append(_plans.pop(i))
+                return plan
+    return None
+
+
+@traced("bell.upload")
+def _bell_from_plan(plan, vals):
+    """The BellMatrix of a planned pattern from its values on the host (in
+    the target dtype): only the values are sent; the tiles are zeroed and
+    the values scattered into them on the device, and the diagonal and the
+    remainder gathered, so every array equals the host conversion's."""
+    count("bell.upload_bytes", vals.nbytes)
+    v = torch.as_tensor(vals, device=plan.cols.device)
+    # + 0 turns a stored -0.0 into 0.0, as the host conversion's sums do
+    # in the tiles and the diagonal (its remainder keeps the value as is)
+    v0 = v + 0
+    data = torch.zeros(plan.data_shape, dtype=v.dtype, device=v.device)
+    data.view(-1)[plan.tile_pos] = v0[plan.tile_src]
+    diag = torch.zeros(plan.shape[0], dtype=v.dtype, device=v.device)
+    diag[plan.diag_rows] = v0[plan.diag_src]
+    return BellMatrix(data, plan.cols, diag, v[plan.rem_src], plan.rem_rows, plan.rem_cols, plan.shape)
+
+
 def bell_from_scipy(A, R=8, C=128, mt_cap=None, mt_quantile=99.0, dtype=np.float32, _bchunk=None,
                     device=DEFAULT_DEVICE) -> BellMatrix:
     """Convert a scipy sparse matrix to BELL on `device` (see
-    bell_arrays_from_scipy)."""
+    bell_arrays_from_scipy).
+
+    A canonical CSR keeps a plan of its pattern (``_BellPlan``, at most
+    MAX_PLANS of them): a later conversion of a matrix whose indptr and
+    indices are equal to a plan's, with the same parameters, dtype and
+    device, casts and sends only the values and scatters them on the
+    device, and returns the same arrays.  Counts ``bell.plan_hit`` or
+    ``bell.plan_miss`` once per conversion of a canonical CSR."""
     dev = resolve_device(device)
-    return bell_from_arrays(*bell_arrays_from_scipy(A, R, C, mt_cap, mt_quantile, dtype, _bchunk), device=dev)
+    key = _plan_key(A, R, C, mt_cap, mt_quantile, dtype, dev)
+    keep = None if key is None else {}
+    with span("bell.pack"):
+        plan = None if key is None else _find_plan(key, A)
+        if plan is not None:
+            vals = A.data.astype(dtype)
+        else:
+            arrays = _bell_arrays(A, R, C, mt_cap, mt_quantile, dtype, _bchunk, keep)
+    if plan is not None:
+        count("bell.plan_hit", 1)
+        return _bell_from_plan(plan, vals)
+    B = bell_from_arrays(*arrays, device=dev)
+    if key is not None:
+        count("bell.plan_miss", 1)
+        plan = _BellPlan(key, A, keep, B)
+        with _plans_lock:
+            _plans.append(plan)
+            del _plans[:-MAX_PLANS]
+    return B

@@ -12,10 +12,10 @@ function) opens one, ``count(name, n)`` sums an amount into the same table
 (calls, total, max of the amounts).  ``reset_timings`` clears both tables.
 The inner names are fixed: ``gmg.vcycle``, ``gmg.L<l>.pre`` / ``.down`` /
 ``.up`` / ``.post``, ``gmg.coarse`` (la/gmg.py); ``csr.to_scipy``
-(la/sparse.py); ``bell.pack``, ``bell.upload`` and the counter
-``bell.upload_bytes`` (la/bell.py); ``amg.setup``, ``amg.aggregate``,
-``amg.prolongator``, ``amg.galerkin``, ``amg.to_device``,
-``amg.coarse_inverse`` (la/amg.py).
+(la/sparse.py); ``bell.pack``, ``bell.upload`` and the counters
+``bell.upload_bytes``, ``bell.plan_hit`` and ``bell.plan_miss``
+(la/bell.py); ``amg.setup``, ``amg.aggregate``, ``amg.prolongator``,
+``amg.galerkin``, ``amg.to_device``, ``amg.coarse_inverse`` (la/amg.py).
 
 A span reads the host clock only and adds no device synchronisation, so on
 the card it measures the time to enqueue its phase's work.  While a torch

@@ -322,6 +322,52 @@ def test_k8_matches_plain_on_card(cuda, dtype, tol):
         BL.bell_matvec(B, x.cpu())
 
 
+@pytest.mark.parametrize("ndt", [np.float32, np.float64], ids=["f32", "f64"])
+def test_bell_plan_hit_equals_a_miss_on_card(cuda, ndt):
+    """The contact operator assembled on the card twice, with other Lame
+    parameters: the second conversion is a plan hit, and its BellMatrix
+    equals a conversion of the same matrix with no plan in every array, bit
+    for bit, the packed layout K8 reads included; K8's y on both is the
+    same bit for bit.  A plan made on the CPU serves no conversion on the
+    card."""
+    from dolfinx_mpc_tpu_torch.la import bell as BL
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    def hits():
+        return tt.trace_timings().get("bell.plan_hit", (0,))[0]
+
+    V, bcs, mpc, _, _ = _contact_problem(6, 5, np.float64, cuda)
+    consts = {"mu": 1.0, "lam": 1.25}
+    a = pt.BilinearForm(V, lambda u, v, c: 2 * c["mu"] * inner(sym(grad(u)), sym(grad(v)))
+                        + c["lam"] * div(u) * conj(div(v)), constants=consts)
+    BL._plans.clear()
+    A1 = pt.assemble_matrix(a, mpc, bcs).to_scipy()
+    BL.bell_from_scipy(A1, dtype=ndt, device="cpu")
+    BL.bell_from_scipy(A1, dtype=ndt, device=cuda)
+    consts["mu"], consts["lam"] = 1.1, 1.0
+    A2 = pt.assemble_matrix(a, mpc, bcs).to_scipy()
+    assert np.array_equal(A1.indptr, A2.indptr) and np.array_equal(A1.indices, A2.indices)
+    assert not np.array_equal(A1.data, A2.data)
+    h0 = hits()
+    hit = BL.bell_from_scipy(A2, dtype=ndt, device=cuda)
+    assert hits() == h0 + 1
+    BL._plans.clear()
+    miss = BL.bell_from_scipy(A2, dtype=ndt, device=cuda)
+    assert hits() == h0 + 1 and hit.data.device.type == "cuda" and hit.rem_data.shape[0] > 0
+    for name in ("data", "cols", "diag", "rem_data", "rem_rows", "rem_cols"):
+        h, m = getattr(hit, name).cpu().numpy(), getattr(miss, name).cpu().numpy()
+        assert h.dtype == m.dtype and h.shape == m.shape and h.tobytes() == m.tobytes(), name
+    for name in ("row_ptr", "cols", "vals"):
+        assert torch.equal(getattr(hit.packed, name), getattr(miss.packed, name)), name
+    assert hit.packed.threads_per_row == miss.packed.threads_per_row
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    x = torch.randn(A2.shape[1], generator=g, device=cuda, dtype=getattr(torch, np.dtype(ndt).name))
+    y_hit, y_miss = BL.bell_matvec(hit, x), BL.bell_matvec(miss, x)
+    assert y_hit.cpu().numpy().tobytes() == y_miss.cpu().numpy().tobytes()
+    BL._plans.clear()
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-6), (torch.float64, 1e-13)])
 def test_k2_matches_plain_on_card_grids(cuda, dtype, tol):
     """K2 (the prepared launch DIAMatrix.matvec keeps) against its plain

@@ -191,7 +191,7 @@ def test_bell_from_scipy_equals_jax(case):
     if "mt_cap" in kw:
         assert Bp.rem_data.shape[0] > 0
     if "_bchunk" in kw:  # the chunked conversion equals the single-shot one
-        B1 = pbell.bell_from_scipy(A, device="cpu")
+        B1 = pbell.bell_from_arrays(*pbell.bell_arrays_from_scipy(A), device="cpu")
         assert torch.equal(B1.data, Bp.data) and torch.equal(B1.cols, Bp.cols)
     dt = kw.get("dtype", np.float32)
     x = np.random.default_rng(1).standard_normal(A.shape[1]).astype(dt)

@@ -11,6 +11,7 @@ import torch
 import dolfinx_mpc_tpu_torch as pt
 from dolfinx_mpc_tpu_torch.fem import forms as PF, mesh as PM
 from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+from dolfinx_mpc_tpu_torch.la import bell
 from dolfinx_mpc_tpu_torch.la.bell import bell_arrays_from_scipy, bell_from_scipy
 from dolfinx_mpc_tpu_torch.la.sparse import csr_from_scipy
 from dolfinx_mpc_tpu_torch.utils import timing as tt
@@ -114,7 +115,9 @@ def test_vcycle_spans_under_cg(hierarchy, coarse):
 def test_bell_conversion_spans_and_bytes():
     """bell_from_scipy opens bell.pack and bell.upload once each, and
     bell.upload_bytes holds the bytes of the host arrays sent (data, int32
-    tile columns, diagonal, remainder values, int64 remainder indices);
+    tile columns, diagonal, remainder values, int64 remainder indices); the
+    first conversion of a pattern counts bell.plan_miss, a second one with
+    other values bell.plan_hit, and sends the float32 values alone;
     CSRMatrix.to_scipy opens csr.to_scipy once."""
     A = _laplacian(12, 2) + sp.random(144, 144, density=0.02, random_state=3)
     A = A.tocsr()
@@ -122,12 +125,22 @@ def test_bell_conversion_spans_and_bytes():
     data, cols, diag, rem_data, rem_rows, rem_cols, _ = arrays
     assert rem_data.shape[0] > 0  # the remainder is in the count too
     sent = data.nbytes + 4 * cols.size + diag.nbytes + rem_data.nbytes + 8 * (rem_rows.size + rem_cols.size)
+    bell._plans.clear()
     tt.reset_timings()
     B = bell_from_scipy(A, mt_cap=1, device="cpu")
     t = tt.trace_timings()
-    assert {k: v[0] for k, v in t.items()} == {"bell.pack": 1, "bell.upload": 1, "bell.upload_bytes": 1}
+    assert {k: v[0] for k, v in t.items()} == {"bell.pack": 1, "bell.upload": 1, "bell.upload_bytes": 1,
+                                               "bell.plan_miss": 1}
     assert t["bell.upload_bytes"][1] == sent
     assert abs(B.to_scipy() - A).max() < 1e-6
+    A2 = A.copy()
+    A2.data = 1.5 * A2.data
+    B2 = bell_from_scipy(A2, mt_cap=1, device="cpu")
+    t = tt.trace_timings()
+    assert {k: v[0] for k, v in t.items()} == {"bell.pack": 2, "bell.upload": 2, "bell.upload_bytes": 2,
+                                               "bell.plan_miss": 1, "bell.plan_hit": 1}
+    assert t["bell.upload_bytes"][1] == sent + 4 * A2.nnz
+    assert abs(B2.to_scipy() - A2).max() < 1e-6
     C = csr_from_scipy(A, device="cpu")
     tt.reset_timings()
     assert abs(C.to_scipy() - A).max() == 0
