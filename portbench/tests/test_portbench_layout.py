@@ -1,11 +1,11 @@
 """BENCHMARK.json against the contract's form, every file found by name,
-a new configuration, traffic mix and metric picked up as files alone, and
-no JAX or JAX package anywhere in the harness."""
+new configurations, cells and metrics (a four-chip cell among them) picked
+up as new files and entries alone, and no JAX or JAX package anywhere in
+the harness."""
 
 import ast
 import json
 import re
-import shutil
 import subprocess
 import sys
 import textwrap
@@ -54,11 +54,30 @@ def test_cell_found_by_name(cell):
     from portbench.core import load_cell
 
     c = load_cell(cell["name"])
-    assert c.chips == 1 and len(cell["why"]) <= 200
+    assert c.chips == cell["chips"] and len(cell["why"]) <= 200
     assert {m["name"] for m in c.end_to_end} >= {"setup_s", "solve_ms"} and c.per_layer
     assert (ROOT / "portbench" / "configs" / f"{c.config}.py").is_file()
     assert (ROOT / "portbench" / "reference" / f"{c.config}.py").is_file()
     assert c.limits
+
+
+def test_chip_rule():
+    """The benchmark contract's: a cell takes 1 or 4 chips, and at most max(1, cells // 4)
+    of the cells take 4."""
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
+
+
+@pytest.mark.parametrize("config", BENCH["configs"], ids=[c["name"] for c in BENCH["configs"]])
+def test_config_states_its_small_size(config):
+    """Every configuration file states the traffic size at which the CPU
+    tests run it: "small", with the keys of its cells' sizes."""
+    small = json.loads((ROOT / config["file"]).read_text())["small"]
+    for w in BENCH["workloads"]:
+        if w["config"] == config["name"]:
+            size = json.loads((ROOT / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())["size"]
+            assert set(small) == set(size), (small, size)
 
 
 def test_configs_used_and_files_under_paths():
@@ -93,22 +112,27 @@ def _python(code, cwd):
     return res.stdout
 
 
-def test_run_loads_no_jax():
-    """A whole run at a tiny size on the CPU, then the top-level names in
-    sys.modules (compared whole: dolfinx_mpc_tpu_torch is the port)."""
+@pytest.mark.parametrize("cell", BENCH["workloads"], ids=[w["name"] for w in BENCH["workloads"]])
+def test_run_loads_no_jax(cell):
+    """A whole run at the configuration's small size on the CPU, then the
+    top-level names in sys.modules (compared whole: dolfinx_mpc_tpu_torch
+    is the port, and is loaded wherever configs/<config>.py imports it)."""
+    name = cell["name"]
     out = _python(f"""
         import dataclasses, json, sys, time
         sys.path.insert(0, {str(ROOT)!r})
         from portbench.core import load_cell, run
-        for name, size in (("p1_n216.solve", {{"n": 8}}), ("contact_74k.newton", {{"nb": 2, "nt": 2}})):
-            cell = load_cell(name)
-            cell = dataclasses.replace(cell, traffic={{**cell.traffic, "size": size}})
-            code, res = run(cell, 7, 0.2, 0, time.time(), device="cpu", log=lambda s: None)
-            assert code == 0 and res["correct"], res
+        cell = load_cell({name!r})
+        cell = dataclasses.replace(cell, traffic={{**cell.traffic, "size": cell.cfg["small"]}})
+        code, res = run(cell, 7, 0.2, 0, time.time(), device="cpu", log=lambda s: None)
+        assert code == 0 and res["correct"], res
         print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
         """, ROOT)
     tops = set(json.loads(out.splitlines()[-1]))
-    assert "dolfinx_mpc_tpu_torch" in tops and not tops & FORBIDDEN
+    assert not tops & FORBIDDEN
+    problem = ROOT / "portbench" / "configs" / f"{cell['config']}.py"
+    if "dolfinx_mpc_tpu_torch" in {m.split(".")[0] for m in _imports(problem)}:
+        assert "dolfinx_mpc_tpu_torch" in tops
 
 
 def test_reference_loads_nothing_of_the_port():
@@ -125,40 +149,51 @@ def test_reference_loads_nothing_of_the_port():
 
 
 def test_new_files_are_picked_up(tmp_path):
-    """A configuration, a traffic mix, a limits file and a metric added as
-    new files and BENCHMARK.json entries, in a copy of the benchmark, run
-    without an edit to any file that was there."""
-    shutil.copytree(ROOT / "portbench", tmp_path / "portbench", ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    pb = tmp_path / "portbench"
-    shutil.copy(pb / "configs" / "periodic_p1.json", pb / "configs" / "periodic_p1_copy.json")
-    shutil.copy(pb / "configs" / "periodic_p1.py", pb / "configs" / "periodic_p1_copy.py")
-    shutil.copy(pb / "reference" / "periodic_p1.py", pb / "reference" / "periodic_p1_copy.py")
-    traffic = json.loads((pb / "traffic" / "p1_n216.solve.json").read_text())
-    traffic["size"] = {"n": 8}
-    (pb / "traffic" / "tiny.json").write_text(json.dumps(traffic))
-    (pb / "limits" / "copy.tiny.json").write_text((pb / "limits" / "p1_n216.solve.json").read_text())
-    (pb / "metrics" / "requests_seen.py").write_text("def read(rec):\n    return float(len(rec['requests']))\n")
-    bench["configs"].append({"name": "periodic_p1_copy", "source": "https://example.org", "reduced": [],
-                             "file": "portbench/configs/periodic_p1_copy.json", "why": "test"})
-    bench["workloads"].append({"name": "copy.tiny", "config": "periodic_p1_copy", "traffic": "tiny", "chips": 1,
-                               "why": "test"})
-    bench["per_layer"].append({"name": "requests_seen", "unit": "requests", "better": "higher",
-                               "source": "program_counter", "layer": "Krylov", "moves": "solve_ms",
-                               "workloads": ["copy.tiny"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    out = _python(f"""
-        import json, sys, time
-        sys.path.insert(0, {str(tmp_path)!r})
-        sys.path.append({str(ROOT)!r})
-        import portbench.core as core
-        assert core.ROOT == __import__("pathlib").Path({str(tmp_path)!r})
-        cell = core.load_cell("copy.tiny")
-        code, res = core.run(cell, 3, 0.2, 1, time.time(), device="cpu", log=lambda s: None)
-        print(json.dumps(res))
-        """, tmp_path)
-    res = json.loads(out.splitlines()[-1])
-    assert res["correct"] and res["metrics"]["requests_seen"]["value"] == res["attempted"]
+    """A new configuration with a one-chip cell and a per-layer metric, and
+    the toy `allreduce` on four ranks (gloo here), added to a copy of the
+    benchmark as new files and BENCHMARK.json entries only
+    (newcells.make_copy): the harness's reference and layout tests pass
+    there for them, a traced run reports the new metric, and no file that
+    was there changed."""
+    from newcells import NEW_NAMES, hashes, make_copy
+
+    before = make_copy(tmp_path, toy_chips=4)
+    old, new = json.loads((ROOT / "BENCHMARK.json").read_text()), json.loads((tmp_path / "BENCHMARK.json").read_text())
+    for key in old:  # BENCHMARK.json: entries added only
+        assert new[key] == old[key] if not isinstance(old[key], list) else new[key][:len(old[key])] == old[key]
+    # the tests of the new names and those of the whole benchmark (not this one again), meanwhile a traced run
+    select = f"({' or '.join(NEW_NAMES)} or not [) and not test_new_files_are_picked_up"
+    files = ["portbench/tests/test_portbench_reference.py", "portbench/tests/test_portbench_layout.py"]
+    tests = subprocess.Popen([sys.executable, "-m", "pytest", "-q", "-rA", "-p", "no:cacheprovider", "-p", "xdist",
+                              "-n", "4", *files, "-k", select], cwd=tmp_path, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        out = _python(f"""
+            import dataclasses, json, sys, time
+            sys.path.insert(0, {str(tmp_path)!r})
+            import portbench.core as core
+            assert core.ROOT == __import__("pathlib").Path({str(tmp_path)!r})
+            cell = core.load_cell("p1copy.solve")
+            cell = dataclasses.replace(cell, traffic={{**cell.traffic, "size": cell.cfg["small"]}})
+            code, res = core.run(cell, 3, 0.2, 1, time.time(), device="cpu", log=lambda s: None)
+            print(json.dumps(res))
+            """, tmp_path)
+        log = tests.communicate(timeout=900)[0]
+    finally:
+        tests.kill()
+        tests.wait()
+    assert tests.returncode == 0, log[-6000:]
+    passed = [line for line in log.splitlines() if line.startswith("PASSED")]
+    for cell in ("p1copy.solve", "allreduce.ranks"):
+        for test in ("reference_agrees_with_the_port", "control_is_not_correct", "broken_timed_path_is_not_correct",
+                     "cell_found_by_name", "run_loads_no_jax"):
+            assert any(f"test_{test}[{cell}" in line for line in passed), (cell, test, log[-3000:])
+    assert any("test_chip_rule" in line for line in passed)
+    traced = json.loads(out.splitlines()[-1])
+    assert traced["correct"] and traced["metrics"]["requests_seen"]["value"] == traced["attempted"]
+    after = hashes(tmp_path)
+    changed = [f for f, h in before.items() if f != "BENCHMARK.json" and after.get(f) != h]
+    assert not changed
 
 
 def test_kernel_time_from_the_trace():

@@ -1,9 +1,9 @@
 """The readers of the port's own spans and counters (coarse_share,
-to_scipy_ms, bell_pack_ms, bell_upload_mb): a traced run of each cell at a
-tiny size on the CPU, each in a process of its own as the harness runs it,
-reports them where their `workloads` list them and only there; and on the
-card the coarse solve's kernels are launched inside gmg.coarse's range of
-the profiler's trace."""
+to_scipy_ms, bell_pack_ms, bell_upload_mb): a traced run of each cell at
+its configuration's small size on the CPU, each in a process of its own as
+the harness runs it, reports them where their `workloads` list them and
+only there; and on the card the coarse solve's kernels are launched inside
+gmg.coarse's range of the profiler's trace."""
 
 import json
 
@@ -13,7 +13,6 @@ from conftest import ROOT
 from test_portbench_layout import BENCH, _python
 
 NEW = ("coarse_share", "to_scipy_ms", "bell_pack_ms", "bell_upload_mb")
-SMALL = {"p1_n216.solve": {"n": 16}, "contact_74k.newton": {"nb": 2, "nt": 2}}
 
 
 def _traced_small(name):
@@ -22,7 +21,7 @@ def _traced_small(name):
         sys.path.insert(0, {str(ROOT)!r})
         from portbench.core import load_cell, run
         cell = load_cell({name!r})
-        cell = dataclasses.replace(cell, traffic={{**cell.traffic, "size": {SMALL[name]!r}}})
+        cell = dataclasses.replace(cell, traffic={{**cell.traffic, "size": cell.cfg["small"]}})
         code, res = run(cell, 2 ** 31 + 5, 0.2, 1, time.time(), device="cpu", log=lambda s: None)
         assert code == 0 and res["correct"], res
         print(json.dumps(res))
@@ -30,12 +29,12 @@ def _traced_small(name):
     return json.loads(out.splitlines()[-1])
 
 
-@pytest.mark.parametrize("name", sorted(SMALL))
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_program_span_metrics_where_listed(name):
     listed = {m["name"] for m in BENCH["per_layer"] if m["name"] in NEW and name in m["workloads"]}
     res = _traced_small(name)
     got = set(res["metrics"]) & set(NEW)
-    assert listed and got == listed, (got, listed)
+    assert got == listed, (got, listed)
     m = {k: res["metrics"][k]["value"] for k in got}
     if "coarse_share" in m:
         assert 0.0 < m["coarse_share"] < 100.0

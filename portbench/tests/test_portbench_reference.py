@@ -1,7 +1,9 @@
-"""The comparison that decides `correct`, on the CPU at small sizes: the
-plain reference agrees with the port's plain path, the control (the
-reference in the precision below the configuration's) comes out not
-correct, and so does a run whose timed path is broken underneath."""
+"""The comparison that decides `correct`, on the CPU, each cell at its
+configuration's "small" size: the plain reference agrees with the port's
+plain path, the control (the reference in the precision below the
+configuration's) comes out not correct, and so does a run whose timed path
+is broken underneath by each fault the configuration can have (its
+"faults", each a file faults/<fault>.py)."""
 
 import dataclasses
 import json
@@ -14,12 +16,13 @@ from conftest import ROOT
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
-SMALL = {"periodic_p1": {"n": 8}, "contact_tied": {"nb": 4, "nt": 3}}
 SEEDS = (3, 2 ** 31 + 11)
 # contact_tied's path that keeps the set-up's operator and changes only the
 # load (a traffic with "reassemble" false); no cell runs it yet
 ONE_OPERATOR = {"reassemble": False, "draws": {"top_scale": {"uniform": [0.5, 1.5]}}}
 CASES = CELLS + ["contact_74k.one_operator"]
+# what a configuration without a "faults" key can have: the port's CG and backsubstitution
+PORT_FAULTS = ["unchanged_state", "altered_answer"]
 
 
 def small(name):
@@ -30,7 +33,7 @@ def small(name):
         cell = dataclasses.replace(cell, name=name, traffic={**cell.traffic, **ONE_OPERATOR})
     else:
         cell = load_cell(name)
-    return dataclasses.replace(cell, traffic={**cell.traffic, "size": SMALL[cell.config]})
+    return dataclasses.replace(cell, traffic={**cell.traffic, "size": cell.cfg["small"]})
 
 
 def run_small(name, seed, seconds=0.3, trace=0):
@@ -86,32 +89,11 @@ def test_one_decision(numbers, failed, correct):
     assert ok is correct and list(checks) == ["a", "b"]
 
 
-def _unchanged_state(dmt, monkeypatch):
-    """CG returns its starting state: the step leaves x as it was."""
-    monkeypatch.setattr(dmt, "cg", lambda A, b, M=None, **kw: (torch.zeros_like(b), 1, float(b.norm())))
-
-
-def _altered_answer(dmt, monkeypatch):
-    """Backsubstitution alters one value of the solution it produces."""
-    from dolfinx_mpc_tpu_torch.multipointconstraint import FinalizedMPC
-
-    orig = FinalizedMPC.backsubstitution
-
-    def altered(self, u):
-        out = orig(self, u)
-        i = int(out.abs().argmax())
-        out[i] = out[i] * 1.01
-        return out
-
-    monkeypatch.setattr(FinalizedMPC, "backsubstitution", altered)
-
-
-@pytest.mark.parametrize("fault", [_unchanged_state, _altered_answer], ids=["unchanged_state", "altered_answer"])
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name,fault", [(n, f) for n in CASES for f in small(n).cfg.get("faults", PORT_FAULTS)])
 def test_broken_timed_path_is_not_correct(name, fault, monkeypatch):
-    import dolfinx_mpc_tpu_torch as dmt
+    from portbench.core import load_module
 
-    fault(dmt, monkeypatch)
+    load_module("faults", fault, here=ROOT / "portbench" / "tests").apply(monkeypatch)
     res = run_small(name, SEEDS[1], seconds=0.1)
     assert not res["correct"], res["checks"]
 
