@@ -263,7 +263,7 @@ FORWARD_ERROR_GATE = 1e-4
 #   ops, masks = build_gmg_hierarchy(make, 32, 0, levels=levels); ops[0] = A
 #   M = LatticeGMG(ops, free_masks=masks, blocked_io=True, smoother="chebyshev",
 #                  n_pre=2, n_post=2)
-#   cg(A.matvec_blocked, A.dia._to_blocked(b), M=M, rtol=1e-6, atol=1e-12,
+#   cg(A.matvec_blocked, A.to_blocked(b), M=M, rtol=1e-6, atol=1e-12,
 #      max_it=3000)  (jitted, as bench.py:656-659)
 # n=64 was not run through the JAX package on a shared CPU host (the
 # full-size configuration; n=32 already holds 1.4 GB).  The n=32 count
@@ -914,7 +914,7 @@ def compare_k6(dev, gen, dia, main):
         data = dia.data.to(dt).contiguous()
         op = BlockDIAMatrix(data, dia.trips, dia.vshape, dia.r3)  # holds K6's prepared launch
         x = torch.randn(dia.shape[0], generator=gen, device=dev, dtype=torch.float64).to(dt)
-        xb = dia._to_blocked(x).contiguous()
+        xb = dia.to_blocked(x).contiguous()
         got = op.matvec_blocked(xb)
         ref = LK.blocked_matvec_plain(data, dia.trips, dia.classes, xb)
         rel = _rel_l2(got, ref)
@@ -929,9 +929,9 @@ def compare_k6(dev, gen, dia, main):
                      f"{bms / t['cold_ms']:.0%}, device {bms / (t['prof_ms'] or float('inf')):.0%} of the bound")
             if main:
                 # the library call computes the same operator on the flat dof vector
-                lib_ms, y_lib = csr_library_ms(dia.to_scipy(), dia._from_blocked(xb).contiguous(), 100)
+                lib_ms, y_lib = csr_library_ms(dia.to_scipy(), dia.from_blocked(xb).contiguous(), 100)
                 line += (f"; cuSPARSE CSR (flat) {lib_ms:.4f} ms warm (rel L2 to the kernel "
-                         f"{_rel_l2(y_lib, dia._from_blocked(got)):.1e}), warm {lib_ms / t['warm_ms']:.2f}x its speed")
+                         f"{_rel_l2(y_lib, dia.from_blocked(got)):.1e}), warm {lib_ms / t['warm_ms']:.2f}x its speed")
                 out["K6"] = dict(max_abs_err=float((got - ref).abs().max()), ms=t["warm_ms"], plain_ms=plain_ms,
                                  bound_ms=bms, bound_by=by, library_ms=lib_ms)
                 sweep = []
@@ -1184,12 +1184,12 @@ def p2_path(dev, n, measure=True):
 
     reset_counts()
     V, mpc, clf, A, b, ops, masks, M, t_setup, t_build = build_p2(dev, n)
-    bb = A.dia._to_blocked(b)
+    bb = A.to_blocked(b)
     t0 = time.time()
     xb, its, rnorm = dmt.cg(A.matvec_blocked, bb, M=M, rtol=1e-6, atol=1e-12, max_it=3000)
     torch.cuda.synchronize()
     t_cg = time.time() - t0
-    x = A.dia._from_blocked(xb)
+    x = A.from_blocked(xb)
     u = mpc.finalized.backsubstitution(x)
     torch.cuda.synchronize()
     counts = read_counts(("K1", "K2", "K4", "K6"))
@@ -1203,7 +1203,7 @@ def p2_path(dev, n, measure=True):
                          free_masks=[m.double() for m in masks], blocked_io=True,
                          smoother="chebyshev", n_pre=2, n_post=2)
     xb_ref, its_ref, _ = dmt.cg(A64.matvec_blocked, bb.double(), M=M64, rtol=1e-12, atol=0.0, max_it=500)
-    eta, rel_res, fwd = error_gates(A, b, x, A.dia._from_blocked(xb_ref))
+    eta, rel_res, fwd = error_gates(A, b, x, A.from_blocked(xb_ref))
     summary = dict(n=n, dofs=V.num_dofs, setup_s=t_setup, build_s=t_build, its=its, rnorm=rnorm,
                    bnorm=float(torch.linalg.vector_norm(b)), cg_s=t_cg, rel_res=rel_res, eta=eta,
                    fwd=fwd, its_ref=its_ref, levels=p2_levels(n), bounds=M._bounds)
@@ -2868,13 +2868,13 @@ def compare_complex_lattice_kernels(dev, gen, A_bloch):
         op = BlockDIAMatrix(data, trips, (2 * n - 1,) * 3, (2, 2, 2))
         # x zero on the class grids' padding, as the solve path's is
         xf = _complex_randn(gen, ((2 * n - 1) ** 3,), dev, ct)
-        xb = op._to_blocked(xf).contiguous()
+        xb = op.to_blocked(xf).contiguous()
         pts = LK.blocked_launch_params(trips, op.classes, (n, n, n), data.element_size()).pts
         out["K6"][dt] = _complex_check(
             f"K6 blocked_matvec 8 x {(n, n, n)} ({len(trips)} triples, {pts} plane points per block)",
             "blocked_matvec_kernel", lambda: op.matvec_blocked(xb),
             lambda: LK.blocked_matvec_plain(data, trips, op.classes, xb), data.numel(), xb, 8 * len(trips),
-            lambda: (_blocked_csr(data, trips, op.classes, (n, n, n))[0], xf, op._from_blocked))
+            lambda: (_blocked_csr(data, trips, op.classes, (n, n, n))[0], xf, op.from_blocked))
         del op, data, xb
     return out
 

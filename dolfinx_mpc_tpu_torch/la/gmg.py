@@ -166,7 +166,7 @@ class LatticeGMG:
         # residuals/corrections are projected onto the free subspace around
         # each transfer so constrained rows don't pollute coarse levels
         if blocked_io and free_masks is not None:
-            free_masks = [ops[0].dia._to_blocked(free_masks[0])] + list(free_masks[1:])
+            free_masks = [ops[0].to_blocked(free_masks[0])] + list(free_masks[1:])
         self.free_masks = free_masks
         inv = lambda d: torch.where(d != 0, 1.0 / d, torch.zeros_like(d))  # noqa: E731
         flat_inv = [inv(A.diagonal()) for A in ops]
@@ -236,7 +236,7 @@ class LatticeGMG:
         # R = P^T exactly (x2 per coarsened axis on top of full weighting)
         Af, Ac = self.ops[lvl], self.ops[lvl + 1]
         if lvl == 0 and self.blocked_io:
-            r = Af.dia._from_blocked(r)  # class stack -> fine nodal flat
+            r = Af.from_blocked(r)  # class stack -> fine nodal flat
         g = self._to_grid(Af, r)
         for ax in range(3):
             if Af.dia.vshape[ax] != Ac.dia.vshape[ax]:
@@ -251,7 +251,7 @@ class LatticeGMG:
                 g = _prolong1(g, ax)
         g = g.reshape(-1)
         if lvl == 0 and self.blocked_io:
-            g = Af.dia._to_blocked(g)  # fine nodal flat -> class stack
+            g = Af.to_blocked(g)  # fine nodal flat -> class stack
         return g
 
     def _coarse_solve(self, b):
@@ -354,7 +354,7 @@ def build_gmg_hierarchy(make_compiled_form, n, n_levels, min_n=4, levels=None):
         op = clf.assemble()
         ops.append(op)
         m = np.ones(clf.V.num_dofs)
-        m[np.asarray(clf._bc_dofs_grid, np.int64)] = 0.0
+        m[np.asarray(clf.bc_dofs, np.int64)] = 0.0
         if clf.mpc is not None and clf.mpc.num_local_slaves:
             m[np.asarray(clf.mpc.slaves)] = 0.0
         masks.append(torch.as_tensor(m, dtype=op.dtype.to_real(), device=op.device))

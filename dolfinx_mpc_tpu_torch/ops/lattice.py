@@ -55,6 +55,7 @@ from ..fem.lattice_info import LatticeInfo, get_lattice_info
 from ..fem.quadrature import quadrature_rule
 from ..la.sparse import build_slot_pattern
 from ..multipointconstraint import MultiPointConstraint
+from ..utils.timing import traced
 from .assemble import _bc_masks, _build_cell_transforms, _coeff_vectors, _mpc_pair, _real_dtype
 from .kernels import compile_term
 from .soa_kernels import _soa_degree, compile_cell_kernel_soa, soa_supported
@@ -191,9 +192,11 @@ class BlockDIAMatrix:
         n = int(np.prod(self.vshape))
         return (n, n)
 
-    def _to_blocked(self, x):
+    @traced("lattice.to_blocked")
+    def to_blocked(self, x):
         """fine (n0, n1, n2) flat vector -> (n_classes, s0, s1, s2) padded
-        class stack (class-major split by refined parity)."""
+        class stack (class-major split by refined parity), the layout of
+        matvec_blocked; the padding holds zeros."""
         n0, n1, n2 = self.vshape
         r0, r1, r2 = self.r3
         s0, s1, s2 = self.cdims
@@ -202,7 +205,10 @@ class BlockDIAMatrix:
         return (xp.reshape(s0, r0, s1, r1, s2, r2).permute(1, 3, 5, 0, 2, 4)
                 .reshape(-1, s0, s1, s2))
 
-    def _from_blocked(self, yb):
+    @traced("lattice.from_blocked")
+    def from_blocked(self, yb):
+        """(n_classes, s0, s1, s2) padded class stack -> fine flat vector:
+        to_blocked's inverse, the padding dropped."""
         n0, n1, n2 = self.vshape
         r0, r1, r2 = self.r3
         s0, s1, s2 = self.cdims
@@ -211,7 +217,7 @@ class BlockDIAMatrix:
         return yf[:n0, :n1, :n2].reshape(-1)
 
     def matvec(self, x):
-        return self._from_blocked(self.matvec_blocked(self._to_blocked(x)))
+        return self.from_blocked(self.matvec_blocked(self.to_blocked(x)))
 
     def matvec_blocked(self, xb):
         """SpMV on the padded blocked class stack (n_cls, s0, s1, s2), the
@@ -234,7 +240,7 @@ class BlockDIAMatrix:
         return out
 
     def diagonal(self):
-        return self._from_blocked(self.diagonal_blocked())
+        return self.from_blocked(self.diagonal_blocked())
 
     def to_scipy(self):
         import scipy.sparse as sp
@@ -385,6 +391,23 @@ class LatticeOperator:
         blocked mask."""
         return (isinstance(self.dia, BlockDIAMatrix) and not self._unassembled() and not self._has_csr_side()
                 and (self.fold_axis is None or self.fold_mask_b is not None))
+
+    def _blocked_dia(self):
+        if not self.supports_blocked():
+            raise ValueError("the padded class-stack layout needs a BlockDIAMatrix operator without side blocks "
+                             f"(this one holds a {type(self.dia).__name__})")
+        return self.dia
+
+    def to_blocked(self, x):
+        """The flat vector x as the padded class stack (n_cls, s0, s1, s2)
+        that matvec_blocked takes (BlockDIAMatrix.to_blocked); ValueError
+        where supports_blocked() is False."""
+        return self._blocked_dia().to_blocked(x)
+
+    def from_blocked(self, xb):
+        """The padded class stack xb as the flat vector (to_blocked's
+        inverse); ValueError where supports_blocked() is False."""
+        return self._blocked_dia().from_blocked(xb)
 
     def matvec_blocked(self, xb):
         """K^T A K matvec on the padded blocked class stack (n_cls, s0, s1,
@@ -1112,6 +1135,12 @@ class CompiledLatticeForm:
         side = Aep.new_zeros(self.pattern.nnz + 1).index_add_(0, self._slots, vals)[: self.pattern.nnz]
         return LatticeOperator(dia, diagval, side_data=side, side_cols=self._side_cols, side_rows=self._side_rows,
                                side_nrows=N)
+
+    @property
+    def bc_dofs(self):
+        """The Dirichlet dofs (host int array): the rows and columns the
+        operator holds at diagval."""
+        return self._bc_dofs_grid
 
     def assemble(self) -> LatticeOperator:
         if self._route == "kernel":

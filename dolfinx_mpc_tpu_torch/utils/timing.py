@@ -11,7 +11,9 @@ The same span type times the port's inner phases into a second table, which
 function) opens one, ``count(name, n)`` sums an amount into the same table
 (calls, total, max of the amounts).  ``reset_timings`` clears both tables.
 The inner names are fixed: ``gmg.vcycle``, ``gmg.L<l>.pre`` / ``.down`` /
-``.up`` / ``.post``, ``gmg.coarse`` (la/gmg.py); ``csr.to_scipy``
+``.up`` / ``.post``, ``gmg.coarse`` (la/gmg.py); ``lattice.to_blocked``,
+``lattice.from_blocked`` (ops/lattice.py: the padded class stack's
+conversions); ``csr.to_scipy``
 (la/sparse.py); ``bell.pack``, ``bell.upload`` and the counters
 ``bell.upload_bytes``, ``bell.plan_hit`` and ``bell.plan_miss``
 (la/bell.py); ``amg.setup``, ``amg.aggregate``, ``amg.prolongator``,

@@ -143,7 +143,7 @@ def spmv_wrappers(cs, dmt, dev, wrapper_times):
         wrapper_times(f"DIAMatrix.matvec {A.dia.vshape} bs=3 (K7)", torch.randn(A.shape[0], device=dev),
                       A.dia.matvec)
     A = cs.make_problem(64, np.float32, dev, degree=2)[4].assemble()
-    xb = A.dia._to_blocked(torch.randn(A.shape[0], device=dev)).contiguous()
+    xb = A.dia.to_blocked(torch.randn(A.shape[0], device=dev)).contiguous()
     wrapper_times(f"BlockDIAMatrix.matvec_blocked {tuple(xb.shape)} (K6)", xb, A.dia.matvec_blocked)
     del A, xb
     V, bcs, mpc, a, _ = cs.make_contact(cs.NB_CONTACT, cs.NT_CONTACT, np.float64, dev)
@@ -207,7 +207,7 @@ def path_solves(cs, dmt, dev, args, emit):
     for name, build, n in (("bs=3", cs.build_bs3, cs.N_BS3), ("P2", cs.build_p2, cs.N_P2)):
         built = build(dev, n)
         A, b, M = built[3], built[4], built[7]
-        mv, rhs = (A.matvec_blocked, A.dia._to_blocked(b)) if name == "P2" else (A.matvec, b)
+        mv, rhs = (A.matvec_blocked, A.to_blocked(b)) if name == "P2" else (A.matvec, b)
         its, ms = solve_ms_per_it(dmt.cg, mv, rhs, M, args.solves)
         emit(path=f"{name} n={n}", its=its, ms_per_it=ms, median_ms_per_it=statistics.median(ms))
         del built, A, b, M, mv, rhs

@@ -79,7 +79,7 @@ def main():
     print(cs.card_line(), flush=True)
     if args.path == "p2":
         V, _, clf, A, b, ops, _, M, _, _ = cs.build_p2(dev, n)
-        bb = A.dia._to_blocked(b)
+        bb = A.to_blocked(b)
         mv, mv_kernel, names = A.matvec_blocked, A.dia.matvec_blocked, ("K6", "K4")
         assemble, levels = clf.assemble, [o.dia.vshape for o in ops]
     elif args.path == "bs3":

@@ -197,7 +197,7 @@ def test_blocked_fold_operator_matches_jax(dims):
     S_ref = Aj.to_scipy()
     for A in (Ai, Ap):
         assert A.supports_blocked()
-        assert np.array_equal(A.dia._to_blocked(torch.as_tensor(x)).numpy(), xb)
+        assert np.array_equal(A.dia.to_blocked(torch.as_tensor(x)).numpy(), xb)
         assert _rel_l2(A.matvec(torch.as_tensor(x)).numpy(), y_ref) < 1e-13
         assert _rel_l2(A.matvec_blocked(torch.as_tensor(xb)).numpy(), yb_ref) < 1e-13
         assert _rel_max(A.diagonal().numpy(), d_ref) < 1e-13
@@ -268,6 +268,7 @@ def _p_levels(n):
     return levels
 
 
+@functools.lru_cache(maxsize=None)
 def _hierarchies(n):
     def mk(pkg, box, gradf, innerf, lattice, kw):
         def make(lv):
@@ -287,6 +288,21 @@ def _gmgs(n, blocked_io):
     (oj, mj), (op, mp) = _hierarchies(n)
     kw = dict(blocked_io=blocked_io, smoother="chebyshev", n_pre=2, n_post=2)
     return (oj, JGMG(oj, free_masks=mj, **kw)), (op, pt.LatticeGMG(op, free_masks=mp, **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def _jx_blocked_cg(n):
+    """k -> (x, iterations) of the JAX package's GMG-CG with blocked I/O on
+    b = A u0 at P2 n, stopped after at most k iterations (rtol 1e-10), its
+    conversions the private _to_blocked: one compile, max_it a traced
+    bound."""
+    import jax
+    import jax.numpy as jnp
+
+    (oj, mj), _ = _hierarchies(n)
+    Mj = JGMG(oj, free_masks=mj, blocked_io=True, smoother="chebyshev", n_pre=2, n_post=2)
+    bj = oj[0].dia._to_blocked(oj[0].matvec(jnp.asarray(_u0(oj[0].dia.vshape))))
+    return jax.jit(lambda k: jx_cg(oj[0].matvec_blocked, bj, M=Mj, rtol=1e-10, atol=1e-14, max_it=k)[:2])
 
 
 def _u0(vshape):
@@ -313,9 +329,9 @@ def test_gmg_blocked_io_vcycle_and_cg_match_jax():
     # class stack
     u0 = _u0(op[0].dia.vshape)
     bj = oj[0].dia._to_blocked(oj[0].matvec(jnp.asarray(u0)))
-    bp = op[0].dia._to_blocked(op[0].matvec(torch.as_tensor(u0)))
+    bp = op[0].to_blocked(op[0].matvec(torch.as_tensor(u0)))
     assert _rel_max(bp.numpy(), np.asarray(bj)) < 1e-13
-    xj, its_j, _ = jx_cg(oj[0].matvec_blocked, bj, M=Mj, rtol=1e-10, atol=1e-14, max_it=200)
+    xj, its_j = _jx_blocked_cg(4)(200)
     xp, its, _ = pt.cg(op[0].matvec_blocked, bp, M=Mp, rtol=1e-10, atol=1e-14, max_it=200)
     assert its == int(its_j) and its < 20
     assert _rel_max(xp.numpy(), np.asarray(xj)) < 1e-10
@@ -339,9 +355,65 @@ def test_gmg_flat_io_over_blocked_fine_level_matches_jax_and_blocked_io():
     assert its == int(its_j) and _rel_max(x.numpy(), np.asarray(xj)) < 1e-10
     Mb = pt.LatticeGMG(op, free_masks=Mp.free_masks, blocked_io=True, smoother="chebyshev",
                        n_pre=2, n_post=2)
-    xb, its_b, _ = pt.cg(op[0].matvec_blocked, op[0].dia._to_blocked(b), M=Mb, rtol=1e-10, atol=1e-14,
+    xb, its_b, _ = pt.cg(op[0].matvec_blocked, op[0].to_blocked(b), M=Mb, rtol=1e-10, atol=1e-14,
                          max_it=200)
-    assert its_b == its and _rel_max(op[0].dia._from_blocked(xb).numpy(), x.numpy()) < 1e-8
+    assert its_b == its and _rel_max(op[0].from_blocked(xb).numpy(), x.numpy()) < 1e-8
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_class_stack_round_trip_is_exact(n):
+    """to_blocked / from_blocked, the public conversions of the operator
+    and of its BlockDIAMatrix, at P2 n: point 2 q + c of the grid lands in
+    box q of class c, the padding holds zeros, and each direction undoes
+    the other exactly (test_blocked_fold_operator_matches_jax holds the
+    layout to the JAX package's)."""
+    A = _pt_clf((n, n, n), 2, np.float64).assemble()
+    m = 2 * n + 1
+    x = torch.as_tensor(np.random.default_rng(n).standard_normal(m ** 3))
+    xb = A.to_blocked(x)
+    s = -(-m // 2)
+    assert xb.shape == (8, s, s, s) and torch.equal(A.dia.to_blocked(x), xb)
+    g = x.reshape(m, m, m)
+    for c, (c0, c1, c2) in enumerate(A.dia.classes):
+        assert torch.equal(xb[c, :len(range(c0, m, 2)), :len(range(c1, m, 2)), :len(range(c2, m, 2))],
+                           g[c0::2, c1::2, c2::2])
+    q = np.arange(s)
+    for c, cls in enumerate(A.dia.classes):
+        inside = ((2 * q[:, None, None] + cls[0] < m) & (2 * q[None, :, None] + cls[1] < m)
+                  & (2 * q[None, None, :] + cls[2] < m))
+        assert not xb[c][torch.as_tensor(~inside)].any()
+        assert xb[c][torch.as_tensor(inside)].numel() == inside.sum()
+    assert torch.equal(A.from_blocked(xb), x) and torch.equal(A.dia.from_blocked(xb), x)
+    assert torch.equal(A.to_blocked(A.from_blocked(xb)), xb)
+
+
+def test_class_stack_conversions_refuse_a_p1_operator():
+    """A P1 operator has no class stack: LatticeOperator.to_blocked and
+    from_blocked raise ValueError naming the layout."""
+    A = _pt_clf((4, 4, 4), 1, np.float64).assemble()
+    assert not A.supports_blocked()
+    with pytest.raises(ValueError, match="class-stack"):
+        A.to_blocked(torch.zeros(A.shape[0], dtype=torch.float64))
+    with pytest.raises(ValueError, match="class-stack"):
+        A.from_blocked(torch.zeros((8, 3, 3, 3), dtype=torch.float64))
+
+
+def test_blocked_io_cg_iterates_match_jax_private_path():
+    """GMG-CG with blocked I/O on the port's public conversions, stopped
+    after k = 1, 2, ... iterations: every iterate, and the count to
+    convergence, is the JAX package's on its private _to_blocked /
+    _from_blocked."""
+    (oj, _), (op, Mp) = _gmgs(4, blocked_io=True)
+    u0 = _u0(op[0].dia.vshape)
+    bp = op[0].to_blocked(op[0].matvec(torch.as_tensor(u0)))
+    jx_k = _jx_blocked_cg(4)
+    _, its, _ = pt.cg(op[0].matvec_blocked, bp, M=Mp, rtol=1e-10, atol=1e-14, max_it=200)
+    assert its == int(jx_k(200)[1]) and 2 < its < 20
+    for k in range(1, its + 1):
+        xp, kp, _ = pt.cg(op[0].matvec_blocked, bp, M=Mp, rtol=1e-10, atol=1e-14, max_it=k)
+        xj, kj = jx_k(k)
+        assert kp == int(kj) == k
+        assert _rel_max(op[0].from_blocked(xp).numpy(), np.asarray(oj[0].dia._from_blocked(xj))) < 1e-10
 
 
 def _oracle(V, bc, mpc, a, L):

@@ -926,7 +926,7 @@ def test_plain_spmvs_take_complex(dtype):
                                        m2, dtype=C128, side_format="fold", device="cpu").trips
     blk = BlockDIAMatrix(torch.as_tensor(crandn(len(trips), 3, 3, 3)), trips, (5, 5, 5), (2, 2, 2))
     x = crandn(125)
-    check(blk._from_blocked(LK.blocked_matvec_plain(blk.data, trips, blk.classes, blk._to_blocked(
+    check(blk.from_blocked(LK.blocked_matvec_plain(blk.data, trips, blk.classes, blk.to_blocked(
         torch.as_tensor(x)))), blk.to_scipy(), x)
     S = sp.random(300, 280, density=0.05, random_state=3, format="csr")
     S = (S + 1j * sp.random(300, 280, density=0.05, random_state=4, format="csr")).tocsr()

@@ -1,7 +1,7 @@
 """The port's inner spans and counters (utils/timing.py's trace table): the
 table's arithmetic on a fake clock, and the spans that the GMG V-cycle, the
-BELL conversion, CSRMatrix.to_scipy and the AMG set-up open, counted on
-small problems on the CPU."""
+class stack's conversions, the BELL conversion, CSRMatrix.to_scipy and the
+AMG set-up open, counted on small problems on the CPU."""
 
 import numpy as np
 import pytest
@@ -110,6 +110,53 @@ def test_vcycle_spans_under_cg(hierarchy, coarse):
     assert all(t[k][0] == calls for k in names | {"gmg.coarse"})
     assert sum(t[k][1] for k in names | {"gmg.coarse"}) <= t["gmg.vcycle"][1]
     assert tt.timings() == {}
+
+
+def _p2_level(lv):
+    deg, n = lv
+    V = pt.functionspace(PM.create_unit_cube(n, n, n), ("Lagrange", deg))
+    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
+        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)), V)
+    mpc = pt.MultiPointConstraint(V, np.float64, device="cpu")
+    mpc.create_periodic_constraint_geometrical(
+        V, lambda x: np.isclose(x[0], 1.0), lambda x: np.stack([1.0 - x[0], x[1], x[2]]), [bc])
+    mpc.finalize()
+    a = pt.BilinearForm(V, lambda u, v, c: PF.inner(PF.grad(u), PF.grad(v)), quad_degree=deg)
+    return pt.assemble_matrix_lattice(a, mpc, bcs=[bc], side_format="fold", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def p2_hierarchy():
+    """bench.py's p-coarsened levels at P2 n = 4: P2 4, P1 8, P1 4."""
+    return pt.build_gmg_hierarchy(_p2_level, 4, 0, levels=[(2, 4), (1, 8), (1, 4)])
+
+
+@pytest.mark.parametrize("name", ["to_blocked", "from_blocked"])
+def test_class_stack_conversion_spans(p2_hierarchy, name):
+    """lattice.to_blocked and lattice.from_blocked: one call per
+    conversion of the operator's public name, one of each per V-cycle with
+    blocked I/O (at the level-0/1 transfer), and one around every fine
+    product of a cycle that takes flat vectors over the same blocked level."""
+    ops, masks = p2_hierarchy
+    A = ops[0]
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal(A.shape[0]))
+    span = f"lattice.{name}"
+    tt.reset_timings()
+    rb = A.to_blocked(r)
+    assert torch.equal(A.from_blocked(rb), r)
+    assert tt.trace_timings()[span][0] == 1
+    M = pt.LatticeGMG(ops, free_masks=masks, blocked_io=True, smoother="chebyshev")
+    tt.reset_timings()
+    M(rb)
+    M(rb)
+    t = tt.trace_timings()
+    assert t["gmg.vcycle"][0] == 2 and t[span][0] == 2
+    flat = pt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev")
+    tt.reset_timings()
+    flat(r)
+    t = tt.trace_timings()
+    # Chebyshev 2 + 2 on the fine level: 4 products before and after, one residual
+    assert t["gmg.vcycle"][0] == 1 and t[span][0] == 9
 
 
 def test_bell_conversion_spans_and_bytes():
