@@ -6,13 +6,16 @@ prepares the fixed part once: the
 ctypes function, the pointers of the operator's tensors, the packed
 parameters.  Per call it then allocates the output, reads the current
 stream's handle and makes one ctypes call, entering a device context only
-when the operator's device is not the current one."""
+when the operator's device is not the current one.  ``LaunchRecord``
+records what count_launch adds to the wrappers' counters and adds it
+again, for launches made without their wrapper: a captured CUDA graph's
+replay."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["count_launch", "launch_check", "on_device"]
+__all__ = ["LaunchRecord", "count_launch", "launch_check", "on_device"]
 
 
 def count_launch(wrapper, dtype):
@@ -23,6 +26,46 @@ def count_launch(wrapper, dtype):
     by = wrapper.launches_by_dtype
     key = str(dtype).removeprefix("torch.")
     by[key] = by.get(key, 0) + 1
+
+
+class LaunchRecord:
+    """The launches that the wrappers' counters gain while the record is
+    open (``with rec:``): ``launches``, each dtype's count in
+    ``launches_by_dtype`` and, where a wrapper keeps one (K7's), each
+    grid's in ``launches_by_grid``.  ``add(times)`` adds them again
+    ``times`` times over; a negative number takes them back."""
+
+    _BY = ("launches_by_dtype", "launches_by_grid")
+
+    def __init__(self, wrappers):
+        self.wrappers = tuple(wrappers)
+        self.delta = {}
+        self._before = None
+
+    def _counts(self):
+        out = {}
+        for w in self.wrappers:
+            out[(w, "launches", None)] = w.launches
+            for by in self._BY:
+                for key, n in getattr(w, by, {}).items():
+                    out[(w, by, key)] = n
+        return out
+
+    def __enter__(self):
+        self._before = self._counts()
+        return self
+
+    def __exit__(self, *a):
+        before = self._before
+        self.delta = {k: n - before.get(k, 0) for k, n in self._counts().items() if n != before.get(k, 0)}
+
+    def add(self, times=1):
+        for (w, by, key), n in self.delta.items():
+            if key is None:
+                w.launches += times * n
+            else:
+                counts = getattr(w, by)
+                counts[key] = counts.get(key, 0) + times * n
 
 
 def launch_check(rc, name):

@@ -17,7 +17,11 @@ conversions); ``csr.to_scipy``
 (la/sparse.py); ``bell.pack``, ``bell.upload`` and the counters
 ``bell.upload_bytes``, ``bell.plan_hit`` and ``bell.plan_miss``
 (la/bell.py); ``amg.setup``, ``amg.aggregate``, ``amg.prolongator``,
-``amg.galerkin``, ``amg.to_device``, ``amg.coarse_inverse`` (la/amg.py).
+``amg.galerkin``, ``amg.to_device``, ``amg.coarse_inverse`` (la/amg.py);
+the counters ``gmg.graph_capture`` and ``gmg.graph_replay`` (la/gmg.py: the
+V-cycle's CUDA graph).  ``CallRecord`` records the calls that spans and
+counters add while it is open and adds them again, with no seconds, for
+work that ran without its spans' host code: a captured graph's replay.
 
 A span reads the host clock only and adds no device synchronisation, so on
 the card it measures the time to enqueue its phase's work.  While a torch
@@ -125,6 +129,29 @@ def traced(name: str):
 def count(name: str, n) -> None:
     """Add the amount n to the counter `name` of the trace table."""
     _add(_trace, name, n)
+
+
+class CallRecord:
+    """The calls that spans and counters add to the trace table while the
+    record is open (``with rec:``), by name in ``calls``.  ``add(times)``
+    adds them again ``times`` times over with no seconds (totals and maxima
+    stay); a negative number takes them back."""
+
+    def __init__(self):
+        self.calls = {}
+        self._before = None
+
+    def __enter__(self):
+        self._before = {k: v[0] for k, v in _trace.items()}
+        return self
+
+    def __exit__(self, *a):
+        before = self._before
+        self.calls = {k: v[0] - before.get(k, 0) for k, v in _trace.items() if v[0] != before.get(k, 0)}
+
+    def add(self, times=1):
+        for name, n in self.calls.items():
+            _trace[name][0] += times * n
 
 
 def timings() -> dict:

@@ -1010,3 +1010,135 @@ def test_distributed_paths_on_card_match_plain(cuda, backend, n_ranks):
             assert abs(got[case]["its"] - ref[case]["its"]) <= 1
         assert min(got["launches"][k] for k in ("K2", "K7", "K8")) > 0, got["launches"]
         assert max(ref["launches"].values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The GMG V-cycle as a CUDA graph (la/gmg.py: LatticeGMG._replay)
+# ---------------------------------------------------------------------------
+
+_GRAPH_CASES = {
+    # name: (problem, levels or (n, n_levels), LatticeGMG keywords)
+    "P1 chebyshev coarse": (_problem, (16, 3), dict(smoother="chebyshev", dense_max=0)),
+    "P1 dense coarse, jacobi": (_problem, (16, 3), dict(smoother="jacobi")),
+    "P1 cg coarse": (_problem, (16, 3), dict(smoother="chebyshev", coarse="cg", coarse_iters=12)),
+    "P2 blocked_io": (_problem, [(2, 6), (1, 12), (1, 6)], dict(smoother="chebyshev", blocked_io=True)),
+    "bs=3 chebyshev": (_elasticity_problem, (8, 2), dict(smoother="chebyshev", n_pre=3, n_post=3)),
+}
+
+
+def _graph_hierarchy(case, device):
+    """The case's levels on the card in float32 and its LatticeGMG."""
+    make, levels, kw = _GRAPH_CASES[case]
+    if isinstance(levels, list):
+        ops, masks = pt.build_gmg_hierarchy(
+            lambda lv: make((lv[1],) * 3, np.float32, device, degree=lv[0])[5], levels[0][1], 0, levels=levels)
+    else:
+        n, n_levels = levels
+        ops, masks = pt.build_gmg_hierarchy(lambda m: make((m,) * 3, np.float32, device)[5], n, n_levels, min_n=2)
+    return ops, pt.LatticeGMG(ops, free_masks=masks, **kw)
+
+
+def _graph_input(M, ops, seed):
+    r = torch.as_tensor(np.random.default_rng(seed).standard_normal(ops[0].shape[0]), dtype=torch.float32,
+                        device=ops[0].device)
+    return ops[0].to_blocked(r) if M.blocked_io else r
+
+
+def _graph_counts():
+    """The span calls and the SpMV launch counters, one flat dict."""
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    out = {k: v[0] for k, v in tt.trace_timings().items()}
+    for w in (LK.dia_matvec, LK.dia_matvec_bs, LK.blocked_matvec):
+        out[w.__name__] = w.launches
+        out.update({(w.__name__, k): v for k, v in w.launches_by_dtype.items()})
+    out.update({("by_grid", k): v for k, v in LK.dia_matvec_bs.launches_by_grid.items()})
+    return out
+
+
+def _delta(before, after):
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("case", list(_GRAPH_CASES))
+def test_vcycle_graph_replay_equals_the_eager_cycle_on_card(cuda, case):
+    """Every coarse mode, both smoothers, blocked I/O and K7: the replayed
+    graph is torch.equal to the eager _vcycle for three inputs; a returned
+    tensor is unchanged by the next call; one capture per input layout;
+    after k replays the span calls and launch counters have grown by k
+    times one eager cycle's, and gmg.vcycle and gmg.graph_replay by k."""
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    ops, M = _graph_hierarchy(case, cuda)
+    rs = [_graph_input(M, ops, seed) for seed in range(3)]
+    captures = tt.trace_timings().get("gmg.graph_capture", (0,))[0]
+    ys = [M(r) for r in rs]
+    kept = [y.clone() for y in ys]
+    for r, y, y0 in zip(rs, ys, kept):
+        assert torch.equal(y, y0)  # later calls left it alone
+        assert torch.equal(y, M._vcycle(0, r))
+    t0 = _graph_counts()
+    M._vcycle(0, rs[0])
+    torch.cuda.synchronize()
+    eager = _delta(t0, _graph_counts())
+    assert eager.get("dia_matvec", 0) + eager.get("dia_matvec_bs", 0) > 0
+    k = 4
+    t0 = _graph_counts()
+    for _ in range(k):
+        M(rs[1])
+    torch.cuda.synchronize()
+    got = _delta(t0, _graph_counts())
+    assert got.pop("gmg.vcycle") == k and got.pop("gmg.graph_replay") == k
+    assert got == {name: k * n for name, n in eager.items()}
+    # a strided input of the same shape is the same layout
+    assert torch.equal(M(torch.stack([rs[2], rs[2]], -1)[..., 0]), kept[2])
+    assert tt.trace_timings()["gmg.graph_capture"][0] == captures + 1 and len(M._graphs) == 1
+
+
+@pytest.mark.parametrize("case", ["P1 chebyshev coarse", "P2 blocked_io"])
+def test_cg_under_the_vcycle_graph_on_card(cuda, case):
+    """CG takes the same iterations and the same solution, bit for bit,
+    under the replayed graph and under the eager cycle; one capture for
+    the whole solve."""
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    ops, M = _graph_hierarchy(case, cuda)
+    A = ops[0]
+    mv = A.matvec_blocked if M.blocked_io else A.matvec
+    b = _graph_input(M, ops, 7)
+    captures = tt.trace_timings().get("gmg.graph_capture", (0,))[0]
+    x_g, its_g, _ = pt.cg(mv, b, M=M, rtol=1e-6, max_it=500)
+    x_e, its_e, _ = pt.cg(mv, b, M=lambda r: M._vcycle(0, r), rtol=1e-6, max_it=500)
+    assert 0 < its_g < 500 and its_g == its_e and torch.equal(x_g, x_e)
+    assert tt.trace_timings()["gmg.graph_capture"][0] == captures + 1
+
+
+def test_vcycle_graph_of_an_instance_built_by_new_on_card(cuda):
+    """The sharded path's replicated tail (parallel/lattice_spmd.py) is a
+    LatticeGMG made by __new__ with the levels below the finest: it
+    captures on its first CUDA call and replays what the eager cycle
+    gives."""
+    from dolfinx_mpc_tpu_torch.la.gmg import LatticeGMG
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    ops, cg = _graph_hierarchy("P1 chebyshev coarse", cuda)
+    sub = LatticeGMG.__new__(LatticeGMG)
+    sub.ops = list(cg.ops[1:])
+    sub.free_masks = list(cg.free_masks[1:])
+    sub._inv_diag = list(cg._inv_diag[1:])
+    sub.n_pre, sub.n_post = cg.n_pre, cg.n_post
+    sub.omegas = tuple(cg.omegas[1:])
+    sub.coarse_iters = cg.coarse_iters
+    sub.coarse_mode = cg.coarse_mode
+    sub.coarse_inv = cg.coarse_inv
+    sub._cheb = cg._cheb
+    sub.blocked_io = False
+    sub.smoother = cg.smoother
+    sub._cheb_sm = tuple(cg._cheb_sm[1:])
+    sub._bounds = None
+    sub._span_names = cg._span_names[1:]
+    captures = tt.trace_timings().get("gmg.graph_capture", (0,))[0]
+    r = _graph_input(sub, sub.ops, 3)
+    y1, y2 = sub(r), sub(r)
+    assert torch.equal(y1, y2) and torch.equal(y1, sub._vcycle(0, r))
+    assert tt.trace_timings()["gmg.graph_capture"][0] == captures + 1 and len(sub._graphs) == 1

@@ -74,6 +74,64 @@ def test_traced_keeps_the_function_and_closes_on_raise():
     assert tt.trace_timings()["amg.setup"][0] == 2
 
 
+def test_call_record_adds_calls_without_seconds(monkeypatch):
+    """CallRecord keeps the calls that spans and counters made while it was
+    open; after k adds each name's calls have grown by k times that, and
+    no total or maximum has; add(-k) takes them back."""
+    clock = iter(float(v) for v in range(100))
+    monkeypatch.setattr(tt.time, "perf_counter", lambda: next(clock))
+    with tt.span("gmg.vcycle"):
+        pass
+    rec = tt.CallRecord()
+    with rec:
+        with tt.span("gmg.L0.pre"):
+            pass
+        for _ in range(2):
+            with tt.span("gmg.coarse"):
+                pass
+        tt.count("gmg.graph_capture", 1)
+    assert rec.calls == {"gmg.L0.pre": 1, "gmg.coarse": 2, "gmg.graph_capture": 1}
+    before = tt.trace_timings()
+    k = 3
+    for _ in range(k):
+        rec.add()
+    after = tt.trace_timings()
+    assert set(after) == set(before)
+    for name, (calls, total, most) in after.items():
+        assert calls == before[name][0] + k * rec.calls.get(name, 0)
+        assert (total, most) == before[name][1:]
+    rec.add(-k)
+    assert tt.trace_timings() == before
+
+
+def test_launch_record_adds_launch_counts():
+    """LaunchRecord keeps what count_launch (and K7's count by grid) added
+    to the wrappers' counters while it was open, and adds it again k times
+    over; a negative k takes it back."""
+    from dolfinx_mpc_tpu_torch._launch import LaunchRecord, count_launch
+
+    def k2():
+        pass
+
+    def k7():
+        pass
+
+    k2.launches, k2.launches_by_dtype = 5, {"float32": 5}
+    k7.launches, k7.launches_by_dtype, k7.launches_by_grid = 0, {}, {(9, 9, 9): 2}
+    rec = LaunchRecord((k2, k7))
+    with rec:
+        count_launch(k2, torch.float32)
+        count_launch(k2, torch.complex64)
+        count_launch(k7, torch.float64)
+        k7.launches_by_grid[(5, 5, 5)] = 1
+    rec.add(3)
+    assert (k2.launches, k2.launches_by_dtype) == (5 + 2 * 4, {"float32": 5 + 4, "complex64": 4})
+    assert (k7.launches, k7.launches_by_dtype, k7.launches_by_grid) == (4, {"float64": 4},
+                                                                         {(9, 9, 9): 2, (5, 5, 5): 4})
+    rec.add(-4)
+    assert (k2.launches, k2.launches_by_dtype["float32"], k7.launches, k7.launches_by_grid[(9, 9, 9)]) == (5, 5, 0, 2)
+
+
 def _lattice_level(n):
     V = pt.functionspace(PM.create_unit_cube(n, n, n), ("Lagrange", 1))
     bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
@@ -110,6 +168,49 @@ def test_vcycle_spans_under_cg(hierarchy, coarse):
     assert all(t[k][0] == calls for k in names | {"gmg.coarse"})
     assert sum(t[k][1] for k in names | {"gmg.coarse"}) <= t["gmg.vcycle"][1]
     assert tt.timings() == {}
+
+
+@pytest.mark.parametrize("coarse", ["dense", "chebyshev", "cg", "blocked_io"])
+def test_cpu_vcycle_is_the_eager_cycle(hierarchy, p2_hierarchy, coarse):
+    """A CPU input takes the eager cycle, bit for bit, in every coarse mode
+    and with blocked I/O: no graph, no gmg.graph_* counter."""
+    if coarse == "blocked_io":
+        ops, masks = p2_hierarchy
+        M = pt.LatticeGMG(ops, free_masks=masks, blocked_io=True, smoother="chebyshev")
+    else:
+        ops, masks = hierarchy
+        M = pt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev", coarse=coarse, cheb_degree=8)
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(ops[0].shape[0]))
+    if M.blocked_io:
+        r = ops[0].to_blocked(r)
+    tt.reset_timings()
+    y = M(r)
+    assert torch.equal(y, M._vcycle(0, r)) and torch.equal(M(r), y)
+    t = tt.trace_timings()
+    assert t["gmg.vcycle"][0] == 2 and not [k for k in t if k.startswith("gmg.graph")]
+    assert "_graphs" not in vars(M)
+
+
+def test_memory_report_walks_a_captured_cycle(hierarchy):
+    """The sharded path's memory_report walks a LatticeGMG's attributes
+    (parallel/lattice_spmd.py:_tensor_bytes): a captured cycle in _graphs,
+    its records among them, adds its static input and output and nothing
+    else.  (A CPU hierarchy captures nothing, so the entry is made here as
+    _capture makes it on the card.)"""
+    from dolfinx_mpc_tpu_torch._launch import LaunchRecord
+    from dolfinx_mpc_tpu_torch.la.gmg import _Graph
+    from dolfinx_mpc_tpu_torch.ops import lattice_kernels as LK
+    from dolfinx_mpc_tpu_torch.parallel.lattice_spmd import _tensor_bytes
+
+    ops, masks = hierarchy
+    M = pt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev")
+    before = _tensor_bytes(M)
+    x = torch.zeros(ops[0].shape[0], dtype=ops[0].dtype)
+    spans, launches = tt.CallRecord(), LaunchRecord((LK.dia_matvec, LK.dia_matvec_bs, LK.blocked_matvec))
+    with spans, launches:
+        y = M._vcycle(0, x)
+    M._graphs = {(tuple(x.shape), x.dtype, x.device): _Graph(object(), x, y, spans, launches)}
+    assert _tensor_bytes(M) == before + x.nbytes + y.nbytes
 
 
 def _p2_level(lv):
