@@ -22,13 +22,15 @@ captured once per input layout as a CUDA graph and replayed (LatticeGMG).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
 from .._launch import LaunchRecord
-from ..ops.lattice import BlockDIAMatrix, DIAMatrix, LatticeOperator
 from ..ops.lattice_kernels import blocked_matvec, dia_matvec, dia_matvec_bs
 from ..utils.timing import CallRecord, count, span
+from .solvers import ChebyshevPC
 
 __all__ = ["LatticeGMG", "build_gmg_hierarchy", "dense_coarse_inverse"]
 
@@ -57,23 +59,13 @@ def _prolong1(c, axis):
     return out
 
 
-def _abs_dia(dia):
-    if isinstance(dia, BlockDIAMatrix):
-        return BlockDIAMatrix(torch.abs(dia.data), dia.trips, dia.vshape, dia.r3)
-    return DIAMatrix(torch.abs(dia.data), dia.offsets, dia.vshape, dia.bs)
-
-
-def _abs_rowsum(A: LatticeOperator):
-    """Upper bound on |A| . 1 per row (the Gershgorin numerator): the
-    operator's own flat matvec on all-ones with |data|, |diagval| and the
-    side blocks made entrywise absolute (every matvec path is an additive
-    gather, so the result bounds the row sums of |K^H A K|;
-    dolfinx_mpc_tpu/la/gmg.py:58-79).  Real for a complex operator too, as
-    in the JAX package (its ones in the real dtype, :70, :78)."""
-    ab = lambda v: None if v is None else torch.abs(v)  # noqa: E731
-    B = LatticeOperator(_abs_dia(A.dia), abs(A.diagval), A.fold_axis, A.fold_mask, A.fold_pairs,
-                        side_data=ab(A.side_data), side_cols=A.side_cols, side_rows=A.side_rows,
-                        side_nrows=A.side_nrows, side_Aep=ab(A.side_Aep), side_er=A.side_er, slaves=A.slaves)
+def _abs_rowsum(A):
+    """Upper bound on |A| . 1 per row (the Gershgorin numerator): the flat
+    matvec of the operator's entrywise |A| (LatticeOperator.abs) on
+    all-ones (dolfinx_mpc_tpu/la/gmg.py:58-79).  Real for a complex
+    operator too, as in the JAX package (its ones in the real dtype, :70,
+    :78)."""
+    B = A.abs()
     return B.matvec(torch.ones(A.shape[0], dtype=B.dtype, device=A.device))
 
 
@@ -82,11 +74,10 @@ def _gershgorin_bounds(ops, inv_diags):
     return [float(torch.max(torch.abs(_abs_rowsum(A) * inv))) for A, inv in zip(ops, inv_diags)]
 
 
-def _cheb_interval(bound, ratio):
-    """(centre, half-width) of [lmax/ratio, lmax], lmax = 1.05 * bound."""
-    lmax = 1.05 * max(bound, 1e-30)
-    lmin = lmax / ratio
-    return (lmax + lmin) / 2.0, (lmax - lmin) / 2.0
+def _chebyshev(mv, inv, bound, lmin_frac, degree):
+    """Chebyshev-Jacobi of `degree` (ChebyshevPC) on [lmin_frac, 1] * lmax
+    of D^-1 A, lmax = 1.05 * the Gershgorin bound."""
+    return ChebyshevPC(lambda v: inv * mv(v), inv, 1.05 * max(bound, 1e-30), lmin_frac, degree)
 
 
 def dense_coarse_inverse(A):
@@ -124,7 +115,8 @@ class LatticeGMG:
     with the JAX package's constructor (dolfinx_mpc_tpu/la/gmg.py:146-240).
 
     Smoothing is weighted Jacobi or a degree-(n_sweeps+1) Chebyshev-Jacobi
-    polynomial, with equal pre/post sweeps; transfers satisfy R = P^T.
+    polynomial on [lmax/4, lmax] of D^-1 A (ChebyshevPC, applied to the
+    residual), with equal pre/post sweeps; transfers satisfy R = P^T.
     omega="auto" damps Jacobi by 1.6 / max(lmax, 2) per level, lmax the
     Gershgorin bound of D^-1 A (a number applies to every level).  bounds:
     precomputed per-level bounds (computed when omega, the smoother or the
@@ -157,7 +149,9 @@ class LatticeGMG:
     gmg.graph_replay count captures and replays.  A graph keeps the level
     tensors it captured alive and reads them in place, as the operators'
     prepared launches do: the hierarchy is fixed once built.  A CPU input
-    takes the eager cycle."""
+    takes the eager cycle.  tail(l) is the cycle over levels l, l+1, ... of
+    the same hierarchy (the sharded path's replicated part), sharing its
+    levels and capturing graphs of its own."""
 
     def __init__(self, ops, n_pre=2, n_post=2, omega="auto", coarse_iters=30, free_masks=None, coarse="auto",
                  coarse_inv=None, dense_max=8192, cheb_degree=40, bounds=None, blocked_io=False,
@@ -199,21 +193,40 @@ class LatticeGMG:
         self._bounds = bounds
         self.omegas = (tuple(1.6 / max(b, 2.0) for b in bounds) if omega == "auto"
                        else (float(omega),) * len(ops))
-        self._cheb_sm = tuple(_cheb_interval(b, 4.0) for b in bounds) if smoother == "chebyshev" else None
+        # the Chebyshev smoother: one polynomial per level and sweep count
+        self._smoothers = ([{n: _chebyshev(self._mv(lvl), self._inv_diag[lvl], bounds[lvl], 1 / 4, n + 1)
+                             for n in {n_pre, n_post}} for lvl in range(len(ops) - 1)]
+                           if smoother == "chebyshev" else None)
         if coarse == "auto":
             coarse = "dense" if ops[-1].shape[0] <= dense_max else "chebyshev"
         self.coarse_mode = coarse
         self.coarse_inv = None
-        self._cheb = None
+        self._coarse_cheb = None
         if coarse == "dense":
             self.coarse_inv = (dense_coarse_inverse(ops[-1]) if coarse_inv is None
                                else torch.as_tensor(coarse_inv, dtype=ops[-1].dtype, device=ops[-1].device))
         elif coarse == "chebyshev":
-            self._cheb = _cheb_interval(bounds[-1], 64.0) + (int(cheb_degree),)
+            self._coarse_cheb = _chebyshev(ops[-1].matvec, self._inv_diag[-1], bounds[-1], 1 / 64, int(cheb_degree))
         # the V-cycle's span names (utils/timing.py), made once: pre, down,
         # up, post per level above the coarsest
         self._span_names = [tuple(f"gmg.L{lvl}.{phase}" for phase in ("pre", "down", "up", "post"))
                             for lvl in range(len(ops) - 1)]
+        self._graphs = {}  # (shape, dtype, device) -> _Graph
+
+    def tail(self, start):
+        """The V-cycle over levels start, start+1, ... of this hierarchy, on
+        flat vectors unless start is 0: it shares their operators, inverse
+        diagonals, damping, smoothers, masks and coarse solve, keeps their
+        span names (gmg.L<start>.* first) and captures graphs of its own."""
+        if not 0 <= start < len(self.ops):
+            raise ValueError(f"tail({start}) of a {len(self.ops)}-level hierarchy")
+        t = copy.copy(self)
+        for name in ("ops", "free_masks", "_inv_diag", "omegas", "_bounds", "_smoothers", "_span_names"):
+            v = getattr(self, name)
+            setattr(t, name, None if v is None else v[start:])
+        t.blocked_io = self.blocked_io and start == 0
+        t._graphs = {}
+        return t
 
     def _to_grid(self, A, x):
         n0, n1, n2 = A.dia.vshape
@@ -224,27 +237,10 @@ class LatticeGMG:
         return A.matvec_blocked if lvl == 0 and self.blocked_io else A.matvec
 
     def _smooth(self, lvl, x, b, n_sweeps):
-        inv = self._inv_diag[lvl]
         mv = self._mv(lvl)
-        if self.smoother == "chebyshev":
-            # degree-(n_sweeps+1) Chebyshev on [lmax/4, lmax] of D^-1 A,
-            # applied to the residual (supports a nonzero incoming x)
-            theta, delta = self._cheb_sm[lvl]
-            r0 = b - mv(x)
-            rr = inv * r0
-            z = rr / theta
-            res = rr - inv * mv(z)
-            d = res / theta
-            sigma = theta / delta
-            rho = 1.0 / sigma
-            for _ in range(n_sweeps):
-                rho_new = 1.0 / (2 * sigma - rho)
-                d = rho_new * rho * d + 2 * rho_new / delta * res
-                z = z + d
-                res = res - inv * mv(d)
-                rho = rho_new
-            return x + z
-        om = self.omegas[lvl]
+        if self._smoothers is not None:
+            return x + self._smoothers[lvl][n_sweeps](b - mv(x))
+        om, inv = self.omegas[lvl], self._inv_diag[lvl]
         for _ in range(n_sweeps):
             x = x + om * inv * (b - mv(x))
         return x
@@ -274,28 +270,9 @@ class LatticeGMG:
     def _coarse_solve(self, b):
         if self.coarse_mode == "dense":
             return self.coarse_inv @ b
-        A = self.ops[-1]
-        inv = self._inv_diag[-1]
         if self.coarse_mode == "cg":
-            return self._coarse_cg(A, inv, b)
-        theta, delta, degree = self._cheb
-
-        def DA(x):
-            return inv * A.matvec(x)
-
-        rr = inv * b
-        x = rr / theta
-        res = rr - DA(x)
-        d = res / theta
-        sigma = theta / delta
-        rho = 1.0 / sigma
-        for _ in range(degree - 1):
-            rho_new = 1.0 / (2 * sigma - rho)
-            d = rho_new * rho * d + 2 * rho_new / delta * res
-            x = x + d
-            res = res - DA(d)
-            rho = rho_new
-        return x
+            return self._coarse_cg(self.ops[-1], self._inv_diag[-1], b)
+        return self._coarse_cheb(b)
 
     def _coarse_cg(self, A, inv, b):
         """coarse_iters Jacobi-CG iterations from zero
@@ -348,13 +325,10 @@ class LatticeGMG:
                 return self._replay(r)
 
     def _replay(self, r):
-        # made on the first CUDA call: an instance built by __new__ (the
-        # sharded path's replicated tail) has no __init__ state
-        graphs = self.__dict__.setdefault("_graphs", {})
         key = (tuple(r.shape), r.dtype, r.device)
-        g = graphs.get(key)
+        g = self._graphs.get(key)
         if g is None:
-            g = graphs[key] = self._capture(r)
+            g = self._graphs[key] = self._capture(r)
         g.x.copy_(r)
         g.graph.replay()
         g.spans.add()
@@ -392,8 +366,9 @@ class LatticeGMG:
 class _Graph:
     """A captured V-cycle: the graph, its static input and output, and the
     span calls and launch counts of one cycle.  No __slots__: the sharded
-    path's memory_report walks the attributes (vars) of the port's objects
-    and counts the static buffers as the replicated hierarchy's."""
+    path's memory_report walks the attributes (vars) of the port's objects,
+    a LatticeGMG's _graphs (a tail's own) among them, and counts the static
+    buffers as the replicated hierarchy's."""
 
     def __init__(self, graph, x, y, spans, launches):
         self.graph, self.x, self.y, self.spans, self.launches = graph, x, y, spans, launches

@@ -256,10 +256,14 @@ def default_probe(shape, dtype, device):
 
 
 class ChebyshevPC:
-    """Chebyshev iteration of degree `degree` on D^-1 A, the interval
-    [lmin_frac, 1] * lmax; its recurrence coefficients are computed once, on
-    the device, in the operator's dtype, as the JAX package computes them
-    per call."""
+    """Chebyshev iteration of degree `degree` on D^-1 A (the callable DA),
+    the interval [lmin_frac, 1] * lmax: the port's one Chebyshev-Jacobi
+    recurrence, behind chebyshev_preconditioner, the GMG smoother and
+    coarse solve (la/gmg.py) and the sharded Chebyshev
+    (parallel/lattice_spmd.py).  Its coefficients are computed once, in
+    lmax's type: Python floats for a float lmax, 0-d tensors in the
+    operator's dtype for chebyshev_preconditioner's (computed on the
+    device, as the JAX package computes them per call)."""
 
     def __init__(self, DA, inv, lmax, lmin_frac, degree):
         self.DA, self.inv, self.degree = DA, inv, degree

@@ -41,6 +41,7 @@ the SpMVs run their complex instantiations.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 from typing import Optional
@@ -124,6 +125,13 @@ class DIAMatrix:
         if self.bs == 1:
             return dia_matvec(self.data, self.offsets, self.vshape, x)
         return dia_matvec_bs(self.data, self.offsets, self.vshape, self.bs, x)
+
+    def abs(self):
+        """The entrywise |A|: the same stencil over |data|, every other field
+        carried; its launch is its own, prepared by its first matvec."""
+        out = copy.copy(self)
+        out.data, out._launch = torch.abs(self.data), None
+        return out
 
     def diagonal(self):
         zid = self.offsets.index((0, 0, 0)) if (0, 0, 0) in self.offsets else None
@@ -229,6 +237,8 @@ class BlockDIAMatrix:
         if self._launch is not None:
             return self._launch(xb.contiguous())
         return blocked_matvec(self.data, self.trips, self.classes, xb)
+
+    abs = DIAMatrix.abs
 
     def diagonal_blocked(self):
         """Diagonal as the padded blocked class stack (n_cls, s0, s1, s2)."""
@@ -384,6 +394,19 @@ class LatticeOperator:
             on_diag = torch.where(self.side_rows == self.side_cols, self.side_data, 0)
             d.index_add_(0, self.side_rows, on_diag)
         return d
+
+    def abs(self):
+        """The entrywise |A| in the same representation: |dia|, |diagval| and
+        the side blocks' values made absolute, every other field carried.
+        Every matvec path is an additive gather, so |A| . 1 bounds the row
+        sums of |K^H A K| (the Gershgorin bound).  Real for a complex
+        operator, as the JAX package's bound is."""
+        out = copy.copy(self)
+        out.dia = self.dia.abs()
+        out.diagval = _scalar(abs(self.diagval), out.dtype)
+        out.side_data = None if self.side_data is None else torch.abs(self.side_data)
+        out.side_Aep = None if self.side_Aep is None else torch.abs(self.side_Aep)
+        return out
 
     def supports_blocked(self):
         """True when the blocked-native solve layout applies: a blocked

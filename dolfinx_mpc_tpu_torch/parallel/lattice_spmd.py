@@ -29,8 +29,9 @@ the host tables of its own box only:
 - preconditioners: Jacobi, Chebyshev-Jacobi on the Gershgorin bound (a
   max all-reduce), and the sharded two- and three-level GMG: slab-smoothed
   fine level, the (n/2) middle level sharded too at sharded_levels=2, and
-  the replicated coarse ``LatticeGMG`` (K2 on its levels) fed by one
-  all-reduce of the restricted residual.
+  the replicated coarse ``LatticeGMG`` (K2 on its levels; at
+  sharded_levels=2 its ``tail(1)``, the levels below the middle one) fed by
+  one all-reduce of the restricted residual.
 
 Everything — assembly, CG, backsubstitution — runs on every rank in step;
 each rank's tensors live on its device.
@@ -45,7 +46,8 @@ import torch
 
 from .._dtypes import torch_dtype
 from ..fem.forms import Form
-from ..la.gmg import LatticeGMG, _prolong1, _restrict1
+from ..la.gmg import _prolong1, _restrict1
+from ..la.solvers import ChebyshevPC
 from ..la.sparse import build_slot_pattern
 from ..ops.assemble import _bc_masks, _build_cell_transforms, _mpc_pair, _real_dtype, apply_lifting, assemble_vector, \
     set_bc
@@ -437,24 +439,8 @@ class ShardedLatticeProblem:
                 "fm": as_t(fm, torch.bool),
                 "tabs": tuple(as_t(t, trdt if t.dtype.kind == "f" else torch.int64) for t in tabs2),
             }
-            # the replicated tail: the hierarchy from (n/4) down, rebuilt
-            # WITHOUT re-running __init__ (bounds already computed)
-            sub = LatticeGMG.__new__(LatticeGMG)
-            sub.ops = list(cg.ops[1:])
-            sub.free_masks = None if cg.free_masks is None else list(cg.free_masks[1:])
-            sub._inv_diag = list(cg._inv_diag[1:])
-            sub.n_pre, sub.n_post = cg.n_pre, cg.n_post
-            sub.omegas = tuple(cg.omegas[1:])
-            sub.coarse_iters = cg.coarse_iters
-            sub.coarse_mode = cg.coarse_mode
-            sub.coarse_inv = cg.coarse_inv
-            sub._cheb = cg._cheb
-            sub.blocked_io = False
-            sub.smoother = cg.smoother
-            sub._cheb_sm = None if cg._cheb_sm is None else tuple(cg._cheb_sm[1:])
-            sub._bounds = None
-            sub._span_names = cg._span_names[1:]  # the levels keep their names
-            self.coarse_gmg_sub = sub
+            # the replicated tail: the hierarchy from (n/4) down
+            self.coarse_gmg_sub = cg.tail(1)
 
         # backsubstitution tables
         if mpc_r is not None and mpc_r.num_local_slaves:
@@ -667,29 +653,7 @@ class ShardedLatticeProblem:
         dpos = torch.movedim(torch.abs(diag), -1, 0)
         ratio = torch.where(dpos > 0, rowsum / torch.clamp(dpos, min=1e-30), torch.zeros_like(rowsum))
         lmax = float(comm.pmax(torch.max(ratio))) * 1.05
-        lmin = 0.06 * lmax
-        theta = (lmax + lmin) / 2
-        delta = (lmax - lmin) / 2
-        degree = self.cheb_degree
-
-        def M(r):
-            rr = inv * r
-            xk = rr / theta
-            if degree == 1:
-                return xk
-            res = rr - inv * matvec(xk)
-            dk = res / theta
-            sigma = theta / delta
-            rho = 1.0 / sigma
-            for _ in range(degree - 1):
-                rho_new = 1.0 / (2 * sigma - rho)
-                dk = rho_new * rho * dk + 2 * rho_new / delta * res
-                xk = xk + dk
-                res = res - inv * matvec(dk)
-                rho = rho_new
-            return xk
-
-        return M
+        return ChebyshevPC(lambda v: inv * matvec(v), inv, lmax, 0.06, self.cheb_degree)
 
     def _restrict_x(self, res, n_loc):
         """Local y, z full weighting, then x full weighting with one halo

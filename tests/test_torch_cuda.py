@@ -1113,32 +1113,17 @@ def test_cg_under_the_vcycle_graph_on_card(cuda, case):
     assert tt.trace_timings()["gmg.graph_capture"][0] == captures + 1
 
 
-def test_vcycle_graph_of_an_instance_built_by_new_on_card(cuda):
-    """The sharded path's replicated tail (parallel/lattice_spmd.py) is a
-    LatticeGMG made by __new__ with the levels below the finest: it
-    captures on its first CUDA call and replays what the eager cycle
-    gives."""
-    from dolfinx_mpc_tpu_torch.la.gmg import LatticeGMG
+def test_vcycle_graph_of_a_tail_on_card(cuda):
+    """The sharded path's replicated tail (parallel/lattice_spmd.py) is
+    tail(1) of the coarse hierarchy: it captures on its first CUDA call,
+    into its own graph table, and replays what the eager cycle gives."""
     from dolfinx_mpc_tpu_torch.utils import timing as tt
 
     ops, cg = _graph_hierarchy("P1 chebyshev coarse", cuda)
-    sub = LatticeGMG.__new__(LatticeGMG)
-    sub.ops = list(cg.ops[1:])
-    sub.free_masks = list(cg.free_masks[1:])
-    sub._inv_diag = list(cg._inv_diag[1:])
-    sub.n_pre, sub.n_post = cg.n_pre, cg.n_post
-    sub.omegas = tuple(cg.omegas[1:])
-    sub.coarse_iters = cg.coarse_iters
-    sub.coarse_mode = cg.coarse_mode
-    sub.coarse_inv = cg.coarse_inv
-    sub._cheb = cg._cheb
-    sub.blocked_io = False
-    sub.smoother = cg.smoother
-    sub._cheb_sm = tuple(cg._cheb_sm[1:])
-    sub._bounds = None
-    sub._span_names = cg._span_names[1:]
+    sub = cg.tail(1)
     captures = tt.trace_timings().get("gmg.graph_capture", (0,))[0]
     r = _graph_input(sub, sub.ops, 3)
     y1, y2 = sub(r), sub(r)
     assert torch.equal(y1, y2) and torch.equal(y1, sub._vcycle(0, r))
     assert tt.trace_timings()["gmg.graph_capture"][0] == captures + 1 and len(sub._graphs) == 1
+    assert not cg._graphs

@@ -121,6 +121,30 @@ def test_gmg_option_matches_jax(hierarchies, option):
     assert np.abs(vp - vj).max() < 1e-12 * np.abs(vj).max()
 
 
+@pytest.mark.parametrize("kw", [dict(smoother="chebyshev", coarse="dense"),
+                                dict(smoother="chebyshev", coarse="chebyshev"), dict(smoother="jacobi")],
+                         ids=["chebyshev dense", "chebyshev chebyshev", "jacobi"])
+def test_gmg_tail_is_the_cycle_below(hierarchies, kw):
+    """tail(1) of a three-level hierarchy is its V-cycle from level 1, bit
+    for bit: the same level objects, the level's own span names (gmg.L1.*)
+    and a graph table of its own."""
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    (_, _), (op, mp) = hierarchies
+    M = pt.LatticeGMG(op, free_masks=mp, **kw)
+    T = M.tail(1)
+    assert len(op) == 3 and len(T.ops) == 2 and all(a is b for a, b in zip(T.ops, M.ops[1:]))
+    assert all(a is b for a, b in zip(T.free_masks, M.free_masks[1:])) and T._graphs is not M._graphs
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal(op[1].shape[0]))
+    tt.reset_timings()
+    y = T(r)
+    spans = {k for k in tt.trace_timings() if k.startswith("gmg.L")}
+    assert spans == {f"gmg.L1.{phase}" for phase in ("pre", "down", "up", "post")}
+    assert torch.equal(y, M._vcycle(1, r)) and torch.equal(T._vcycle(0, r), y)
+    with pytest.raises(ValueError, match="tail"):
+        M.tail(3)
+
+
 def test_gmg_rejects_unknown_coarse_mode(hierarchies):
     (_, _), (op, mp) = hierarchies
     with pytest.raises(ValueError, match="coarse mode"):

@@ -190,6 +190,52 @@ def test_p2_lattice_matches_general(cube, fmt):
     assert _max(A.to_scipy() - A_ref) < 1e-10
 
 
+ABS_CASES = {
+    "fold": (1, "fold", "fold_pairs"),
+    "csr": (1, "csr", "side_data"),
+    "cells": (1, "cells", "side_Aep"),
+    "P2 blocked fold": (2, "fold", "fold_mask_b"),
+}
+
+
+def _same_but_abs(A, B):
+    """B carries every attribute of A: the value tensors as their torch.abs,
+    a nested DIA recursively, diagval as its abs, every other field as the
+    same object."""
+    assert vars(B).keys() == vars(A).keys()
+    for k, v in vars(A).items():
+        w = getattr(B, k)
+        if k == "dia":
+            _same_but_abs(v, w)
+        elif k == "diagval":
+            assert w == abs(v)
+        elif k in ("data", "side_data", "side_Aep") and v is not None:
+            assert torch.equal(w, torch.abs(v))
+        else:
+            assert w is v, k
+
+
+@pytest.mark.parametrize("case", list(ABS_CASES))
+def test_lattice_operator_abs_carries_every_field(case):
+    """LatticeOperator.abs() (the Gershgorin bound's |A|) on each side
+    format and on the degree-2 blocked fold: every field of the operator
+    and of its DIA carried, the value tensors made absolute; a field added
+    later fails here until abs() carries it."""
+    degree, fmt, field = ABS_CASES[case]
+    V = pt.functionspace(PM.create_unit_cube(3, 3, 3), ("Lagrange", degree))
+    bc = pt.dirichletbc(0.0, pt.locate_dofs_geometrical(
+        V, lambda x: np.isclose(x[1], 0.0) | np.isclose(x[1], 1.0)), V)
+    mpc = _periodic(pt, V, [bc])
+    a = pt.BilinearForm(V, lambda u, v, c: PF.inner(PF.grad(u), PF.grad(v)), quad_degree=degree)
+    A = _lattice(pt, a, mpc, [bc], diagval=-2.0, side_format=fmt).assemble()
+    assert getattr(A, field) is not None and isinstance(A.dia, BlockDIAMatrix) == (degree == 2)
+    B = A.abs()
+    assert B.diagval == 2.0 and bool((A.dia.data < 0).any())
+    _same_but_abs(A, B)
+    ones = torch.ones(A.shape[0], dtype=A.dtype)
+    assert (B.matvec(ones).numpy() >= abs(A.to_scipy()) @ ones.numpy() - 1e-12).all()  # bounds |K^H A K| . 1
+
+
 def _perturbed(M, dims):
     """A lattice box whose interior points are moved by a bump that
     vanishes on the boundary, so the lattice info and the periodic planes

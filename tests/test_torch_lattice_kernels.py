@@ -269,12 +269,10 @@ def test_k2_halo_covers_every_dia_of_the_paths(case):
     absolute-value copies the Chebyshev bounds take), the refined degree-2
     DIA (65 offsets, |d| <= 2) and the Dirichlet-free forms (K5's tables);
     K2's parameter block builds for each, and an offset of 3 raises."""
-    from dolfinx_mpc_tpu_torch.la.gmg import _abs_dia
-
     degree = 2 if "P2" in case else 1
     if case == "P1 GMG":
         ops, _ = pt.build_gmg_hierarchy(lambda m: _pt_form_clf((m, m, m), 1, True), 8, 3, min_n=2)
-        dias = [o.dia for o in ops] + [_abs_dia(o.dia) for o in ops]
+        dias = [o.dia for o in ops] + [o.dia.abs() for o in ops]
         assert [d.vshape for d in dias[:3]] == [(9, 9, 9), (5, 5, 5), (3, 3, 3)]
         offsets = [(d.offsets, d.vshape) for d in dias]
     else:
@@ -328,10 +326,8 @@ def test_k7_halo_covers_every_dia_of_the_elasticity_gmg():
     f32 and f64: the block holds the DIA's offsets in order (plane offset,
     flat shift dj*n2 + dk, dk), bs 3, the halo width and one x plane per
     block; an offset of 3 raises."""
-    from dolfinx_mpc_tpu_torch.la.gmg import _abs_dia
-
     ops, _ = pt.build_gmg_hierarchy(lambda m: _pt_elasticity_clf((m, m, m)), 8, 3, min_n=2)
-    dias = [o.dia for o in ops] + [_abs_dia(o.dia) for o in ops]
+    dias = [o.dia for o in ops] + [o.dia.abs() for o in ops]
     assert [d.vshape for d in dias[:3]] == [(9, 9, 9), (5, 5, 5), (3, 3, 3)]
     assert all(d.bs == 3 and d.data.shape[1:3] == (3, 3) for d in dias)
     for d in dias:

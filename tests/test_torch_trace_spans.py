@@ -188,7 +188,7 @@ def test_cpu_vcycle_is_the_eager_cycle(hierarchy, p2_hierarchy, coarse):
     assert torch.equal(y, M._vcycle(0, r)) and torch.equal(M(r), y)
     t = tt.trace_timings()
     assert t["gmg.vcycle"][0] == 2 and not [k for k in t if k.startswith("gmg.graph")]
-    assert "_graphs" not in vars(M)
+    assert M._graphs == {}
 
 
 def test_memory_report_walks_a_captured_cycle(hierarchy):
