@@ -22,6 +22,8 @@ import torch
 
 from .._device import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import span, traced
+from .bell import bell_matvec
+from .cycle_graph import run_cycle
 
 __all__ = ["AMG", "smoothed_aggregation_amg"]
 
@@ -415,7 +417,18 @@ def smoothed_aggregation_amg(
 
 class AMG:
     """Smoothed-aggregation V-cycle: a callable r -> M r on the levels'
-    device."""
+    device, inside the span amg.vcycle.
+
+    On a CUDA input the cycle runs as a CUDA graph (la/cycle_graph.py), one
+    per input layout in _graphs: captured once, then replayed (the ELL and
+    CSR levels' gathers, products and index_add_, the dense coarse matmul,
+    K8 on a BELL fine level, without their ~530 host launches), with the
+    counters amg.graph_capture and amg.graph_replay, and each replay
+    re-adding one cycle's K8 launch counts.  A graph reads the levels in
+    place: the hierarchy is fixed once built.  The ELL remainder and the CSR
+    levels add with float atomics on the card, so a replay equals the eager
+    cycle to their rounding, as two eager cycles do.  A CPU input takes the
+    eager cycle."""
 
     def __init__(self, ops, Ps, Rs, inv_diag, coarse_inv, cheb, degree=3):
         self.ops = ops
@@ -425,6 +438,7 @@ class AMG:
         self.coarse_inv = coarse_inv
         self.cheb = cheb  # (lo, hi) spectrum bounds of D^-1 A per level
         self.degree = degree
+        self._graphs = {}  # (shape, dtype, device) -> CycleGraph
 
     def _smooth(self, lvl, x, b):
         """Chebyshev iteration on D^-1 A over [lo, hi] (hypre-style)."""
@@ -460,4 +474,4 @@ class AMG:
         return self._smooth(lvl, x, b)
 
     def __call__(self, r):
-        return self._vcycle(0, r)
+        return run_cycle(self._graphs, lambda v: self._vcycle(0, v), r, "amg", (bell_matvec,))

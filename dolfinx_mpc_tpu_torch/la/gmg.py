@@ -27,9 +27,10 @@ import copy
 import numpy as np
 import torch
 
-from .._launch import LaunchRecord
 from ..ops.lattice_kernels import blocked_matvec, dia_matvec, dia_matvec_bs
-from ..utils.timing import CallRecord, count, span
+from ..utils.timing import span
+from .cycle_graph import CycleGraph as _Graph  # noqa: F401  (a graph table's entries)
+from .cycle_graph import run_cycle
 from .solvers import ChebyshevPC
 
 __all__ = ["LatticeGMG", "build_gmg_hierarchy", "dense_coarse_inverse"]
@@ -137,18 +138,13 @@ class LatticeGMG:
     fine level, the cycle takes flat vectors and every fine matvec converts
     (CG on ``A.matvec``, as tests/test_gmg.py compares with blocked I/O).
 
-    On a CUDA input the cycle runs as a CUDA graph: the first call with a
-    given (shape, dtype, device) runs it eagerly on a side stream (which
-    prepares the operators' launches and the kernels' shared-memory
-    opt-ins), then captures it once with a static input and output, and
-    every call replays the capture (K2, K6, K7 and the same elementwise
-    kernels, without their ~1,000 host launches) and returns a copy of the
-    output.  The counts keep reading what the device runs: each replay adds
-    the span calls (with no seconds) and the SpMV launch counts that one
-    captured cycle made, and the counters gmg.graph_capture and
-    gmg.graph_replay count captures and replays.  A graph keeps the level
-    tensors it captured alive and reads them in place, as the operators'
-    prepared launches do: the hierarchy is fixed once built.  A CPU input
+    On a CUDA input the cycle runs as a CUDA graph (la/cycle_graph.py), one
+    per input layout in _graphs: captured once, then replayed (K2, K6, K7
+    and the same elementwise kernels, without their ~1,000 host launches),
+    with the counters gmg.graph_capture and gmg.graph_replay, and each
+    replay re-adding one cycle's span calls and K2 / K6 / K7 launch counts.
+    A graph reads the level tensors in place, as the operators' prepared
+    launches do: the hierarchy is fixed once built.  A CPU input
     takes the eager cycle.  tail(l) is the cycle over levels l, l+1, ... of
     the same hierarchy (the sharded path's replicated part), sharing its
     levels and capturing graphs of its own."""
@@ -211,7 +207,7 @@ class LatticeGMG:
         # up, post per level above the coarsest
         self._span_names = [tuple(f"gmg.L{lvl}.{phase}" for phase in ("pre", "down", "up", "post"))
                             for lvl in range(len(ops) - 1)]
-        self._graphs = {}  # (shape, dtype, device) -> _Graph
+        self._graphs = {}  # (shape, dtype, device) -> CycleGraph (la/cycle_graph.py)
 
     def tail(self, start):
         """The V-cycle over levels start, start+1, ... of this hierarchy, on
@@ -318,60 +314,8 @@ class LatticeGMG:
             return self._smooth(lvl, x, b, self.n_post)
 
     def __call__(self, r):
-        with span("gmg.vcycle"):
-            if r.device.type != "cuda":
-                return self._vcycle(0, r)
-            with torch.cuda.device(r.device):  # replay() launches on the current device's stream
-                return self._replay(r)
-
-    def _replay(self, r):
-        key = (tuple(r.shape), r.dtype, r.device)
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = self._capture(r)
-        g.x.copy_(r)
-        g.graph.replay()
-        g.spans.add()
-        g.launches.add()
-        count("gmg.graph_replay", 1)
-        # a copy: CG keeps the first output (p = z) while the next replay
-        # writes the static one
-        return g.y.clone()
-
-    def _capture(self, r):
-        """The V-cycle on inputs like r as a _Graph: one eager cycle on a
-        side stream first (it runs on the device and counts as the cycle it
-        is), then the capture, whose span calls and launch counts are taken
-        back (it runs nothing) and kept for the replays to add."""
-        side = torch.cuda.Stream(r.device)
-        side.wait_stream(torch.cuda.current_stream(r.device))
-        with torch.cuda.stream(side):
-            self._vcycle(0, r)
-        torch.cuda.current_stream(r.device).wait_stream(side)
-        x = torch.empty(r.shape, dtype=r.dtype, device=r.device)
-        x.copy_(r)
-        graph = torch.cuda.CUDAGraph()
-        spans, launches = CallRecord(), LaunchRecord((dia_matvec, dia_matvec_bs, blocked_matvec))
-        # "thread_local": only this thread's capture-unsafe calls void the
-        # capture; another thread's (a gloo rank's staging, a data loader)
-        # cannot, as it could under the default "global"
-        with spans, launches, torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            y = self._vcycle(0, x)
-        spans.add(-1)
-        launches.add(-1)
-        count("gmg.graph_capture", 1)
-        return _Graph(graph, x, y, spans, launches)
-
-
-class _Graph:
-    """A captured V-cycle: the graph, its static input and output, and the
-    span calls and launch counts of one cycle.  No __slots__: the sharded
-    path's memory_report walks the attributes (vars) of the port's objects,
-    a LatticeGMG's _graphs (a tail's own) among them, and counts the static
-    buffers as the replicated hierarchy's."""
-
-    def __init__(self, graph, x, y, spans, launches):
-        self.graph, self.x, self.y, self.spans, self.launches = graph, x, y, spans, launches
+        return run_cycle(self._graphs, lambda v: self._vcycle(0, v), r, "gmg",
+                         (dia_matvec, dia_matvec_bs, blocked_matvec))
 
 
 def build_gmg_hierarchy(make_compiled_form, n, n_levels, min_n=4, levels=None):

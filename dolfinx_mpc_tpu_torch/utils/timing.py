@@ -17,8 +17,9 @@ conversions); ``csr.to_scipy``
 (la/sparse.py); ``bell.pack``, ``bell.upload`` and the counters
 ``bell.upload_bytes``, ``bell.plan_hit`` and ``bell.plan_miss``
 (la/bell.py); ``amg.setup``, ``amg.aggregate``, ``amg.prolongator``,
-``amg.galerkin``, ``amg.to_device``, ``amg.coarse_inverse`` (la/amg.py);
-the counters ``gmg.graph_capture`` and ``gmg.graph_replay`` (la/gmg.py: the
+``amg.galerkin``, ``amg.to_device``, ``amg.coarse_inverse``, ``amg.vcycle``
+(la/amg.py); the counters ``gmg.graph_capture``, ``gmg.graph_replay``,
+``amg.graph_capture`` and ``amg.graph_replay`` (la/cycle_graph.py: each
 V-cycle's CUDA graph).  ``CallRecord`` records the calls that spans and
 counters add while it is open and adds them again, with no seconds, for
 work that ran without its spans' host code: a captured graph's replay.

@@ -1013,7 +1013,8 @@ def test_distributed_paths_on_card_match_plain(cuda, backend, n_ranks):
 
 
 # ---------------------------------------------------------------------------
-# The GMG V-cycle as a CUDA graph (la/gmg.py: LatticeGMG._replay)
+# The GMG V-cycle as a CUDA graph (la/gmg.py: LatticeGMG.__call__ through
+# la/cycle_graph.py)
 # ---------------------------------------------------------------------------
 
 _GRAPH_CASES = {
@@ -1127,3 +1128,103 @@ def test_vcycle_graph_of_a_tail_on_card(cuda):
     assert torch.equal(y1, y2) and torch.equal(y1, sub._vcycle(0, r))
     assert tt.trace_timings()["gmg.graph_capture"][0] == captures + 1 and len(sub._graphs) == 1
     assert not cg._graphs
+
+
+# ---------------------------------------------------------------------------
+# The AMG V-cycle as a CUDA graph (la/amg.py: AMG.__call__ through
+# la/cycle_graph.py)
+# ---------------------------------------------------------------------------
+
+# the relative max difference between two eager cycles, from the float
+# atomics of index_add_ (the ELL remainder, the CSR levels): a replay runs
+# the same kernels and is held to the same spread
+_AMG_GRAPH_TOL = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+def _amg_graph_case(dtype, device, bell_fine=False):
+    """The tied contact at NB=12/NT=10 (10,584 dofs) and its AMG on the card
+    with coarse_size 100: a block-ELL fine level (with bell_fine the BELL
+    operator as fine_op, so the cycle launches K8), CSR levels below
+    ell_min and a dense coarse inverse.  Returns (AMG, BELL operator, b)."""
+    from dolfinx_mpc_tpu_torch.la.amg import smoothed_aggregation_amg
+    from dolfinx_mpc_tpu_torch.la.bell import BellMatrix, bell_from_scipy
+    from dolfinx_mpc_tpu_torch.la.ell import BlockEllMatrix
+    from dolfinx_mpc_tpu_torch.la.sparse import CSRMatrix
+    from dolfinx_mpc_tpu_torch.utils.mpc_utils import rigid_motions_nullspace
+
+    V, bcs, mpc, a, L = _contact_problem(12, 10, np.float64, device)
+    As = pt.assemble_matrix(a, mpc, bcs).to_scipy()
+    b = pt.set_bc(pt.apply_lifting(pt.assemble_vector(L, mpc), [a], [bcs], mpc), bcs)
+    B = bell_from_scipy(As, dtype=dtype, device=device)
+    M = smoothed_aggregation_amg(As, bs=3, dtype=dtype, nullspace=rigid_motions_nullspace(V), coarse_size=100,
+                                 fine_op=B if bell_fine else None, device=device)
+    assert As.shape[0] == 10584 and isinstance(M.ops[0], BellMatrix if bell_fine else BlockEllMatrix)
+    assert len(M.ops) >= 2 and all(isinstance(op, CSRMatrix) for op in M.ops[1:])
+    assert M.coarse_inv is not None
+    return M, B, b.to(getattr(torch, np.dtype(dtype).name))
+
+
+def _rel_max(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _amg_graph_counts():
+    """The span calls and K8's launch counters, one flat dict."""
+    from dolfinx_mpc_tpu_torch.la.bell import bell_matvec
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    out = {k: v[0] for k, v in tt.trace_timings().items()}
+    out["bell_matvec"] = bell_matvec.launches
+    out.update({("bell_matvec", k): v for k, v in bell_matvec.launches_by_dtype.items()})
+    return out
+
+
+@pytest.mark.parametrize("fine", ["ell", "bell"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_amg_graph_replay_matches_the_eager_cycle_on_card(cuda, dtype, fine):
+    """The replayed AMG cycle matches the eager _vcycle for three inputs to
+    the eager cycle's own repeat spread (asserted beside it); a returned
+    tensor is unchanged by the next call; one capture for every call;
+    after k replays amg.vcycle and amg.graph_replay have grown by k and K8's
+    counts by k times one eager cycle's (none on an ELL fine level)."""
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    M, _, b = _amg_graph_case(dtype, cuda, bell_fine=fine == "bell")
+    tol = _AMG_GRAPH_TOL[dtype]
+    rs = [torch.as_tensor(np.random.default_rng(seed).standard_normal(b.shape[0]), dtype=b.dtype, device=cuda)
+          for seed in range(3)]
+    captures = tt.trace_timings().get("amg.graph_capture", (0,))[0]
+    ys = [M(r) for r in rs]
+    kept = [y.clone() for y in ys]
+    for r, y, y0 in zip(rs, ys, kept):
+        assert torch.equal(y, y0)  # later calls left it alone
+        eager = M._vcycle(0, r)
+        assert _rel_max(M._vcycle(0, r), eager) <= tol and _rel_max(y, eager) <= tol
+    t0 = _amg_graph_counts()
+    M._vcycle(0, rs[0])
+    torch.cuda.synchronize()
+    eager = _delta(t0, _amg_graph_counts())
+    assert (eager.get("bell_matvec", 0) > 0) == (fine == "bell")
+    k = 4
+    t0 = _amg_graph_counts()
+    for _ in range(k):
+        M(rs[1])
+    torch.cuda.synchronize()
+    got = _delta(t0, _amg_graph_counts())
+    assert got.pop("amg.vcycle") == k and got.pop("amg.graph_replay") == k
+    assert got == {name: k * n for name, n in eager.items()}
+    assert tt.trace_timings()["amg.graph_capture"][0] == captures + 1 and len(M._graphs) == 1
+
+
+def test_cg_under_the_amg_graph_on_card(cuda):
+    """In float64 CG on the BELL operator takes as many iterations under
+    the replayed AMG cycle as under the eager one, and the solutions agree
+    to 1e-8; one capture for the whole solve."""
+    from dolfinx_mpc_tpu_torch.utils import timing as tt
+
+    M, B, b = _amg_graph_case(np.float64, cuda)
+    captures = tt.trace_timings().get("amg.graph_capture", (0,))[0]
+    x_g, its_g, _ = pt.cg(B.matvec, b, M=M, rtol=1e-10, atol=0.0, max_it=500)
+    x_e, its_e, _ = pt.cg(B.matvec, b, M=lambda r: M._vcycle(0, r), rtol=1e-10, atol=0.0, max_it=500)
+    assert 0 < its_g < 500 and its_g == its_e and _rel_max(x_g, x_e) <= 1e-8
+    assert tt.trace_timings()["amg.graph_capture"][0] == captures + 1 and len(M._graphs) == 1

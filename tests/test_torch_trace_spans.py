@@ -1,7 +1,9 @@
 """The port's inner spans and counters (utils/timing.py's trace table): the
-table's arithmetic on a fake clock, and the spans that the GMG V-cycle, the
-class stack's conversions, the BELL conversion, CSRMatrix.to_scipy and the
-AMG set-up open, counted on small problems on the CPU."""
+table's arithmetic on a fake clock, the replay bookkeeping of the shared
+CUDA-graph helper (la/cycle_graph.py), and the spans that the GMG V-cycle,
+the class stack's conversions, the BELL conversion, CSRMatrix.to_scipy, the
+AMG set-up and the AMG V-cycle open, counted on small problems on the
+CPU."""
 
 import numpy as np
 import pytest
@@ -213,6 +215,79 @@ def test_memory_report_walks_a_captured_cycle(hierarchy):
     assert _tensor_bytes(M) == before + x.nbytes + y.nbytes
 
 
+class _DoublingGraph:
+    """Stands in for a captured torch.cuda.CUDAGraph on the CPU: replay()
+    writes 2 x into the static output and opens no span."""
+
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+    def replay(self):
+        torch.mul(self.x, 2.0, out=self.y)
+
+
+def test_cycle_graph_replay_re_adds_one_cycle(hierarchy):
+    """la/cycle_graph.replay on a table that holds the input's layout: the
+    cycle itself is not run; each replay copies the input in, returns a copy
+    of the static output, counts <prefix>.graph_replay and re-adds the span
+    calls and wrapper launches of the one eager cycle its records saw; a
+    negative add takes them back."""
+    from dolfinx_mpc_tpu_torch._launch import LaunchRecord, count_launch
+    from dolfinx_mpc_tpu_torch.la.cycle_graph import CycleGraph, replay
+
+    ops, masks = hierarchy
+    M = pt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev")
+
+    def k8():
+        pass
+
+    k8.launches, k8.launches_by_dtype = 0, {}
+
+    def cycle(v):
+        count_launch(k8, v.dtype)
+        return M._vcycle(0, v)
+
+    x = torch.zeros(ops[0].shape[0], dtype=ops[0].dtype)
+    spans, launches = tt.CallRecord(), LaunchRecord((k8,))
+    with spans, launches:
+        y = cycle(x)
+    one = {name: v[0] for name, v in tt.trace_timings().items()}
+    assert one == spans.calls and one["gmg.coarse"] == 1 and k8.launches == 1
+    spans.add(-1)
+    launches.add(-1)
+    assert all(v[0] == 0 for v in tt.trace_timings().values()) and k8.launches == 0
+    graphs = {(tuple(x.shape), x.dtype, x.device): CycleGraph(_DoublingGraph(x, y), x, y, spans, launches)}
+
+    def not_run(v):
+        raise AssertionError("a replay ran the eager cycle")
+
+    rs = [torch.as_tensor(np.random.default_rng(s).standard_normal(x.shape[0])) for s in range(3)]
+    outs = [replay(graphs, not_run, r, "amg", (k8,)) for r in rs]
+    for r, out in zip(rs, outs):
+        assert torch.equal(out, 2.0 * r) and out.data_ptr() != y.data_ptr()
+    k = len(rs)
+    t = {name: v[0] for name, v in tt.trace_timings().items()}
+    assert t.pop("amg.graph_replay") == k and t == {name: k * n for name, n in one.items()}
+    assert (k8.launches, k8.launches_by_dtype) == (k, {"float64": k})
+    spans.add(-k)
+    launches.add(-k)
+    assert all(v[0] == 0 for n, v in tt.trace_timings().items() if n != "amg.graph_replay")
+    assert (k8.launches, k8.launches_by_dtype) == (0, {"float64": 0})
+
+
+def test_graph_tables_are_per_instance(hierarchy):
+    """A LatticeGMG, its tail and an AMG each keep their own graph table: an
+    entry in one is in no other."""
+    ops, masks = hierarchy
+    M = pt.LatticeGMG(ops, free_masks=masks, smoother="chebyshev")
+    tail = M.tail(1)
+    amg = smoothed_aggregation_amg(_laplacian(8, 3), coarse_size=100, dtype=np.float64, device="cpu")
+    tables = [M._graphs, tail._graphs, amg._graphs]
+    assert tables == [{}, {}, {}] and len({id(t) for t in tables}) == 3
+    M._graphs["layout"] = None
+    assert tail._graphs == {} and amg._graphs == {} and M.tail(1)._graphs == {}
+
+
 def _p2_level(lv):
     deg, n = lv
     V = pt.functionspace(PM.create_unit_cube(n, n, n), ("Lagrange", deg))
@@ -309,3 +384,17 @@ def test_amg_setup_spans_per_level():
     tot = tt.trace_timings()
     inner = ("amg.aggregate", "amg.prolongator", "amg.galerkin", "amg.to_device", "amg.coarse_inverse")
     assert sum(tot[k][1] for k in inner) <= tot["amg.setup"][1]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cpu_amg_cycle_is_the_eager_cycle(dtype):
+    """On the CPU AMG.__call__ is _vcycle(0, r) bit for bit: each call opens
+    amg.vcycle once and nothing is captured or replayed."""
+    M = smoothed_aggregation_amg(_laplacian(14, 3), coarse_size=100, dtype=dtype, device="cpu")
+    assert len(M.Ps) >= 2
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(M.ops[0].shape[0]).astype(dtype))
+    tt.reset_timings()
+    y = M(r)
+    assert torch.equal(y, M._vcycle(0, r)) and torch.equal(M(r), y)
+    assert {k: v[0] for k, v in tt.trace_timings().items()} == {"amg.vcycle": 2}
+    assert M._graphs == {}
